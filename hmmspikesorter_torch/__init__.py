@@ -2,7 +2,8 @@
 chain), beside the JAX package `hmmspikesorter_tpu`, which stays the
 reference.
 
-Public surface of this slice (the N=2 overlap decode with known templates):
+Public surface so far (the decode with known templates, any N, with or
+without overlaps):
     from hmmspikesorter_torch.models import api   # fit_spiking_model[_fast]
     from hmmspikesorter_torch.io import extraction
     from hmmspikesorter_torch.convert import template_model_from_numpy

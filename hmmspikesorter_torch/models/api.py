@@ -28,8 +28,7 @@ from ..config import UNSET, _section, pick
 from ..core.path_score import path_cumulative_ll
 from ..core.reconstruction import reconstruct_signal
 from ..core.state_space import StateSpace, build_state_space
-from ..ops.ring_viterbi import (engine_name, ring_block_decoder,
-                                ring_viterbi_nov, ring_viterbi_ov2)
+from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..parallel.overlap_save import (overlap_save_decode_long,
                                      resolve_block_engine, ring_overlap_save)
 from ..parallel.seam_repair import make_window_decoder, repair_seams
@@ -169,9 +168,8 @@ def _chunked_decode(y, decode, chunksize, progress=None):
 
 def _decoder_for(templates: HMMTemplateModel, device, dtype):
     """yy (host samples) -> (labels numpy, ll float) via the ring engine of
-    the model's topology."""
-    name = engine_name(templates.n_neurons, templates.allow_overlaps)
-    engine = ring_viterbi_ov2 if name == "ov2" else ring_viterbi_nov
+    the model's topology (nov, ov2 or ovn)."""
+    engine = ring_engine(templates.n_neurons, templates.allow_overlaps)
     mu_t = as_float(templates.mu, dtype, device)
     lp, sigma = templates.lp, templates.sigma
 
@@ -194,9 +192,11 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
                            config=None, device=None,
                            dtype=None) -> HMMSpikingModel:
     """Production decode: parallel overlap-save on `device`
-    (parallel/overlap_save.ring_overlap_save); on a CUDA device with the
-    N=2 overlap topology the block decode runs the two CUDA kernels
-    (block_engine="auto" or "cuda"), else the plain ring engines.
+    (parallel/overlap_save.ring_overlap_save). On a CUDA device with
+    overlaps the block decode runs hand-written kernels: kernels 1-2 for
+    N=2 (block_engine "auto" or "cuda"), kernels 3-4 for N >= 3 ("auto" or
+    "cuda_ovn"; N=3 and N=4 at K <= 65); else the plain ring engines
+    (nov, ov2 or ovn by topology).
 
     streaming=True uses the host-side block-batch loop
     (overlap_save_decode_long, the CLI's route): batches of

@@ -27,7 +27,8 @@ from ..utils.device import nvcc_path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("viterbi_ov2_fwd", "viterbi_ov2_bt")
+SOURCES = ("viterbi_ov2_fwd", "viterbi_ov2_bt", "viterbi_ovn_fwd",
+           "viterbi_ovn_bt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

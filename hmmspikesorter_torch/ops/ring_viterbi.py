@@ -10,16 +10,20 @@ State layout (identical indexing to core/state_space.py, reference
 src/types.jl:65-92):
   0                      all-silent
   1 + n*(K-1) + (k-1)    single-active: neuron n at ring position k
-  base + (k1-1)*(K-1) + (k2-1)   [N=2 overlap] pair grid, k1-major
+  base + (k1-1)*(K-1) + (k2-1)   [overlap] pair grids, pairs i-major,
+                                 each k1-major
 
-Engines (both run batched over a leading window axis internally):
+Engines (all run batched over a leading window axis internally):
   * ring_viterbi_nov — non-overlap space, any N;
   * ring_viterbi_ov2 — pairwise-overlap space for N == 2. Its forward and
     backtrace ARE the plain versions of the two CUDA kernels
     (ops/viterbi_mb.py), in f32 or f64; this module adds the score replay
-    for the reference ll.
+    for the reference ll;
+  * ring_viterbi_ovn (ops/ring_viterbi_ovn.py) — pairwise-overlap space,
+    any N >= 2, the plain versions of kernels 3-4 (ops/viterbi_ovn_mb.py);
+    the decode routes N >= 3 with overlaps to it.
 
-Both reproduce the reference decode semantics: emission-only init +
+All reproduce the reference decode semantics: emission-only init +
 forced silent start (src/viterbi.jl:56-63), first-max tie-break in in-edge
 source order (src/viterbi.jl:74-84), and the cumulative-score ll
 (src/viterbi.jl:92-96) by a score-replay pass, so no (T, S) score tensor is
@@ -35,20 +39,27 @@ from ..core.state_space import n_states
 from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
 from . import viterbi_mb as vmb
+from . import viterbi_ovn_mb as vomb
+from .ring_viterbi_ovn import ring_viterbi_ovn
 
-OVN_TODO = ("N >= 3 with overlaps needs ring_viterbi_ovn and the general-N "
-            "kernels (ROADMAP §1 step 3, ops/ring_viterbi_ovn.py; §2 items "
-            "3-4), which a later slice of the port adds")
+# block engine -> the topologies (engine_name) it decodes
+BLOCK_TOPOLOGIES = {"ring": ("nov", "ov2", "ovn"), "cuda": ("ov2",),
+                    "cuda_ovn": ("ov2", "ovn")}
 
 
 def engine_name(N: int, overlaps: bool) -> str:
-    """"nov" or "ov2"; N < 2 has no pairs, so its overlap space IS the
-    non-overlap space (types.jl:65-92 enumerates zero pair columns)."""
+    """"nov", "ov2" or "ovn"; N < 2 has no pairs, so its overlap space IS
+    the non-overlap space (types.jl:65-92 enumerates zero pair columns)."""
     if not overlaps or N < 2:
         return "nov"
-    if N == 2:
-        return "ov2"
-    raise NotImplementedError(OVN_TODO)
+    return "ov2" if N == 2 else "ovn"
+
+
+def ring_engine(N: int, overlaps: bool):
+    """The whole-signal plain engine of the topology: (y, lp, mu, sigma,
+    *, silent_start, with_ll) -> (x, ll)."""
+    return {"nov": ring_viterbi_nov, "ov2": ring_viterbi_ov2,
+            "ovn": ring_viterbi_ovn}[engine_name(N, overlaps)]
 
 
 # --------------------------------------------------------------------------
@@ -225,31 +236,38 @@ def ring_block_decoder(lp, mu, sigma, *, overlaps: bool,
     callable ((B, W) windows, (B,) bool silent-start rows) -> (B, W)
     labels on `device` (int16 when the state space fits, else int32).
 
-    block_engine "cuda" runs the two kernels (N=2 overlap, K-1 <= 64, CUDA
-    device, float32); "ring" the plain engines (any device and dtype).
-    Windows arrive as floats or raw integer samples and are cast to
-    `dtype` on the device."""
+    block_engine "cuda" runs kernels 1-2 (N=2 overlap, K-1 <= 64),
+    "cuda_ovn" kernels 3-4 (any overlap topology with N >= 2 that
+    viterbi_ovn_mb.ovn_kernel_ok admits), both on a CUDA device in
+    float32; "ring" the plain engines (any device and dtype). Windows
+    arrive as floats or raw integer samples and are cast to `dtype` on the
+    device."""
     mu_t = as_float(mu, dtype, device)
     K, N = mu_t.shape
     name = engine_name(N, overlaps)
-    out_dtype = vmb.labels_dtype(n_states(N, K, name == "ov2"))
-    if block_engine == "cuda":
-        if name != "ov2":
-            raise ValueError("the cuda block engine requires the N=2 "
-                             "overlap topology")
-        if torch.device(device).type != "cuda" or dtype != torch.float32:
-            raise ValueError("the cuda block engine requires a CUDA device "
-                             "and float32")
-    elif block_engine != "ring":
+    out_dtype = vmb.labels_dtype(n_states(N, K, overlaps))
+    if block_engine not in BLOCK_TOPOLOGIES:
         raise ValueError(f"unknown block_engine {block_engine!r}")
-    if name == "ov2":
+    if name not in BLOCK_TOPOLOGIES[block_engine]:
+        raise ValueError(f"block_engine={block_engine!r} does not take the "
+                         f"{name!r} topology (N={N}, overlaps={overlaps})")
+    if block_engine != "ring":
+        if torch.device(device).type != "cuda" or dtype != torch.float32:
+            raise ValueError(f"block_engine={block_engine!r} requires a "
+                             "CUDA device and float32")
+    if name == "nov":
+        def decode(yw, sil):
+            return nov_decode_batched(yw, sil, lp, mu_t, sigma).to(out_dtype)
+        return decode
+    if block_engine == "cuda_ovn" or name == "ovn":
+        c = vomb.ovn_consts(lp, mu_t, sigma, dtype=dtype, device=device)
+        dec = (vomb.ovn_decode_mb if block_engine == "cuda_ovn"
+               else vomb.ovn_decode_mb_plain)
+    else:
         c = vmb.ov2_consts(lp, mu_t, sigma, dtype=dtype, device=device)
         dec = (vmb.ov2_decode_mb if block_engine == "cuda"
                else vmb.ov2_decode_mb_plain)
 
-        def decode(yw, sil):
-            return dec(yw.to(dtype).contiguous(), sil, c).to(out_dtype)
-    else:
-        def decode(yw, sil):
-            return nov_decode_batched(yw, sil, lp, mu_t, sigma).to(out_dtype)
+    def decode(yw, sil):
+        return dec(yw.to(dtype).contiguous(), sil, c).to(out_dtype)
     return decode

@@ -32,34 +32,47 @@ import torch
 import torch.nn.functional as F
 
 from ..core.state_space import n_states
-from ..ops.ring_viterbi import (engine_name, ring_block_decoder,
-                                ring_viterbi_nov, ring_viterbi_ov2)
+from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..ops.viterbi_mb import KP, labels_dtype
+from ..ops.viterbi_ovn_mb import ovn_kernel_ok
 from ..utils.device import as_float, numpy_dtype
 
 
 def resolve_block_engine(block_engine, overlaps, K, N, device):
-    """Map "auto"/"cuda"/"ring" to the engine used for this topology.
+    """Map "auto"/"cuda"/"cuda_ovn"/"ring" to the engine used for this
+    topology.
 
-    "cuda" is the pair of hand-written kernels (N=2 with overlaps, K-1 <= 64,
-    a CUDA device); "auto" takes it when all of that holds, else "ring",
-    the plain PyTorch engines. An explicit name is validated: a typo must
-    not decode with another engine, and an explicit "cuda" that cannot run
-    raises."""
-    if block_engine not in ("auto", "cuda", "ring"):
+    "cuda" is kernels 1-2 (N=2 with overlaps, K-1 <= 64, a CUDA device);
+    "cuda_ovn" kernels 3-4 (overlaps, N >= 2, K-1 <= 64, a CUDA device, and
+    the state of one window in one CTA's shared memory,
+    ops/viterbi_ovn_mb.ovn_kernel_ok); "auto" takes "cuda" for N=2 and
+    "cuda_ovn" for N >= 3 when their conditions hold, else "ring", the
+    plain PyTorch engines. An explicit name is validated: a typo must not
+    decode with another engine, and an explicit kernel engine that cannot
+    run raises."""
+    if block_engine not in ("auto", "cuda", "cuda_ovn", "ring"):
         raise ValueError(f"unknown block_engine {block_engine!r}; expected "
-                         "'auto', 'ring' or 'cuda'")
-    name = engine_name(N, overlaps)          # raises for N >= 3 overlaps
+                         "'auto', 'ring', 'cuda' or 'cuda_ovn'")
     if block_engine == "ring":
         return "ring"
-    ok = (name == "ov2" and K - 1 <= KP
-          and torch.device(device).type == "cuda")
-    if ok:
+    on_cuda = torch.device(device).type == "cuda"
+    ok_ov2 = overlaps and N == 2 and K - 1 <= KP and on_cuda
+    ok_ovn = overlaps and ovn_kernel_ok(N, K) and on_cuda
+    if block_engine == "cuda_ovn":
+        if not ok_ovn:
+            raise ValueError(
+                "block_engine='cuda_ovn' requires an overlap topology with "
+                f"N >= 2, K <= {KP + 1}, a state that fits one CTA's shared "
+                "memory, and a CUDA device")
+        return "cuda_ovn"
+    if ok_ov2:
         return "cuda"
     if block_engine == "cuda":
         raise ValueError(
             "block_engine='cuda' requires the N=2 overlap topology with "
             f"K <= {KP + 1} on a CUDA device")
+    if ok_ovn and N >= 3:
+        return "cuda_ovn"
     return "ring"
 
 
@@ -155,26 +168,25 @@ def ring_overlap_save(y, lp, mu, sigma, *, L: int, H: int, overlaps: bool,
     device once (integer samples raw, cast there) and only labels exist at
     the end.
 
-    block_engine: "cuda" (the two kernels), "ring" (plain engines) or
-    "auto" (resolve_block_engine). Returns (x (T,) int16/int32 tensor,
-    seam_ok (B-1,) bool tensor), both on `device`.
+    block_engine: "cuda" (kernels 1-2), "cuda_ovn" (kernels 3-4), "ring"
+    (plain engines) or "auto" (resolve_block_engine). Returns (x (T,)
+    int16/int32 tensor, seam_ok (B-1,) bool tensor), both on `device`.
     """
     if L < 2 * H:
         raise ValueError("need L >= 2H so seam cuts are monotone")
     mu_t = as_float(mu, dtype, device)
     K, N = mu_t.shape
     block_engine = resolve_block_engine(block_engine, overlaps, K, N, device)
-    name = engine_name(N, overlaps)
     y = _to_device(y, device, dtype)
     T = y.shape[0]
     B = -(-T // L)
     W = L + 2 * H
-    out_dtype = labels_dtype(n_states(N, K, name == "ov2"))
+    out_dtype = labels_dtype(n_states(N, K, overlaps))
     if B == 1 or T < W:
         # whole signal in one exact decode (no padding: fake trailing zeros
         # would alter the argmax termination at the true last sample,
         # src/viterbi.jl:90)
-        engine = ring_viterbi_ov2 if name == "ov2" else ring_viterbi_nov
+        engine = ring_engine(N, overlaps)
         x, _ = engine(y, lp, mu_t, sigma, silent_start=True, with_ll=False)
         return x.to(out_dtype), torch.ones(0, dtype=torch.bool, device=device)
     y_win, edge_rows = _build_windows(y, T=T, L=L, H=H, B=B, W=W)

@@ -20,16 +20,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.ring_viterbi import engine_name, ring_viterbi_nov, ring_viterbi_ov2
+from ..ops.ring_viterbi import ring_engine
 from ..utils.device import as_float
 
 
 def make_window_decoder(lp, mu, sigma, *, overlaps: bool, device, dtype):
     """Returns decode(y_win, silent_start) -> int64 numpy labels, through
-    the plain ring engines on `device` in `dtype`."""
+    the plain ring engine of the topology (nov, ov2 or ovn) on `device` in
+    `dtype`."""
     mu_t = as_float(mu, dtype, device)
-    engine = (ring_viterbi_ov2 if engine_name(mu_t.shape[1], overlaps)
-              == "ov2" else ring_viterbi_nov)
+    engine = ring_engine(mu_t.shape[1], overlaps)
 
     def decode(y_win, silent_start: bool):
         y_t = as_float(y_win, dtype, device)

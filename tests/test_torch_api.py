@@ -104,10 +104,15 @@ def test_zero_neuron_model_matches():
 def test_not_yet_ported_paths_raise():
     y, temps, lp = signal(5 * L, K, N=3, seed=2)
     _, tt = model_pair(temps, 0.3, lp, True)
-    with pytest.raises(NotImplementedError, match="step 3"):
-        tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 3"):
-        tapi.fit_spiking_model(tt, y, device="cpu")
+    # N >= 3 with overlaps decodes (ring_viterbi_ovn and kernels 3-4);
+    # the sparse event transfer is still to come, for every N
+    fast = tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu")
+    whole = tapi.fit_spiking_model(tt, y, device="cpu")
+    assert fast.ml_seq.shape == whole.ml_seq.shape == (5 * L,)
+    assert fast.seam_ok.all() and np.isfinite(fast.ll)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu",
+                                    transfer="events")
     _, t2 = model_pair(temps[:, :2], 0.3, lp[:2], True)
     with pytest.raises(NotImplementedError, match="step 6"):
         tapi.fit_spiking_model_fast(t2, y, L=L, H=H, device="cpu",
@@ -115,6 +120,48 @@ def test_not_yet_ported_paths_raise():
     with pytest.raises(ValueError):
         tapi.fit_spiking_model_fast(t2, y, L=L, H=H, device="cpu",
                                     transfer="sparse")
+
+
+# rates at which spikes of different neurons overlap in a few hundred
+# samples, so that the N >= 3 comparisons below cover pair states
+OVN_PP = (0.02, 0.015, 0.012, 0.01)
+
+
+@pytest.mark.parametrize("mode", ["oneshot", "streaming"])
+@pytest.mark.parametrize("N", [3, 4])
+def test_fit_spiking_model_fast_matches_ovn(N, mode):
+    T = 5 * L + 37
+    y, temps, lp = signal(T, K, N=N, seed=20 + N, pp=OVN_PP[:N])
+    tj, tt = model_pair(temps, 0.3, lp, True)
+    kw = dict(L=L, H=H, streaming=mode == "streaming", blocks_per_call=2)
+    mj = japi.fit_spiking_model_fast(tj, y, **kw)
+    mt = tapi.fit_spiking_model_fast(tt, y, device="cpu", **kw)
+    _same(mt, mj)
+    np.testing.assert_array_equal(mt.seam_ok, np.asarray(mj.seam_ok))
+    assert mt.seams_repaired == mj.seams_repaired
+    assert (mt.ml_seq >= 1 + N * (K - 1)).any()      # pair states visited
+
+
+@pytest.mark.parametrize("N,chunksize", [(3, None), (3, 400), (4, 400)])
+def test_fit_spiking_model_matches_ovn(N, chunksize):
+    y, temps, lp = signal(1200, K, N=N, seed=30 + N, pp=OVN_PP[:N])
+    tj, tt = model_pair(temps, 0.3, lp, True)
+    mj = japi.fit_spiking_model(tj, y, chunksize=chunksize)
+    mt = tapi.fit_spiking_model(tt, y, chunksize=chunksize, device="cpu")
+    _same(mt, mj)
+
+
+def test_fit_spiking_model_fast_repairs_like_jax_ovn():
+    temps = templates(K, 3)
+    lp = np.log([0.003, 0.001, 0.001])
+    y = _dense_signal(5 * L, K, temps, seam=2 * L, halfwidth=200,
+                      rng=np.random.default_rng(7))
+    tj, tt = model_pair(temps, 0.05, lp, True)
+    mj = japi.fit_spiking_model_fast(tj, y, L=L, H=H)
+    mt = tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu")
+    _same(mt, mj)
+    assert mt.seams_repaired == mj.seams_repaired >= 1
+    assert mt.seam_ok.all()
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu():

@@ -124,10 +124,27 @@ def test_block_engine_gates_on_cpu():
         resolve_block_engine("cuda", True, 60, 2, "cpu")
     with pytest.raises(ValueError):
         resolve_block_engine("pallas", True, 60, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="step 3"):
-        resolve_block_engine("auto", True, 12, 3, "cpu")
+    # N >= 3: the general-N kernels need a CUDA device; "auto" takes the
+    # plain engine on the CPU, an explicit "cuda_ovn" raises
+    assert resolve_block_engine("auto", True, 12, 3, "cpu") == "ring"
+    assert resolve_block_engine("auto", True, 60, 4, "cpu") == "ring"
+    for n in (2, 3, 4):
+        with pytest.raises(ValueError):
+            resolve_block_engine("cuda_ovn", True, 60, n, "cpu")
+    with pytest.raises(ValueError):
+        resolve_block_engine("cuda", True, 60, 3, "cpu")
+    with pytest.raises(ValueError):
+        resolve_block_engine("cuda_ovn", False, 60, 3, "cpu")
     with pytest.raises(ValueError):
         ring_block_decoder(np.log([0.01, 0.01]), templates(12), 0.3,
+                           overlaps=True, block_engine="cuda", device="cpu",
+                           dtype=torch.float32)
+    with pytest.raises(ValueError):
+        ring_block_decoder(np.log([0.01, 0.01, 0.01]), templates(12, 3), 0.3,
+                           overlaps=True, block_engine="cuda_ovn",
+                           device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError):
+        ring_block_decoder(np.log([0.01, 0.01, 0.01]), templates(12, 3), 0.3,
                            overlaps=True, block_engine="cuda", device="cpu",
                            dtype=torch.float32)
 
