@@ -8,7 +8,7 @@ output.
 
 Phases, each printing one JSON line:
   platform     torch and CUDA versions, the card (nvidia-smi)
-  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-4), all
+  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-6), all
                sources at once
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
@@ -30,10 +30,34 @@ Phases, each printing one JSON line:
                (BASELINE.json config 2, benchmarks/suite.py config2: K=60,
                S=10,621, sigma=0.3, pp=(0.003, 0.002, 0.001), T=2^20,
                L=8192, H=256, seed 1234), through kernels 3-4
+  kernels_em   kernels 5-6 (the EM E-step) vs em_forward_mb_plain /
+               em_backward_mb_plain at both training shapes (B=256 windows
+               of W=2528, K=60): N=2 on the first 2^19 samples of the
+               bench.py signal with its templates, N=7 with
+               init_templates(60, 7, std(y), default_rng(1)); checkpoints
+               and la exactly equal, the summed statistics within 1e-5
+               relative; times and bounds
+  reference_em one EM step through kernels 5-6 (float32) vs
+               em_step(fb_mode="gather") in float64 on the card (N=2,
+               K=16, T=6000, L=1024, H=64), at tests/test_pallas_fb.py's
+               tolerances
+  train_em     bench.py's EM problem (N=2, K=60, T=2^19, L=2048, 10
+               iterations): em_chain(fb_mode="overlap_cuda") after one
+               warm-up, iterations/s, launch counts (10 each), the first
+               iteration vs one float64 step of the plain overlap engine
+               (the ll within 3x the error of the plain float32 overlap
+               engine in the same run, at least 1e-5, at most
+               f32_ll_rtol: the float32 recursion's own rounding at 256
+               windows), ll non-decreasing
+  train_path   api.fit_template_model(y[:2^19], 7, 60, nsteps=10) through
+               kernels 5-6 (10 + 5 EM iterations), then decode with the
+               learned templates and overlaps on through kernels 1-2:
+               exactly 2 templates, each within 1% of a generator
+               template's energy, onset counts within 2% of the truth
 Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
-About 2 minutes on an H100.
+About 4 minutes on an H100.
 """
 
 import json
@@ -45,6 +69,11 @@ import numpy as np
 import torch
 
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# exp, log and log1p issue on the special function units: 16 a clock on
+# each SM against 256 float32 operations (128 FMA lanes), a sixteenth of
+# the float32 rate (NVIDIA's table of arithmetic instruction throughput
+# for compute capability 9.0)
+SFU_OPS_PER_S = FP32_OPS_PER_S / 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 # template shapes of BASELINE.json config 2 (benchmarks/suite.py's first
 # three) and the fourth of that list for N=4
@@ -129,6 +158,150 @@ def ovn_bt_bytes(labels, xT, Km1, N):
     return int((~interior).sum()) + xT.numel() * 4 + labels.numel() * 2
 
 
+def em_fwd_ops(B, W, N, S, la_steps=None):
+    """(f32, transcendental) operations of kernel 5 at these shapes. A step
+    t >= 1: each state's emission (4) and its add (1), the ring shift's
+    add; the silent state's logsumexp over the N ring ends (N exp, 1 log)
+    and logaddexp (exp, log1p); each onset slot's logsumexp over the other
+    N-1 ends and logaddexp (N > 1). Step 0 is the emission. The logsumexp
+    over the S states (S exp, 1 log; max, subtract and add per state) is
+    counted at `la_steps` steps of a window: all W for the kernel's
+    interface, 2 for what the telescoped ll reads of `la`."""
+    la_steps = W if la_steps is None else la_steps
+    onset = N * (N + 2) if N > 1 else 0
+    sfu = (W - 1) * ((N + 3) + onset) + la_steps * (S + 1)
+    f32 = (W - 1) * (5 * S + N * (3 * N + 8) + 10) + 5 * S + la_steps * 3 * S
+    return B * f32, B * sfu
+
+
+def em_bwd_ops(B, W, N, S):
+    """(f32, transcendental) operations of kernel 6: the remat repeats
+    kernel 5's alpha steps (without its logsumexp); a beta step costs the
+    silent state's logsumexp over the N onsets and logaddexp, each ring
+    end's logsumexp over the other onsets and logaddexp (N > 1), the block
+    logsumexp of alpha + beta (S exp, 1 log), gamma (S exp) and the N xi
+    terms (N exp); plus adds, the masks and the three moment updates
+    (about 14 f32 operations per state)."""
+    onset = N * (N + 2) if N > 1 else 0
+    remat_sfu = (W - 1) * ((N + 3) + onset)
+    walk_sfu = W * ((N + 3) + onset + 2 * S + 1 + N)
+    f32 = (W - 1) * (5 * S + N * (3 * N + 8)) + W * (14 * S + N * (3 * N + 10))
+    return B * f32, B * (remat_sfu + walk_sfu)
+
+
+def ops_ms(f32, sfu):
+    """The least time for these operations: float32 and transcendentals run
+    on different units, so the slower of the two."""
+    return max(f32 / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
+
+
+def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps):
+    """Kernels 5-6 vs their plain versions on (y_win, bounds): checkpoints
+    and la exactly equal, the per-window partials and their sums over the
+    windows compared (sums within 1e-5 relative), CUDA-event times and the
+    bounds, as one row of the kernels_em line."""
+    B, W = y_win.shape
+    ch = fb_mb.em_chunk(c.S)
+    fwd = lambda: fb_mb.em_forward_mb(y_win, c, ch)          # noqa: E731
+    fwd()                                                     # warm-up
+    fwd_ms, (cp, la) = cuda_ms(fwd, reps=fwd_reps)
+    fwd_plain_ms, (pcp, pla) = cuda_ms(
+        lambda: fb_mb.em_forward_mb_plain(y_win, c, ch), reps=1)
+    fwd_err = max_abs_err([(cp, pcp), (la, pla)])
+    check(torch.equal(cp, pcp) and torch.equal(la, pla),
+          f"kernel 5 differs from its plain version at N={c.N}")
+    bwd = lambda: fb_mb.em_backward_mb(y_win, pcp, bounds, c, ch)  # noqa
+    bwd()
+    bwd_ms, got = cuda_ms(bwd, reps=bwd_reps)
+    bwd_plain_ms, ref = cuda_ms(
+        lambda: fb_mb.em_backward_mb_plain(y_win, pcp, bounds, c, ch), reps=1)
+    bwd_err = max_abs_err(list(zip(got, ref)))
+    # the statistics as the wrapper hands them on: summed over windows,
+    # window 0's beta, and the telescoped ll from la
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    names = ("G1", "Gy", "Gy2", "X", "Xd")
+    sums_rel = {n: rel(a.sum(0), b.sum(0)) for n, a, b in zip(names, got, ref)}
+    sums_rel["beta0"] = rel(got[5][0], ref[5][0])
+    lo, hi = bounds[:, 0].long(), bounds[:, 1].long()
+    (ek, pk), (ep, pp_) = (fb_mb._edge_reads(x, lo, hi) for x in (la, pla))
+    sums_rel["ll"] = rel(ek[0] + (ek[1:] - pk[1:]).sum(),
+                         ep[0] + (ep[1:] - pp_[1:]).sum())
+    check(max(sums_rel.values()) <= 1e-5,
+          f"kernel 6 differs from its plain version at N={c.N}: {sums_rel}")
+    fwd_bytes = (y_win.numel() * 4 + c.fpack.numel() * 4 + cp.numel() * 4
+                 + la.numel() * 4)
+    bwd_bytes = (y_win.numel() * 4 + cp.numel() * 4 + bounds.numel() * 4
+                 + c.fpack.numel() * 4 + sum(g.numel() * 4 for g in got))
+    f_f32, f_sfu = em_fwd_ops(B, W, c.N, c.S)
+    # what the ll consumes of la: two steps a window, two floats out
+    r_f32, r_sfu = em_fwd_ops(B, W, c.N, c.S, la_steps=2)
+    r_bytes = fwd_bytes - (la.numel() - 2 * B) * 4
+    b_f32, b_sfu = em_bwd_ops(B, W, c.N, c.S)
+    return {"N": c.N, "K": c.Km1 + 1, "S": c.S, "B": B, "W": W, "ch": ch,
+            "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                        "f32_ops": f_f32, "sfu_ops": f_sfu,
+                        "bound_ops_ms": ops_ms(f_f32, f_sfu),
+                        "bound_bytes_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_ll_reads_ms": max(
+                            ops_ms(r_f32, r_sfu),
+                            r_bytes / HBM_BYTES_PER_S * 1e3),
+                        "max_abs_err": fwd_err, "match": True},
+            "backward": {"ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                         "f32_ops": b_f32, "sfu_ops": b_sfu,
+                         "bound_ops_ms": ops_ms(b_f32, b_sfu),
+                         "bound_bytes_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                         "max_abs_err": bwd_err,
+                         "partials_bit_equal": all(
+                             torch.equal(a, b) for a, b in zip(got, ref)),
+                         "sums_rel_err": sums_rel, "match": True}}
+
+
+def bound_of(row):
+    """(bound_ms, bound_by) of one kernel row."""
+    ops, byt = row["bound_ops_ms"], row["bound_bytes_ms"]
+    return max(ops, byt), ("operations" if ops >= byt else "bytes")
+
+
+def f32_ll_rtol(L, H):
+    """Upper reading of a float32 telescoped ll's relative error against
+    float64 (the cap of train_em's ll gate): the larger of
+    tests/test_pallas_fb.py's 1e-5 and the worst case of the unnormalised
+    float32 log-alpha recursion. In a window of W = L + 2H
+    steps |la| grows to about W |l| (l the per-sample ll), each of the W
+    adds rounds by up to half an ulp of it, so a window's endc - pre is off
+    by up to W^2 |l| 2^-24, and the B windows' sum, relative to
+    |ll| = B L |l|, by W^2 / L 2^-24: 7.6e-5 at L=1024, H=64 and 1.9e-4 at
+    L=2048, H=240."""
+    W = L + 2 * H
+    return max(1e-5, W * W / L * 2.0 ** -24)
+
+
+def em_update_close(got, ref, what, ll_rtol=1e-5):
+    """tests/test_pallas_fb.py's tolerances for one EM update (lp, pi, mu,
+    sigma, ll): lp/mu/sigma rtol 2e-4 atol 1e-5, ll `ll_rtol` relative
+    (1e-5 there), pi 1e-3 where the reference is above -50. Returns the
+    worst errors."""
+    errs = {}
+    for name, a, b in zip(("lp", "pi", "mu", "sigma", "ll"), got, ref):
+        a = a.double().cpu().numpy()
+        b = b.double().cpu().numpy()
+        if name == "ll":
+            errs[name] = float(abs(a - b) / abs(b))
+            ok = errs[name] <= ll_rtol
+        elif name == "pi":
+            m = b > -50
+            errs[name] = float(np.abs(a[m] - b[m]).max())
+            ok = np.allclose(a[m], b[m], rtol=1e-3, atol=1e-3)
+        else:
+            errs[name] = float(np.abs(a - b).max())
+            ok = np.allclose(a, b, rtol=2e-4, atol=1e-5)
+        check(ok, f"{what}: {name} outside tolerance ({errs[name]})")
+    return errs
+
+
 def force_overlaps(y, temps, every):
     """Add, every `every` samples, spikes of two neurons (cycling through
     the pairs) starting 7 samples apart: the generator plays one template
@@ -195,10 +368,13 @@ def main():
     from hmmspikesorter_torch.io.extraction import unroll_mlseq
     from hmmspikesorter_torch.models import api
     from hmmspikesorter_torch.ops import _build
+    from hmmspikesorter_torch.ops import fb_mb
     from hmmspikesorter_torch.ops import viterbi_mb as vmb
     from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
     from hmmspikesorter_torch.parallel.overlap_save import (_build_windows,
                                                             ring_overlap_save)
+    from hmmspikesorter_torch.train import em as tem
+    from hmmspikesorter_torch.train import template_ops
     from hmmspikesorter_torch.utils.device import platform_report
 
     dev = torch.device("cuda")
@@ -463,6 +639,178 @@ def main():
         ovn3["forward"]["ms"] + ovn3["backtrace"]["ms"], H3,
         {"blocks_per_call": 64})
 
+    # ---- training: bench.py's EM problem (N=2, K=60, non-overlap, f32,
+    # T=2^19, block 2048 -> L=2048, H=240, W=2528, B=256) ----------------
+    Te = 1 << 19
+    ye = y[:Te]
+    Le, He = tem.cuda_em_geometry(K, 2048)
+    We, Be = Le + 2 * He, -(-Te // Le)
+    _, edge, lo_e, hi_e, xh_e = fb_mb._em_window_geom(Te, Le, He, Be, We)
+    bounds_e = torch.as_tensor(np.stack([lo_e, hi_e, xh_e], 1),
+                               dtype=torch.int32, device=dev).contiguous()
+    ye_win = fb_mb._em_window_1d(
+        torch.as_tensor(ye, dtype=torch.float32, device=dev), T=Te, L=Le,
+        H=He, B=Be, W=We, edge=edge).contiguous()
+    sig7 = float(np.std(ye))
+    mu7 = tem.init_templates(K, 7, sig7, np.random.default_rng(1))
+    lp7 = np.log(np.full(7, 2.0 ** (-3.0 * K / 2.0)))
+    ce2 = fb_mb.em_consts(lp, temps, sigma, dtype=torch.float32, device=dev)
+    ce7 = fb_mb.em_consts(lp7, mu7, sig7, dtype=torch.float32, device=dev)
+    em2 = em_kernels(fb_mb, ye_win, bounds_e, ce2, fwd_reps=10, bwd_reps=10)
+    em7 = em_kernels(fb_mb, ye_win, bounds_e, ce7, fwd_reps=5, bwd_reps=5)
+    del ye_win
+    emit({"phase": "kernels_em", "dtype": "float32", "card": card,
+          "L": Le, "H": He, "n2": em2, "n7": em7})
+
+    # ---- one kernel EM step vs the float64 gather engine -----------------
+    Ks, Ts = 16, 6000
+    temps_s = np.stack([create_spike_template(Ks, 3.0, 0.8, 0.2),
+                        create_spike_template(Ks, 4.0, 0.3, 0.2)], axis=1)
+    pp_s = np.array([0.004, 0.002])
+    ys_e, _ = create_signal(Ts, sigma, pp_s, temps_s,
+                            rng=np.random.default_rng(0))
+
+    def em_args(yy, lp_, mu_, sg, dtype):
+        return (torch.as_tensor(yy, dtype=dtype, device=dev),
+                torch.as_tensor(lp_, dtype=dtype, device=dev),
+                torch.as_tensor(mu_, dtype=dtype, device=dev),
+                torch.tensor(sg, dtype=dtype, device=dev))
+
+    tab_s = tem.EMTables.build(build_state_space(2, Ks, False), dev)
+    for w in (fb_mb.em_forward_mb, fb_mb.em_backward_mb):
+        w.launches = 0
+    got_s = tem.em_step(*em_args(ys_e, np.log(pp_s), temps_s, sigma,
+                                 torch.float32), tab_s, K=Ks,
+                        fb_mode="overlap_cuda", block=1024)
+    ref_launches = [fb_mb.em_forward_mb.launches,
+                    fb_mb.em_backward_mb.launches]
+    ref_s = tem.em_step(*em_args(ys_e, np.log(pp_s), temps_s, sigma,
+                                 torch.float64), tab_s, K=Ks,
+                        fb_mode="gather")
+    ref_errs = em_update_close(got_s, ref_s, "reference_em")
+    check(ref_launches == [1, 1], f"reference_em: launches {ref_launches}")
+    emit({"phase": "reference_em", "N": 2, "K": Ks, "T": Ts,
+          "L_H": list(tem.cuda_em_geometry(Ks, 1024)),
+          "launches": ref_launches, "max_err_vs_gather_f64": ref_errs})
+
+    # ---- train_em: 10 chained kernel EM iterations ----------------------
+    tab_e = tem.EMTables.build(build_state_space(2, K, False), dev)
+    a32 = em_args(ye, lp, temps, sigma, torch.float32)
+    n_it = 10
+
+    def chain():
+        return tem.em_chain(*a32, tab_e, K=K, n_iters=n_it,
+                            fb_mode="overlap_cuda", block=2048)
+
+    chain()                                          # warm-up
+    for w in (fb_mb.em_forward_mb, fb_mb.em_backward_mb):
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lp_c, _, mu_c, sg_c, lls_c = chain()
+    out_host = (lp_c.cpu().numpy(), mu_c.cpu().numpy(), float(sg_c))
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t
+    em_launches = {"em_forward_mb": fb_mb.em_forward_mb.launches,
+                   "em_backward_mb": fb_mb.em_backward_mb.launches}
+    lls = lls_c.double().cpu().numpy()
+    check(all(v == n_it for v in em_launches.values()),
+          f"train_em: launches {em_launches}, expected {n_it} each")
+    check(np.all(np.isfinite(lls)) and np.all(np.isfinite(out_host[1])),
+          "train_em: non-finite output")
+    check(bool(np.all(lls[1:] >= lls[:-1] - 1e-6 * np.abs(lls[:-1]))),
+          f"train_em: ll decreased: {lls.tolist()}")
+    # the first iteration vs one float64 step of the plain overlap engine
+    first = tem.em_step(*a32, tab_e, K=K, fb_mode="overlap_cuda", block=2048)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref_first = tem.em_step(*em_args(ye, lp, temps, sigma, torch.float64),
+                            tab_e, K=K, fb_mode="overlap", block=2048)
+    torch.cuda.synchronize()
+    f64_step_s = time.perf_counter() - t
+    # ll: at 256 windows of 2528 steps the float32 telescoped ll carries
+    # the recursion's own rounding. The plain float32 overlap engine, in the
+    # JAX association, is the witness of its size in this run: the kernels'
+    # ll may be off by 3x the witness's error (at least 1e-5), capped by
+    # the recursion's worst case f32_ll_rtol; one dropped window is ~4e-3
+    plain32 = tem.em_step(*a32, tab_e, K=K, fb_mode="overlap", block=2048)
+    plain32_ll_rel = float(abs(plain32[4].double() - ref_first[4])
+                           / abs(ref_first[4]))
+    del plain32
+    ll_rtol = min(f32_ll_rtol(Le, He), max(1e-5, 3 * plain32_ll_rel))
+    first_errs = em_update_close(first, ref_first, "train_em", ll_rtol)
+    kern_it_ms = em2["forward"]["ms"] + em2["backward"]["ms"]
+    emit({"phase": "train_em", "N": 2, "K": K, "T": Te, "L": Le, "H": He,
+          "W": We, "B": Be, "card": card, "iterations": n_it,
+          "seconds": chain_s, "iterations_per_s": n_it / chain_s,
+          "launches": em_launches, "lls": lls.tolist(),
+          "kernel_ms_per_iteration": kern_it_ms,
+          "other_ms_per_iteration": chain_s / n_it * 1e3 - kern_it_ms,
+          "first_iteration_err_vs_overlap_f64": first_errs,
+          "ll_rtol": ll_rtol,
+          "plain_overlap_f32_ll_rel_err_vs_f64": plain32_ll_rel,
+          "f64_plain_overlap_step_seconds": f64_step_s,
+          "sigma": out_host[2]})
+
+    # ---- train_path: the user's flow, train then sort -------------------
+    for w in (fb_mb.em_forward_mb, fb_mb.em_backward_mb,
+              vmb.ov2_forward_mb, vmb.ov2_backtrace_mb):
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tm_l = api.fit_template_model(ye, 7, K, nsteps=10,
+                                  rng=np.random.default_rng(1))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches = {"em_forward_mb": fb_mb.em_forward_mb.launches,
+                      "em_backward_mb": fb_mb.em_backward_mb.launches}
+    mm, cc = template_ops.match_templates(tm_l.mu, temps)
+    energies = (temps ** 2).sum(axis=0)
+    n_learned = tm_l.n_neurons
+    fits = [bool(cc[i] < 0.01 * energies[mm[i]]) for i in range(n_learned)]
+    tm_l.allow_overlaps = True
+    t = time.perf_counter()
+    dec = api.fit_spiking_model_fast(tm_l, ye)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    decode_launches = {"ov2_forward_mb": vmb.ov2_forward_mb.launches,
+                       "ov2_backtrace_mb": vmb.ov2_backtrace_mb.launches}
+    pos = unroll_mlseq(dec.ml_seq, tm_l.state_space.states)
+    decoded = (pos == 1).sum(axis=1)
+    true_onsets = (truth[:, :Te] == 1).sum(axis=1)
+    onset_rel = [float(abs(decoded[i] - true_onsets[mm[i]])
+                       / true_onsets[mm[i]]) for i in range(n_learned)]
+    emit({"phase": "train_path", "T": Te, "K": K, "n_init": 7,
+          "card": card, "train_seconds": train_s,
+          "train_launches": train_launches, "n_templates": n_learned,
+          "matched_to": mm.tolist(), "match_cost": cc.tolist(),
+          "energies": energies.tolist(), "within_1pct": fits,
+          "sigma": tm_l.sigma, "lp": tm_l.lp.tolist(),
+          "decode_seconds": decode_s, "decode_launches": decode_launches,
+          "onsets_decoded": decoded.tolist(),
+          "onsets_true": [int(true_onsets[i]) for i in mm],
+          "onset_rel_err": onset_rel,
+          "seam_ok": bool(dec.seam_ok.all())})
+    check(all(v >= n_it for v in train_launches.values()),
+          f"train_path: EM kernels did not run: {train_launches}")
+    if n_learned != 2 or sorted(mm.tolist()) != [0, 1] or not all(fits):
+        # the gate is about to fail: show where the float64 plain engine
+        # lands from the same seed before it does
+        tm64 = api.fit_template_model(ye, 7, K, nsteps=10,
+                                      rng=np.random.default_rng(1),
+                                      dtype=torch.float64, fb_mode="overlap")
+        mm64, cc64 = template_ops.match_templates(tm64.mu, temps)
+        emit({"phase": "train_path_f64_plain", "n_templates": tm64.n_neurons,
+              "matched_to": mm64.tolist(), "match_cost": cc64.tolist()})
+    check(n_learned == 2 and sorted(mm.tolist()) == [0, 1] and all(fits),
+          f"train_path: learned {n_learned} templates {mm.tolist()} "
+          f"costs {cc.tolist()}")
+    check(all(decode_launches.values()),
+          f"train_path: kernels 1-2 did not run: {decode_launches}")
+    check(bool(dec.seam_ok.all()), "train_path: seams not ok")
+    check(max(onset_rel) <= 0.02,
+          f"train_path: onset counts off by > 2%: {onset_rel}")
+
     emit({"kernels": [
         {"name": "ov2_forward_mb", "route": "cuda",
          "source": "hmmspikesorter_torch/csrc/viterbi_ov2_fwd.cu",
@@ -499,6 +847,22 @@ def main():
          "plain_ms": ovn3["backtrace"]["plain_ms"],
          "bound_ms": ovn3["backtrace"]["bound_bytes_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "em_forward_mb", "route": "cuda",
+         "source": "hmmspikesorter_torch/csrc/em_fwd.cu",
+         "replaces": "hmmspikesorter_tpu/ops/pallas_fb_mb.py:125",
+         "launches": em_launches["em_forward_mb"],
+         "max_abs_err": em2["forward"]["max_abs_err"],
+         "ms": em2["forward"]["ms"], "plain_ms": em2["forward"]["plain_ms"],
+         "bound_ms": bound_of(em2["forward"])[0],
+         "bound_by": bound_of(em2["forward"])[1], "library_ms": None},
+        {"name": "em_backward_mb", "route": "cuda",
+         "source": "hmmspikesorter_torch/csrc/em_bwd.cu",
+         "replaces": "hmmspikesorter_tpu/ops/pallas_fb_mb.py:209",
+         "launches": em_launches["em_backward_mb"],
+         "max_abs_err": em2["backward"]["max_abs_err"],
+         "ms": em2["backward"]["ms"], "plain_ms": em2["backward"]["plain_ms"],
+         "bound_ms": bound_of(em2["backward"])[0],
+         "bound_by": bound_of(em2["backward"])[1], "library_ms": None},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

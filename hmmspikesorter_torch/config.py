@@ -1,9 +1,11 @@
-"""Decode configuration (copy of the JAX package's config.py, the decode
-section only): an explicitly passed kwarg wins over the config, which wins
-over the built-in (reference) default.
+"""Configuration (copy of the JAX package's config.py: the model, train and
+decode sections): an explicitly passed kwarg wins over the config, which
+wins over the built-in (reference) default.
 
-`config` arguments in this package are duck-typed: any object with a
-`.decode` section works, the JAX package's `Config` included.
+`config` arguments in this package are duck-typed: any object with
+`.model`, `.train` or `.decode` sections works, the JAX package's `Config`
+included. `TrainConfig.fb_mode` takes the port's engine names
+(train/em.py): "overlap_cuda" in place of the JAX "overlap_pallas".
 """
 
 from __future__ import annotations
@@ -41,6 +43,32 @@ def pick(explicit, cfg_value, default):
 
 
 @dataclasses.dataclass
+class ModelConfig:
+    """State-space topology (reference src/baumwelch.jl:311, types.jl:65)."""
+
+    n_neurons: int = 3
+    K: int = 60
+    allow_overlaps: bool = False     # decode-time; training is non-overlap
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """EM training schedule and surgery thresholds (baumwelch.jl:311-354)."""
+
+    nsteps: int | None = None        # None -> entry-point default (8 for
+    #                                  train_model, baumwelch.jl:311; 10
+    #                                  for fit_template_model)
+    p0: float | None = None          # None -> 2^(-3K/2) (baumwelch.jl:311)
+    condense_alpha: float = 0.05     # merge chi^2 level (baumwelch.jl:340)
+    sparse_lp0: float = -70.0        # onset-logp cutoff (baumwelch.jl:344)
+    small_alpha: float = 0.05        # energy-test level (baumwelch.jl:347)
+    fb_mode: str | None = None       # None -> train.em.choose_fb_mode:
+    #                                  ring on the CPU, overlap_cuda on
+    #                                  CUDA (plain engines for signals
+    #                                  shorter than two kernel windows)
+
+
+@dataclasses.dataclass
 class DecodeConfig:
     """Decode protocol: reference-sequential or parallel overlap-save."""
 
@@ -74,6 +102,15 @@ class DecodeConfig:
     #                                  decode (train/adaptive.py)
     adapt_chunk: int = 32768         # tracking chunk / decode window
     forget: float = 0.3              # online-EM forgetting factor (0, 1]
+
+
+@dataclasses.dataclass
+class Config:
+    """The sections this package reads (the JAX `Config` without `mesh`)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
 
 
 def _section(config: Config | None, name: str):

@@ -1,13 +1,15 @@
-"""Carry a template model's parameters into this package as numpy arrays,
-so that a model built elsewhere (e.g. by the JAX package's training) is
-decoded here unchanged. Nothing of the other package is imported: the
-caller passes its fields."""
+"""Carry a template model's parameters, or an EM state, into this package
+as numpy arrays, so that a model built elsewhere (e.g. by the JAX
+package's training) is decoded here unchanged, or EM starts here from the
+same point. Nothing of the other package is imported: the caller passes
+its fields."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .models.api import HMMTemplateModel
+from .train.em import TrainResult
 
 
 def template_model_from_numpy(mu, sigma, lp,
@@ -16,3 +18,17 @@ def template_model_from_numpy(mu, sigma, lp,
     return HMMTemplateModel(
         mu=np.array(mu, dtype=np.float64), sigma=float(sigma),
         lp=np.array(lp, dtype=np.float64), allow_overlaps=bool(allow_overlaps))
+
+
+def train_result_from_numpy(lp, mu, sigma, pi=None,
+                            ll_history=()) -> TrainResult:
+    """An EM state (the fields of a TrainResult: lp (N,), mu (K, N), sigma,
+    pi (S,) or None for the uniform init) as float64 numpy."""
+    mu = np.array(mu, dtype=np.float64)
+    K, N = mu.shape
+    S = 1 + N * (K - 1)
+    pi = (np.full(S, -np.log(S)) if pi is None
+          else np.array(pi, dtype=np.float64))
+    return TrainResult(lp=np.array(lp, dtype=np.float64), pi=pi, mu=mu,
+                       sigma=float(sigma), n_neurons=N, K=K,
+                       ll_history=[float(v) for v in ll_history])

@@ -9,12 +9,15 @@ half): the reference's StatsBase verbs for a known template model
   (fit.jl:6-9 and the chunked variant fit.jl:11-42), plain engines.
 * `fit_spiking_model_fast` — the production decode: parallel overlap-save
   with the CUDA kernels on the card.
+* `fit_template_model` — EM training from random templates (fit.jl:44-47
+  -> train/em.train_model); `refit_template_model` — warm-start EM
+  (fit!, fit.jl:49-52); `fit` — train then decode (fit.jl:1-4). On a CUDA
+  device the E-step runs kernels 5-6 (ops/fb_mb.py).
 * `predict` — reconstruction (fit.jl:54-56), `bic` (fit.jl:68-72),
   `loglikelihood` (types.jl:32).
 
 Entry points run on `cuda` unless `device="cpu"` is passed; the working
 dtype is float32 on cuda and float64 on the CPU unless `dtype` is given.
-Training (`fit_template_model`, `fit`) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..parallel.overlap_save import (overlap_save_decode_long,
                                      resolve_block_engine, ring_overlap_save)
 from ..parallel.seam_repair import make_window_decoder, repair_seams
+from ..train.em import TrainResult, _em_phase, train_model
 from ..utils.device import as_float, default_dtype, numpy_dtype, resolve_device
 
 # Past this many overlap-save blocks the fast path streams fixed-size window
@@ -89,6 +93,46 @@ class HMMSpikingModel:
 def _resolve(device, dtype):
     dev = resolve_device(device)
     return dev, (default_dtype(dev) if dtype is None else dtype)
+
+
+def fit_template_model(
+    y,
+    n_neurons: int | None = None,
+    K: int | None = None,
+    nsteps: int | None = None,
+    *,
+    rng: np.random.Generator | None = None,
+    verbose: int = 0,
+    config=None,
+    device=None,
+    dtype=None,
+    **kwargs,
+) -> HMMTemplateModel:
+    """EM-train a template model (reference fit.jl:44-47 -> train_model).
+
+    A config supplies defaults for anything not passed explicitly (this
+    entry point's nsteps default is 10, vs train_model's reference 8 —
+    kept when neither the kwarg nor the config sets it)."""
+    if nsteps is None and (config is None or config.train is None
+                           or config.train.nsteps is None):
+        nsteps = 10
+    res: TrainResult = train_model(
+        y, n_neurons, K, nsteps, rng=rng, verbose=verbose, config=config,
+        device=device, dtype=dtype, **kwargs)
+    return HMMTemplateModel(mu=res.mu, sigma=res.sigma, lp=res.lp, pi=res.pi)
+
+
+def refit_template_model(model: HMMTemplateModel, y, nsteps: int, *,
+                         verbose: int = 0, device=None,
+                         dtype=None) -> HMMTemplateModel:
+    """Warm-start EM from an existing model (reference fit! at
+    fit.jl:49-52)."""
+    dev, dt = _resolve(device, dtype)
+    lp, pi, mu, sigma, _ = _em_phase(
+        np.asarray(y, np.float64), model.lp, model.mu, model.sigma, nsteps,
+        model.K, dtype=dt, device=dev, verbose=verbose)
+    return HMMTemplateModel(mu=mu, sigma=sigma, lp=lp, pi=pi,
+                            allow_overlaps=model.allow_overlaps)
 
 
 def _all_silent_model(templates, y) -> HMMSpikingModel:
@@ -283,6 +327,14 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
     model.seams_repaired = n_repaired
     model.spike_onsets = None
     return model
+
+
+def fit(y, n_neurons: int = 3, K: int = 60, nsteps: int = 10, *,
+        device=None, dtype=None, **kwargs) -> HMMSpikingModel:
+    """Train then decode (reference composite fit, fit.jl:1-4)."""
+    templates = fit_template_model(y, n_neurons, K, nsteps, device=device,
+                                   dtype=dtype, **kwargs)
+    return fit_spiking_model(templates, y, device=device, dtype=dtype)
 
 
 def predict(model: HMMSpikingModel, *, device=None,

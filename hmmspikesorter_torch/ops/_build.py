@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and becomes its own
 shared library, `build/kernels/lib<name>-<hash>.so` under the repository
-root (git-ignored). The hash covers the source and the flags, so an edited
-source or flag builds anew and a stale library is never loaded. Sources are
+root (git-ignored). The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source, header or flag builds
+anew and a stale library is never loaded. Sources are
 compiled at first use, one nvcc process per source, all started together.
 
 Flags: `sm_90a` (Hopper), `-O3`, and `--fmad=false`: the plain PyTorch
@@ -28,7 +29,7 @@ from ..utils.device import nvcc_path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("viterbi_ov2_fwd", "viterbi_ov2_bt", "viterbi_ovn_fwd",
-           "viterbi_ovn_bt")
+           "viterbi_ovn_bt", "em_fwd", "em_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -38,6 +39,7 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

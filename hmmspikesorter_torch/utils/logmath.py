@@ -18,3 +18,19 @@ def gaussian_logpdf(x, mu, sigma, log_sigma=None):
                      else math.log(sigma))
     d = x - mu
     return -HALF_LOG_2PI - log_sigma - d * d / (2.0 * sigma * sigma)
+
+
+def logsumexp_rows(v, axis=-1):
+    """Stable logsumexp that maps all -inf rows to -inf (no NaNs).
+
+    The padded gather tables use -inf weights for missing edges, so rows can
+    be entirely -inf; the explicit form keeps the reduction order and dtype
+    under control (the JAX package's logsumexp_rows).
+    """
+    m = torch.amax(v, dim=axis, keepdim=True)
+    fin = torch.isfinite(m)
+    m_safe = torch.where(fin, m, torch.zeros_like(m))
+    s = torch.sum(torch.exp(v - m_safe), dim=axis, keepdim=True)
+    out = torch.where(fin, m_safe + torch.log(s),
+                      torch.full_like(m, -math.inf))
+    return torch.squeeze(out, dim=axis)

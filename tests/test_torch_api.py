@@ -173,3 +173,70 @@ def test_entry_points_need_a_gpu_unless_told_cpu():
         tapi.fit_spiking_model_fast(tt, y, L=L, H=H)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.fit_spiking_model(tt, y)
+
+
+# ---- training entry points (fit_template_model, refit_template_model, fit)
+
+TRAIN_K = 12
+
+
+def _train_signal():
+    y, temps, lp = signal(3000, TRAIN_K, seed=12, pp=(0.012, 0.008))
+    return y, temps
+
+
+def _same_templates(mt, mj, rtol=1e-8):
+    np.testing.assert_allclose(mt.mu, mj.mu, rtol=0, atol=rtol)
+    np.testing.assert_allclose(mt.lp, mj.lp, rtol=rtol)
+    np.testing.assert_allclose(mt.pi, np.asarray(mj.pi), rtol=rtol,
+                               atol=rtol)
+    assert mt.sigma == pytest.approx(mj.sigma, rel=rtol)
+
+
+def test_fit_template_model_matches():
+    y, _ = _train_signal()
+    mj = japi.fit_template_model(y, 3, TRAIN_K, 4,
+                                 rng=np.random.default_rng(3),
+                                 fb_mode="gather")
+    mt = tapi.fit_template_model(y, 3, TRAIN_K, 4,
+                                 rng=np.random.default_rng(3),
+                                 fb_mode="gather", device="cpu")
+    assert mt.n_neurons == mj.n_neurons >= 1
+    _same_templates(mt, mj)
+
+
+def test_refit_template_model_matches():
+    y, temps = _train_signal()
+    tj, tt = model_pair(temps * 0.9, 0.35, np.log([0.01, 0.01]), False)
+    mj = japi.refit_template_model(tj, y, 2)
+    mt = tapi.refit_template_model(tt, y, 2, device="cpu")
+    _same_templates(mt, mj)
+    assert mt.allow_overlaps is False
+
+
+def test_fit_trains_then_decodes_like_jax():
+    y, _ = _train_signal()
+    mj = japi.fit(y, 3, TRAIN_K, 4, rng=np.random.default_rng(4),
+                  fb_mode="gather")
+    mt = tapi.fit(y, 3, TRAIN_K, 4, rng=np.random.default_rng(4),
+                  fb_mode="gather", device="cpu")
+    _same_templates(mt.template_model, mj.template_model)
+    np.testing.assert_array_equal(np.asarray(mt.ml_seq, np.int64),
+                                  np.asarray(mj.ml_seq, np.int64))
+    assert mt.ll == pytest.approx(mj.ll, rel=LL_RTOL)
+
+
+def test_training_entry_points_take_a_config():
+    from hmmspikesorter_torch.config import Config, ModelConfig, TrainConfig
+
+    y, _ = _train_signal()
+    cfg = Config(model=ModelConfig(n_neurons=2, K=TRAIN_K),
+                 train=TrainConfig(nsteps=2, fb_mode="gather"))
+    m = tapi.fit_template_model(y, config=cfg, rng=np.random.default_rng(0),
+                                device="cpu")
+    ref = tapi.fit_template_model(y, 2, TRAIN_K, 2, fb_mode="gather",
+                                  rng=np.random.default_rng(0), device="cpu")
+    np.testing.assert_array_equal(m.mu, ref.mu)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tapi.fit_template_model(y, 2, TRAIN_K, 1)

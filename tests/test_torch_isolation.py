@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of hmmspikesorter_torch (nor
-chip_smoke.py, nor the card-only test file) imports jax or the JAX
-package, and the numpy modules the port copied give the originals'
-outputs."""
+chip_smoke.py or the card-only test file)
+imports jax or the JAX package, and the numpy modules the port copied
+give the originals' outputs."""
 
 import ast
 import dataclasses
@@ -19,10 +19,18 @@ from hmmspikesorter_torch.core import path_score as tpath
 from hmmspikesorter_torch.core import state_space as tss
 from hmmspikesorter_torch.data import synthetic as tsyn
 from hmmspikesorter_torch.ops.ring_viterbi import ring_viterbi_ov2
+from hmmspikesorter_torch.train import template_ops as tops
+from hmmspikesorter_torch.utils import checkpoint as tckpt
+from hmmspikesorter_torch.utils import metrics as tmetrics
+from hmmspikesorter_torch.utils import stats as tstats
 from hmmspikesorter_tpu import config as jconfig
 from hmmspikesorter_tpu.core import path_score as jpath
 from hmmspikesorter_tpu.core import state_space as jss
 from hmmspikesorter_tpu.data import synthetic as jsyn
+from hmmspikesorter_tpu.train import template_ops as jops
+from hmmspikesorter_tpu.utils import checkpoint as jckpt
+from hmmspikesorter_tpu.utils import metrics as jmetrics
+from hmmspikesorter_tpu.utils import stats as jstats
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hmmspikesorter_torch"
@@ -124,6 +132,79 @@ def test_config_copy_matches():
     cfg = jconfig.Config(decode=jconfig.DecodeConfig(L=512))
     assert tconfig._section(cfg, "decode")("L") == 512
     assert tconfig._section(None, "decode")("L") is tconfig.UNSET
+
+
+def test_train_config_sections_copy_match():
+    for name in ("ModelConfig", "TrainConfig"):
+        a, b = getattr(jconfig, name)(), getattr(tconfig, name)()
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert ([f.name for f in dataclasses.fields(a)]
+                == [f.name for f in dataclasses.fields(b)])
+    cfg = tconfig.Config(train=tconfig.TrainConfig(nsteps=3))
+    assert tconfig._section(cfg, "train")("nsteps") == 3
+    assert tconfig._section(cfg, "model")("K") == 60
+    jcfg = jconfig.Config(model=jconfig.ModelConfig(n_neurons=5))
+    assert tconfig._section(jcfg, "model")("n_neurons") == 5
+
+
+def test_stats_copy_matches():
+    for df in (1, 4, 59, 1000):
+        for x in (0.0, 0.3, 3.0, float(df), 2.5 * df):
+            assert tstats.chi2_cdf(x, df) == jstats.chi2_cdf(x, df)
+            assert tstats.chi2_sf(x, df) == jstats.chi2_sf(x, df)
+        assert (tstats.gammainc_lower(df / 2, df / 3)
+                == jstats.gammainc_lower(df / 2, df / 3))
+    xs = np.linspace(0.0, 80.0, 17)
+    np.testing.assert_array_equal(tstats.chi2_sf(xs, 11),
+                                  jstats.chi2_sf(xs, 11))
+
+
+def test_template_ops_copy_matches():
+    rng = np.random.default_rng(2)
+    K = 16
+    base = np.stack([tsyn.create_spike_template(K, 3.0, 0.8, 0.2),
+                     tsyn.create_spike_template(K, 4.0, 0.3, 0.2)], 1)
+    # two near-duplicates, a shifted copy and a small template
+    mu = np.column_stack([base[:, 0], base[:, 0] + 0.01 * rng.random(K),
+                          base[:, 1], np.roll(base[:, 1], 2),
+                          0.05 * rng.standard_normal(K)])
+    mu[0] = 0.0
+    lp = np.log([0.01, 0.004, 0.006, 0.002, 1e-40])
+    for fn, args in (("condense_templates", (mu, lp, 0.3, 0.05)),
+                     ("remove_sparse", (lp, -70.0)),
+                     ("remove_small", (mu, 0.3, 0.05)),
+                     ("match_templates", (mu, base)),
+                     ("find_best_overlap", (mu, 0, 3)),
+                     ("condense_candidate", (mu, 0.09, 0.05))):
+        a, b = getattr(tops, fn)(*args), getattr(jops, fn)(*args)
+        assert repr(a) == repr(b), fn
+    m2, _ = tops.condense_templates(mu, lp, 0.3)
+    assert m2.shape[1] < mu.shape[1]
+
+
+def test_checkpoint_copy_matches(tmp_path):
+    kw = dict(lp=np.log([0.01, 0.002]), mu=np.ones((5, 2)), sigma=0.3,
+              em_iter=4, phase="em1", ll_history=[-10.0, -9.5])
+    tckpt.save_checkpoint(str(tmp_path / "t.npz"), **kw)
+    jckpt.save_checkpoint(str(tmp_path / "j.npz"), **kw)
+    for path in ("t.npz", "j.npz"):
+        st_t, meta_t = tckpt.load_checkpoint(str(tmp_path / path))
+        st_j, meta_j = jckpt.load_checkpoint(str(tmp_path / path))
+        assert meta_t == meta_j and meta_t["em_iter"] == 4
+        for k in ("lp", "mu"):
+            np.testing.assert_array_equal(st_t[k], st_j[k])
+        assert st_t["sigma"] == st_j["sigma"] == 0.3
+
+
+def test_metrics_copy_matches(tmp_path):
+    recs = []
+    for mod in (tmetrics, jmetrics):
+        with mod.MetricsLogger(str(tmp_path / f"{mod.__name__}.jsonl")) as m:
+            rec = m.em_iter(2, -5.0, 0.3, np.array([-4.0, -6.0]), 0.5, 1000)
+        rec.pop("t")
+        recs.append(rec)
+    assert recs[0] == recs[1]
+    assert not hasattr(tmetrics, "profile_trace")
 
 
 def test_package_has_version():

@@ -1,6 +1,7 @@
-"""The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2) and
-ops/viterbi_ovn_mb.py (general N) against their plain PyTorch versions on
-the card: packed outputs and labels exactly equal.
+"""The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2),
+ops/viterbi_ovn_mb.py (general N) and ops/fb_mb.py (the EM E-step) against
+their plain PyTorch versions on the card: packed outputs, labels,
+checkpoints, per-step logsumexps and EM statistics exactly equal.
 
 Needs an NVIDIA GPU with nvcc; every test skips without one. This file
 imports neither jax nor the JAX package, so it runs on a machine without
@@ -16,8 +17,10 @@ import torch
 from hmmspikesorter_torch.data.synthetic import (create_signal_fast,
                                                  create_spike_template)
 from hmmspikesorter_torch.models import api
+from hmmspikesorter_torch.ops import fb_mb
 from hmmspikesorter_torch.ops import viterbi_mb as vmb
 from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+from hmmspikesorter_torch.train import em as tem
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +170,131 @@ def test_kernel_refuses_float64(cuda):
     with pytest.raises(TypeError):
         vmb.ov2_forward_mb(y_t, torch.zeros(2, dtype=torch.bool,
                                             device=cuda), c)
+
+
+def _em_problem(N, K, T, seed):
+    """A signal of N templates (random shapes past the first four) and a
+    second set of templates to run EM with, so the statistics are not
+    those of the truth."""
+    rng = np.random.default_rng(seed)
+    temps = np.stack([create_spike_template(K, *PARAMS[n]) if n < 4 else
+                      create_spike_template(K, 1.0 + 2 * rng.random(),
+                                            0.2 + 0.6 * rng.random(),
+                                            0.1 + 0.3 * rng.random())
+                      for n in range(N)], axis=1)
+    pp = rng.uniform(0.004, 0.02, N)
+    y, _ = create_signal_fast(T, 0.3, pp, temps, rng=rng)
+    mu = tem.init_templates(K, N, 0.4, rng)
+    return y, np.log(pp * 0.8), mu
+
+
+@pytest.mark.parametrize("K", [2, 12, 60, 65])
+@pytest.mark.parametrize("N", [1, 2, 3, 7, 8])
+def test_em_kernels_equal_plain(cuda, N, K):
+    """Kernels 5-6 at every N and K the JAX kernels take, on windows cut
+    with a ragged tail (T mod L < H: the clamped B-2 row) plus two padded
+    windows (lo = hi = xi_hi = 0): every output bit for bit."""
+    L, H = 64, 16
+    T = 5 * L + 7
+    B, W = -(-T // L), L + 2 * H
+    y, lp, mu = _em_problem(N, K, T, seed=10 * N + K)
+    c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
+    ch = fb_mb.em_chunk(c.S)
+    _, edge, lo, hi, xh = fb_mb._em_window_geom(T, L, H, B, W)
+    yw = fb_mb._em_window_1d(torch.as_tensor(y, dtype=torch.float32,
+                                             device=cuda),
+                             T=T, L=L, H=H, B=B, W=W, edge=edge)
+    yw = torch.cat([yw, torch.randn((2, W), device=cuda)]).contiguous()
+    z = np.zeros(2, np.int64)
+    bounds = torch.as_tensor(
+        np.stack([np.r_[lo, z], np.r_[hi, z], np.r_[xh, z]], 1),
+        dtype=torch.int32, device=cuda).contiguous()
+    n_f, n_b = fb_mb.em_forward_mb.launches, fb_mb.em_backward_mb.launches
+    cp, la = fb_mb.em_forward_mb(yw, c, ch)
+    pcp, pla = fb_mb.em_forward_mb_plain(yw, c, ch)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp) and torch.equal(la, pla)
+    got = fb_mb.em_backward_mb(yw, pcp, bounds, c, ch)
+    ref = fb_mb.em_backward_mb_plain(yw, pcp, bounds, c, ch)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert fb_mb.em_forward_mb.launches == n_f + 1
+    assert fb_mb.em_backward_mb.launches == n_b + 1
+    G1, _, _, X, Xd, _ = got
+    assert torch.all(G1[B:] == 0) and torch.all(X[B:] == 0)
+    assert torch.all(Xd[B:] == 0)
+    # each sample counts in exactly its owner window
+    torch.testing.assert_close(G1[:B].sum(), torch.tensor(
+        float(T), device=cuda), rtol=1e-5, atol=0)
+
+
+def test_em_kernels_with_dead_templates_equal_plain(cuda):
+    """Onset log-probs of -inf (templates whose onset statistics underflowed
+    in float32): kernels 5-6 stay finite and bit-equal to the plain
+    versions."""
+    L, H, N, K = 64, 16, 3, 60
+    T = 4 * L
+    B, W = T // L, L + 2 * H
+    y, lp, mu = _em_problem(N, K, T, seed=3)
+    for dead in ([0], [0, 2]):
+        lp_d = lp.copy()
+        lp_d[dead] = -np.inf
+        c = fb_mb.em_consts(lp_d, mu, 0.35, dtype=torch.float32, device=cuda)
+        ch = fb_mb.em_chunk(c.S)
+        _, edge, lo, hi, xh = fb_mb._em_window_geom(T, L, H, B, W)
+        yw = fb_mb._em_window_1d(torch.as_tensor(y, dtype=torch.float32,
+                                                 device=cuda),
+                                 T=T, L=L, H=H, B=B, W=W,
+                                 edge=edge).contiguous()
+        bounds = torch.as_tensor(np.stack([lo, hi, xh], 1),
+                                 dtype=torch.int32, device=cuda).contiguous()
+        cp, la = fb_mb.em_forward_mb(yw, c, ch)
+        pcp, pla = fb_mb.em_forward_mb_plain(yw, c, ch)
+        got = fb_mb.em_backward_mb(yw, cp, bounds, c, ch)
+        ref = fb_mb.em_backward_mb_plain(yw, pcp, bounds, c, ch)
+        torch.cuda.synchronize()
+        assert torch.equal(cp, pcp) and torch.equal(la, pla)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b) and not torch.isnan(a).any()
+        assert torch.all(got[3][:, dead] == 0)
+
+
+def test_em_kernels_refuse_what_they_cannot_take(cuda):
+    y, lp, mu = _em_problem(2, 12, 200, seed=0)
+    c64 = fb_mb.em_consts(lp, mu, 0.3, dtype=torch.float64, device=cuda)
+    yw = torch.as_tensor(y[:192].reshape(2, 96), device=cuda)
+    with pytest.raises(TypeError):
+        fb_mb.em_forward_mb(yw, c64, 32)
+    c = fb_mb.em_consts(lp, mu, 0.3, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fb_mb.em_forward_mb(yw.float()[:, :90].contiguous(), c, 32)
+    # S = 1025 states: past one thread per state in one CTA
+    big = fb_mb.em_consts(np.full(16, -8.0), np.zeros((65, 16)), 0.3,
+                          dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        fb_mb.em_forward_mb(yw.float(), big, 32)
+    with pytest.raises(ValueError):
+        fb_mb.overlap_em_stats(torch.zeros(1 << 14, device=cuda),
+                               np.full(16, -8.0), np.zeros((65, 16)), 0.3,
+                               L=2048, H=272)
+    with pytest.raises(TypeError):      # float64 reaches the kernel, raises
+        fb_mb.em_backward_mb(yw, torch.zeros((2, 3, 23), dtype=torch.float64,
+                                             device=cuda),
+                             torch.zeros((2, 3), dtype=torch.int32,
+                                         device=cuda), c64, 32)
+
+
+def test_train_model_runs_the_em_kernels(cuda):
+    """train_model with no fb_mode on CUDA at T >= 2L takes overlap_cuda:
+    both kernels launch once per EM iteration of both phases."""
+    K = 12
+    L, _ = tem.cuda_em_geometry(K, 2048)
+    y, _, _ = _em_problem(2, K, 3 * L, seed=1)
+    n_f, n_b = fb_mb.em_forward_mb.launches, fb_mb.em_backward_mb.launches
+    res = tem.train_model(y, 3, K, nsteps=4, rng=np.random.default_rng(2))
+    iters = 4 + (2 if res.n_neurons else 0)
+    assert fb_mb.em_forward_mb.launches - n_f == iters
+    assert fb_mb.em_backward_mb.launches - n_b == iters
+    assert np.all(np.isfinite(res.ll_history)) and res.n_neurons >= 1
+    assert tem.choose_fb_mode(cuda, K, 3, len(y)) == "overlap_cuda"
