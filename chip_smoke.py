@@ -54,10 +54,33 @@ Phases, each printing one JSON line:
                learned templates and overlaps on through kernels 1-2:
                exactly 2 templates, each within 1% of a generator
                template's energy, onset counts within 2% of the truth
+  kernels_gamma  kernels 7-10 (the chained onset posteriors) vs their plain
+               versions at bench.py's posterior shapes (T=2^19 of the
+               bench.py signal, L=4096, B=128, K=60): kernels 9-10 (N=2
+               overlaps, S=3600) on the first 32 windows, kernels 7-8
+               (non-overlap, N=2 and N=7 with the kernels_em templates) on
+               all 128; checkpoints, first-position betas and posteriors
+               exactly equal; times and bounds of the forward, the chaining
+               sweep and the gamma pass
+  posterior_bench  bench.py's posterior problem (bench.py:216-241):
+               core/posterior.onset_posteriors_chained on the N=2 overlap
+               model, T=2^19, float32, after one warm-up (kernels 9-10);
+               samples/s; within 1e-4 of the float64 plain chained run on
+               the card; beside it the float32 plain chained engines' error
+               on the same input (the float32 floor of a 4096-step window);
+               expected onset counts within 1e-3 of main_path's decoded
+               counts
+  posterior_path  the --confidence --qc composition on main_path's decoded
+               model (T=2^21, 512 windows): model_posteriors,
+               confidence_from_posteriors, core/qc.unit_qc(posteriors=p),
+               qc_arrays; launches of kernels 9-10 exactly 2 + 2, median
+               confidence above 0.9, isi_invariant_violations 0
+  posterior_path_nov  the same for a non-overlap N=2 decode of the same
+               signal, through kernels 7-8
 Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
-About 4 minutes on an H100.
+About 6-7 minutes on an H100.
 """
 
 import json
@@ -353,11 +376,123 @@ def ovn_kernels(vomb, y_win, sil, c, fwd_reps, bt_reps):
                           "max_abs_err": bt_err, "match": True}}
 
 
+def gamma_ops(kind, B, L, N, Km1):
+    """(f32, transcendental) operations of kernels 7-10 at these shapes, per
+    window step:
+      nov forward (kernel 7): kernel 5's step without its logsumexp over the
+        states (em_fwd_ops with no `la` steps);
+      nov beta (kernel 8): each state's emission, the beta + emission add
+        and the ring shift's add (6 S); the silent state's and each ring
+        end's logsumexp over the onsets and logaddexp;
+      ov2 forward (kernel 9): 5 S for the emissions; per ring slot a
+        logaddexp (max, min, subtract, add; exp, log1p) and an add; per onset
+        three adds and a logaddexp; the silent state's four-term logsumexp
+        (14 f32, 4 exp, 1 log); one add per pair edge;
+      ov2 beta (kernel 10): 5 S; per ring slot two adds and a logaddexp;
+        the silent state's logsumexp (17 f32, 5 transcendentals);
+      gamma (the emit_gamma variants): the remat repeats the forward; z_t
+        costs alpha + beta, max, subtract and sum over the states (4 S) and
+        S exp plus a log; each onset row an exp and an add per term.
+    kind: "nov_fwd", "nov_chain", "nov_gamma", "ov2_fwd", "ov2_chain",
+    "ov2_gamma"."""
+    if kind.startswith("nov"):
+        S = 1 + N * Km1
+        onset = N * (N + 2) if N > 1 else 0
+        f_f32, f_sfu = em_fwd_ops(B, L, N, S, la_steps=0)
+        b_f32, b_sfu = 6 * S + N * (3 * N + 10), (N + 3) + onset
+        g_f32, g_sfu = 4 * S + 2 * N, S + 1 + N
+    else:
+        S = 1 + 2 * Km1 + Km1 * Km1
+        ring = 2 * (Km1 - 1)
+        f_f32 = B * L * (5 * S + 5 * ring + 14 + 14 + ring + 2)
+        f_sfu = B * L * (2 * ring + 4 + 5)
+        b_f32, b_sfu = 5 * S + 6 * 2 * Km1 + 17, 2 * 2 * Km1 + 5
+        g_f32, g_sfu = 4 * S + 1 + 4 * (Km1 + 1), S + 1 + 2 * (Km1 + 1)
+    if kind.endswith("fwd"):
+        return f_f32, f_sfu
+    if kind.endswith("chain"):
+        return B * L * b_f32, B * L * b_sfu
+    return (f_f32 + B * L * (b_f32 + g_f32), f_sfu + B * L * (b_sfu + g_sfu))
+
+
+def gamma_bytes(kind, B, L, N, S, ch):
+    """Bytes kernels 7-10 must move: each input read once, each output
+    written once (windows, entry/exit/terminal states, checkpoints, per-window
+    integers, posteriors, first-position betas)."""
+    cps = B * (L // ch) * S
+    if kind.endswith("fwd"):
+        return 4 * (B * L + B * S + cps + B)
+    if kind.endswith("chain"):
+        return 4 * (B * L + 2 * B * S + 4 * B)
+    return 4 * (B * L + cps + 3 * B * S + 5 * B + B * L * N)
+
+
+def gamma_row(kind, ms, plain_ms, err, B, L, N, Km1, ch, plain_windows):
+    """One kernel row of the kernels_gamma line, with its bound."""
+    S = (1 + N * Km1) if kind.startswith("nov") else (1 + 2 * Km1
+                                                      + Km1 * Km1)
+    f32, sfu = gamma_ops(kind, B, L, N, Km1)
+    byt = gamma_bytes(kind, B, L, N, S, ch)
+    row = {"ms": ms, "plain_ms": plain_ms, "plain_windows": plain_windows,
+           "f32_ops": f32, "sfu_ops": sfu, "bytes": byt,
+           "bound_ops_ms": ops_ms(f32, sfu),
+           "bound_bytes_ms": byt / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err, "match": True}
+    row["bound_ms"], row["bound_by"] = bound_of(row)
+    return row
+
+
+def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
+                  chained, tmx_of, c, S, P, reps):
+    """One chained posterior pass at these windows through a kernel pair
+    (fwd, bwd) and against its plain versions on the first P windows:
+    checkpoints, first-position betas and onset posteriors must be bit for
+    bit equal. `bwd(..., exits_or_terminal, emit)` takes the per-window
+    beta input (exit betas for kernel 8, terminal betas from `tmx_of` for
+    kernel 10). Returns {part: (ms, plain_ms, max_abs_err)}."""
+    B = y_win.shape[0]
+    zero = torch.zeros((B, S), dtype=torch.float32, device=y_win.device)
+    no_init = torch.zeros_like(chained)
+    from hmmspikesorter_torch.core.posterior import (_recenter, _shift_down,
+                                                     _shift_up)
+
+    entry = _shift_down(_recenter(fwd(y_win, zero, no_init)[:, -1]))
+    run_f = lambda: fwd(y_win, entry, chained)                # noqa: E731
+    run_f()
+    f_ms, cp = cuda_ms(run_f, reps=reps)
+    f_pms, pcp = cuda_ms(lambda: fwd_plain(y_win[:P], entry[:P],
+                                           chained[:P]), reps=1)
+    f_err = max_abs_err([(cp[:P], pcp)])
+    check(torch.equal(cp[:P], pcp), f"{fwd.__name__} differs from its "
+          "plain version")
+    out = {"fwd": (f_ms, f_pms, f_err)}
+    bx = tmx_of(zero)
+    for part, emit in (("chain", False), ("gamma", True)):
+        run_b = lambda: bwd(y_win, cp, entry, chained, bx, term,  # noqa
+                            ybnd, lastw, emit)
+        run_b()
+        b_ms, (gam, b0) = cuda_ms(run_b, reps=reps)
+        b_pms, (pgam, pb0) = cuda_ms(lambda: bwd_plain(
+            y_win[:P], cp[:P], entry[:P], chained[:P], bx[:P], term[:P],
+            ybnd[:P], lastw[:P], emit), reps=1)
+        pairs = [(b0[:P], pb0)] + ([(gam[:P], pgam)] if emit else [])
+        b_err = max_abs_err(pairs)
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{bwd.__name__} ({part}) differs from its plain version")
+        out[part] = (b_ms, b_pms, b_err)
+        if not emit:
+            bx = tmx_of(_shift_up(_recenter(b0)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.core import qc as tqc
     from hmmspikesorter_torch.core.path_score import path_cumulative_ll
     from hmmspikesorter_torch.core.state_space import build_state_space
     from hmmspikesorter_torch.core.viterbi import viterbi_decode
@@ -368,7 +503,7 @@ def main():
     from hmmspikesorter_torch.io.extraction import unroll_mlseq
     from hmmspikesorter_torch.models import api
     from hmmspikesorter_torch.ops import _build
-    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import fb_mb, gamma_mb, gamma_ov2
     from hmmspikesorter_torch.ops import viterbi_mb as vmb
     from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
     from hmmspikesorter_torch.parallel.overlap_save import (_build_windows,
@@ -550,7 +685,7 @@ def main():
         """Drive api.fit_spiking_model_fast one-shot and streaming with the
         launch counts of `wrappers` set to 0 just before each call and
         read just after, against the float64 plain twin; check and emit.
-        Returns the one-shot run's launch counts."""
+        Returns the one-shot run's launch counts and decoded model."""
         T_p = len(y_p)
 
         def drive(**kw):
@@ -626,14 +761,14 @@ def main():
         check(ll_rel <= 1e-6, f"{phase}: ll relative error {ll_rel} > 1e-6")
         check(bool((onset_rel <= 0.01).all()),
               f"{phase}: onset counts off by > 1%")
-        return one_launches
+        return one_launches, one
 
-    one_launches = main_path(
+    one_launches, decoded_n2 = main_path(
         "main_path", tm, y, truth, (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb),
         fwd_ms + bt_ms, H, {})
     # streaming in batches of 64 windows (two calls in flight), not one
     # batch padded to the default 256
-    one3_launches = main_path(
+    one3_launches, _ = main_path(
         "main_path_n3", tm3, y3, truth3,
         (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb),
         ovn3["forward"]["ms"] + ovn3["backtrace"]["ms"], H3,
@@ -811,6 +946,166 @@ def main():
     check(max(onset_rel) <= 0.02,
           f"train_path: onset counts off by > 2%: {onset_rel}")
 
+    # ---- kernels 7-10 (the chained onset posteriors) vs plain versions at
+    # bench.py's posterior shapes: T=2^19, L=4096, B=128, K=60 -----------
+    Tg, Lg = 1 << 19, 4096
+    f32 = torch.float32
+    yg, ybnd, term, lastw, chained = gamma_mb.chain_inputs(
+        y[:Tg], Tg, Lg, f32, dev)
+    Bg = yg.shape[0]
+    c9 = vmb.ov2_consts(lp, temps, sigma, dtype=f32, device=dev)
+    lp_d, mu_d, sg_d = (torch.as_tensor(np.asarray(v, np.float64)).to(
+        device=dev, dtype=f32) for v in (lp, temps, sigma))
+    ov2_parts = gamma_kernels(
+        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd(yw, en, hi, c9),
+        lambda yw, cp, en, hi, tx, tr, _yb, _lw, e: gamma_ov2.gamma_ov2_bwd(
+            yw, cp, en, hi, tx, tr, c9, e),
+        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi, c9),
+        lambda yw, cp, en, hi, tx, tr, _yb, _lw, e:
+            gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tr, c9, e),
+        yg, ybnd, term, lastw, chained,
+        lambda ex: gamma_ov2.terminal_exits(ex, ybnd, lastw, lp_d, mu_d,
+                                            sg_d),
+        c9, c9.S, 32, reps=3)
+    g_rows = {"ov2": {part: gamma_row(
+        {"fwd": "ov2_fwd", "chain": "ov2_chain", "gamma": "ov2_gamma"}[part],
+        *v, Bg, Lg, 2, K - 1, gamma_ov2.CH2, 32)
+        for part, v in ov2_parts.items()}}
+    for n_g, (lp_g, mu_g, sg_g) in ((2, (lp, temps, sigma)),
+                                    (7, (lp7, mu7, sig7))):
+        cg = fb_mb.em_consts(lp_g, mu_g, sg_g, dtype=f32, device=dev)
+        chg = gamma_mb.gamma_chunk(n_g, K)
+        parts = gamma_kernels(
+            lambda yw, en, hi: gamma_mb.gamma_fwd_mb(yw, en, hi, cg, chg),
+            lambda yw, cp, en, hi, ex, tr, yb, lw, e: gamma_mb.gamma_bwd_mb(
+                yw, cp, en, hi, ex, tr, yb, lw, cg, chg, e),
+            lambda yw, en, hi: gamma_mb.gamma_fwd_mb_plain(yw, en, hi, cg,
+                                                           chg),
+            lambda yw, cp, en, hi, ex, tr, yb, lw, e:
+                gamma_mb.gamma_bwd_mb_plain(yw, cp, en, hi, ex, tr, yb, lw,
+                                            cg, chg, e),
+            yg, ybnd, term, lastw, chained, lambda ex: ex, cg, cg.S, Bg,
+            reps=5)
+        g_rows[f"nov_n{n_g}"] = {part: gamma_row(
+            {"fwd": "nov_fwd", "chain": "nov_chain",
+             "gamma": "nov_gamma"}[part], *v, Bg, Lg, n_g, K - 1, chg, Bg)
+            for part, v in parts.items()}
+    del yg
+    emit({"phase": "kernels_gamma", "dtype": "float32", "card": card,
+          "T": Tg, "L": Lg, "B": Bg, "K": K, "ch_ov2": gamma_ov2.CH2,
+          "ch_nov": {"n2": gamma_mb.gamma_chunk(2, K),
+                     "n7": gamma_mb.gamma_chunk(7, K)},
+          **g_rows})
+
+    # ---- posterior_bench: bench.py's posterior problem (bench.py:216-241):
+    # onset_posteriors_chained on the N=2 overlap model, T=2^19, float32,
+    # after one warm-up; vs the float64 plain chained run on the card ------
+    tpost.onset_posteriors_chained(tm, y[:Tg])               # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_po = tpost.onset_posteriors_chained(tm, y[:Tg])
+    post_s = time.perf_counter() - t
+    t = time.perf_counter()
+    p_64 = tpost.onset_posteriors_chained(tm, y[:Tg], dtype=torch.float64,
+                                          batch_windows=32)
+    torch.cuda.synchronize()
+    p64_s = time.perf_counter() - t
+    # witness of the float32 floor: the plain chained engines in float32
+    # (the JAX association; an explicit projection keeps them off the
+    # kernels) on the same input
+    p_32 = tpost.onset_posteriors_chained(
+        tm, y[:Tg], proj=tpost.onset_projection(tm.state_space.states),
+        batch_windows=32)
+    plain32_err = float(np.abs(p_32 - p_64).max())
+    del p_32
+    dec_on = tevents._onsets_dense(decoded_n2.ml_seq[:Tg], N=N, K=K,
+                                   overlaps=True)
+    dec_c = np.array([len(o) for o in dec_on], float)
+    exp_c = p_po.sum(axis=0)
+    count_rel = float(np.max(np.abs(exp_c - dec_c) / np.maximum(dec_c, 1.0)))
+    post_err = float(np.abs(p_po - p_64).max())
+    emit({"phase": "posterior_bench", "N": N, "K": K, "S": c9.S, "T": Tg,
+          "L": Lg, "card": card, "seconds": post_s,
+          "posterior_exact_samples_per_s": Tg / post_s,
+          "posterior_count_rel_err": count_rel,
+          "expected_onsets": exp_c.tolist(), "decoded_onsets": dec_c.tolist(),
+          "max_abs_err_vs_f64_plain_chained": post_err,
+          "plain_f32_chained_max_abs_err_vs_f64": plain32_err,
+          "f64_plain_chained_seconds": p64_s})
+    check(p_po.shape == (Tg, N) and np.isfinite(p_po).all(),
+          "posterior_bench: output malformed")
+    check(post_err <= 1e-4, f"posterior_bench: {post_err} from the float64 "
+          "plain chained run (> 1e-4)")
+    check(count_rel <= 1e-3, f"posterior_bench: count error {count_rel}")
+    del p_64
+
+    # ---- the --confidence --qc composition on a decoded model: the N=2
+    # overlap decode of main_path (kernels 9-10), and a non-overlap N=2
+    # decode of the same signal (kernels 7-8), T=2^21 -------------------
+    def posterior_path(phase, model, pair):
+        for w in pair:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p = tpost.model_posteriors(model)
+        tm_m = model.template_model
+        onsets = tevents._onsets_dense(model.ml_seq, N=tm_m.n_neurons,
+                                       K=tm_m.K, overlaps=tm_m.allow_overlaps)
+        conf = tpost.confidence_from_posteriors(p, onsets,
+                                                half_width=(tm_m.K - 1) // 2)
+        qcs = tqc.unit_qc(model, posteriors=p)
+        qa = tqc.qc_arrays(qcs)
+        wall = time.perf_counter() - t
+        launches = {w.__name__: w.launches for w in pair}
+        # the posteriors alone, again: the rest of the wall is the host QC
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tpost.model_posteriors(model)
+        post_only = time.perf_counter() - t
+        emit({"phase": phase, "N": tm_m.n_neurons, "K": tm_m.K,
+              "S": tm_m.state_space.nstates, "T": len(model.ml_seq),
+              "L": 4096, "B": -(-len(model.ml_seq) // 4096), "card": card,
+              "seconds": wall,
+              "samples_per_s": len(model.ml_seq) / wall,
+              "posteriors_seconds": post_only,
+              "launches": launches,
+              "median_confidence": [float(np.median(cf)) for cf in conf],
+              "n_spikes": qa["n_spikes"].tolist(),
+              "expected_onsets": p.sum(axis=0).tolist(),
+              "missing_mass": qa["missing_mass"].tolist(),
+              "isi_invariant_violations":
+                  qa["isi_invariant_violations"].tolist(),
+              "conf_median_qc": qa["conf_median"].tolist()})
+        check(p.shape == (len(model.ml_seq), tm_m.n_neurons)
+              and np.isfinite(p).all() and p.min() >= -1e-6
+              and p.max() <= 1 + 1e-4, f"{phase}: posteriors malformed")
+        check(list(launches.values()) == [2, 2],
+              f"{phase}: kernel launches {launches}, expected 2 + 2")
+        check(all(v == 0 for v in qa["isi_invariant_violations"]),
+              f"{phase}: ISI invariant violated")
+        check(all(np.median(cf) > 0.9 for cf in conf),
+              f"{phase}: median confidence below 0.9")
+        return launches
+
+    post_launches = posterior_path(
+        "posterior_path", decoded_n2,
+        (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd))
+    tm_nov = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
+                                  allow_overlaps=False)
+    dec_nov = api.fit_spiking_model_fast(tm_nov, y, L=L)
+    nov_launches = posterior_path(
+        "posterior_path_nov", dec_nov,
+        (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb))
+
+    def gamma_entry(name, source, line, launches, row):
+        return {"name": name, "route": "cuda",
+                "source": f"hmmspikesorter_torch/csrc/{source}",
+                "replaces": f"hmmspikesorter_tpu/ops/{line}",
+                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
+
     emit({"kernels": [
         {"name": "ov2_forward_mb", "route": "cuda",
          "source": "hmmspikesorter_torch/csrc/viterbi_ov2_fwd.cu",
@@ -863,6 +1158,16 @@ def main():
          "ms": em2["backward"]["ms"], "plain_ms": em2["backward"]["plain_ms"],
          "bound_ms": bound_of(em2["backward"])[0],
          "bound_by": bound_of(em2["backward"])[1], "library_ms": None},
+        gamma_entry("gamma_fwd_mb", "gamma_fwd.cu", "pallas_gamma_mb.py:53",
+                    nov_launches["gamma_fwd_mb"], g_rows["nov_n2"]["fwd"]),
+        gamma_entry("gamma_bwd_mb", "gamma_bwd.cu", "pallas_gamma_mb.py:130",
+                    nov_launches["gamma_bwd_mb"], g_rows["nov_n2"]["gamma"]),
+        gamma_entry("gamma_ov2_fwd", "gamma_ov2_fwd.cu",
+                    "pallas_gamma_ov2.py:170",
+                    post_launches["gamma_ov2_fwd"], g_rows["ov2"]["fwd"]),
+        gamma_entry("gamma_ov2_bwd", "gamma_ov2_bwd.cu",
+                    "pallas_gamma_ov2.py:237",
+                    post_launches["gamma_ov2_bwd"], g_rows["ov2"]["gamma"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -74,6 +74,23 @@ def test_no_jax_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+@pytest.mark.parametrize("mod", ["core.events", "core.posterior", "core.qc",
+                                 "io.extraction", "ops.gamma_mb",
+                                 "ops.gamma_ov2"])
+def test_posterior_slice_modules_are_covered(mod):
+    """The posterior and QC slice's modules are among the files the
+    source scan reads and import on their own with torch, numpy and scipy
+    only."""
+    path = PKG / (mod.replace(".", "/") + ".py")
+    assert path in _port_files()
+    code = (f"import sys, hmmspikesorter_torch.{mod}\n"
+            f"sys.exit(any(k.split('.')[0] in {FORBIDDEN!r} "
+            "for k in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("N,K,overlaps", [(1, 5, True), (2, 6, True),
                                           (3, 4, True), (3, 6, False)])
 def test_state_space_copy_matches(N, K, overlaps):

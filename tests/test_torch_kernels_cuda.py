@@ -1,7 +1,9 @@
 """The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2),
-ops/viterbi_ovn_mb.py (general N) and ops/fb_mb.py (the EM E-step) against
+ops/viterbi_ovn_mb.py (general N), ops/fb_mb.py (the EM E-step),
+ops/gamma_mb.py and ops/gamma_ov2.py (the chained onset posteriors) against
 their plain PyTorch versions on the card: packed outputs, labels,
-checkpoints, per-step logsumexps and EM statistics exactly equal.
+checkpoints, per-step logsumexps, EM statistics, posteriors and betas
+exactly equal.
 
 Needs an NVIDIA GPU with nvcc; every test skips without one. This file
 imports neither jax nor the JAX package, so it runs on a machine without
@@ -14,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from hmmspikesorter_torch.core import posterior as tpost
 from hmmspikesorter_torch.data.synthetic import (create_signal_fast,
                                                  create_spike_template)
 from hmmspikesorter_torch.models import api
-from hmmspikesorter_torch.ops import fb_mb
+from hmmspikesorter_torch.ops import fb_mb, gamma_mb, gamma_ov2
 from hmmspikesorter_torch.ops import viterbi_mb as vmb
 from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
 from hmmspikesorter_torch.train import em as tem
@@ -298,3 +301,126 @@ def test_train_model_runs_the_em_kernels(cuda):
     assert fb_mb.em_backward_mb.launches - n_b == iters
     assert np.all(np.isfinite(res.ll_history)) and res.n_neurons >= 1
     assert tem.choose_fb_mode(cuda, K, 3, len(y)) == "overlap_cuda"
+
+
+def _gamma_inputs(y, L, S, dev, seed):
+    """Chained-window inputs of a signal cut into windows of L (a ragged
+    tail: the last window's terminal falls mid-chunk), with random
+    recentred entry and exit states."""
+    T = len(y)
+    y_win, ybnd, term, lastw, chained = gamma_mb.chain_inputs(
+        y, T, L, torch.float32, dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = y_win.shape[0]
+    rand = lambda: tpost._recenter(                          # noqa: E731
+        3 * torch.randn((B, S), generator=g)).to(dev).contiguous()
+    return y_win, ybnd, term, lastw, chained, rand(), rand()
+
+
+@pytest.mark.parametrize("K", [2, 12, 60, 65])
+@pytest.mark.parametrize("N", [1, 2, 3, 7, 8])
+def test_gamma_kernels_equal_plain(cuda, N, K):
+    """Kernels 7-8 on a ragged tail (T = 3L + 37) with chained and cold
+    windows and random entry/exit states: checkpoints, onset posteriors
+    and first-position betas bit for bit, both kernel-8 variants."""
+    L = 64
+    y, lp, mu = _em_problem(N, K, 3 * L + 37, seed=20 * N + K)
+    c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
+    ch = gamma_mb.gamma_chunk(N, K)
+    y_win, ybnd, term, lastw, chained, entry, exits = _gamma_inputs(
+        y, L, c.S, cuda, seed=N + K)
+    n_f, n_b = gamma_mb.gamma_fwd_mb.launches, gamma_mb.gamma_bwd_mb.launches
+    cp = gamma_mb.gamma_fwd_mb(y_win, entry, chained, c, ch)
+    pcp = gamma_mb.gamma_fwd_mb_plain(y_win, entry, chained, c, ch)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp)
+    for emit in (False, True):
+        got = gamma_mb.gamma_bwd_mb(y_win, pcp, entry, chained, exits, term,
+                                    ybnd, lastw, c, ch, emit)
+        ref = gamma_mb.gamma_bwd_mb_plain(y_win, pcp, entry, chained, exits,
+                                          term, ybnd, lastw, c, ch, emit)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        if emit:
+            assert torch.equal(got[0], ref[0])
+            assert torch.isfinite(got[0]).all()
+    assert gamma_mb.gamma_fwd_mb.launches == n_f + 1
+    assert gamma_mb.gamma_bwd_mb.launches == n_b + 2
+
+
+@pytest.mark.parametrize("K", [2, 9, 12, 60, 65])
+def test_gamma_ov2_kernels_equal_plain(cuda, K):
+    """Kernels 9-10 on a ragged tail with chained and cold windows and
+    random entry/terminal states: bit for bit."""
+    L = 64
+    y, temps, lp = _problem(K, 1, 3 * L + 37, seed=K)
+    c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+    y_win, _, term, _, chained, entry, tmx = _gamma_inputs(
+        y[0], L, c.S, cuda, seed=K)
+    n_f = gamma_ov2.gamma_ov2_fwd.launches
+    n_b = gamma_ov2.gamma_ov2_bwd.launches
+    cp = gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c)
+    pcp = gamma_ov2.gamma_ov2_fwd_plain(y_win, entry, chained, c)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp)
+    for emit in (False, True):
+        got = gamma_ov2.gamma_ov2_bwd(y_win, pcp, entry, chained, tmx, term,
+                                      c, emit)
+        ref = gamma_ov2.gamma_ov2_bwd_plain(y_win, pcp, entry, chained, tmx,
+                                            term, c, emit)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        if emit:
+            assert torch.equal(got[0], ref[0])
+            assert torch.isfinite(got[0]).all()
+    assert gamma_ov2.gamma_ov2_fwd.launches == n_f + 1
+    assert gamma_ov2.gamma_ov2_bwd.launches == n_b + 2
+
+
+@pytest.mark.parametrize("overlaps,N,T,L", [
+    (True, 2, 777, 128),       # kernels 9-10, terminal mid-chunk
+    (False, 2, 777, 128),      # kernels 7-8
+    (False, 3, 500, 96),
+    (False, 1, 300, 64),
+])
+def test_chained_posteriors_run_the_kernels(cuda, overlaps, N, T, L):
+    """onset_posteriors_chained on the card in float32 launches each
+    kernel pair 2 + 2 times and lands within 1e-4 of the float64 exact
+    path on the CPU (tests/test_pallas_gamma.py's bar)."""
+    K = 12 if N < 3 else 9
+    temps = np.stack([create_spike_template(K, 3.0 + n, 0.6 + 0.1 * n, 0.2)
+                      for n in range(N)], axis=1)
+    pp = np.full(N, 0.01)
+    y, _ = create_signal_fast(T, 0.3, pp, temps,
+                              rng=np.random.default_rng(T))
+    tm = api.HMMTemplateModel(mu=temps, sigma=0.3, lp=np.log(pp),
+                              allow_overlaps=overlaps)
+    pair = ((gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd)
+            if overlaps and N == 2 else
+            (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb))
+    before = [w.launches for w in pair]
+    p = tpost.onset_posteriors_chained(tm, y, L=L)
+    assert [w.launches - n for w, n in zip(pair, before)] == [2, 2]
+    ref = tpost.onset_posteriors(tm, y, device="cpu")
+    assert p.shape == ref.shape == (T, N)
+    assert np.abs(p - ref).max() < 1e-4
+
+
+def test_gamma_kernels_refuse_what_they_cannot_take(cuda):
+    y, temps, lp = _problem(12, 1, 256, seed=0)
+    c64 = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float64, device=cuda)
+    y_win, _, term, _, chained, entry, tmx = _gamma_inputs(
+        y[0], 64, c64.S, cuda, seed=0)
+    with pytest.raises(TypeError):
+        gamma_ov2.gamma_ov2_fwd(y_win.double(), entry.double(), chained, c64)
+    c66 = vmb.ov2_consts(lp, np.zeros((66, 2)), 0.3, dtype=torch.float32,
+                         device=cuda)
+    with pytest.raises(ValueError):
+        gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c66)
+    big = fb_mb.em_consts(np.full(16, -8.0), np.zeros((65, 16)), 0.3,
+                          dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        gamma_mb.gamma_fwd_mb(y_win, torch.zeros((4, big.S), device=cuda),
+                              chained, big, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        gamma_ov2.onset_gammas_cuda_ov2(y[0], lp, temps, 0.3, L=66)
