@@ -8,7 +8,7 @@ output.
 
 Phases, each printing one JSON line:
   platform     torch and CUDA versions, the card (nvidia-smi)
-  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-6), all
+  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-13), all
                sources at once
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
@@ -77,10 +77,39 @@ Phases, each printing one JSON line:
                confidence above 0.9, isi_invariant_violations 0
   posterior_path_nov  the same for a non-overlap N=2 decode of the same
                signal, through kernels 7-8
+  kernels_mc   the multichannel configuration (BASELINE.json config 6,
+               benchmarks/suite.py config6: N=3, C=4, K=60, S=10,621,
+               T=2^19, per-channel gains 0.3 + U, sigma_c = 0.25 + 0.1 U,
+               pp=(0.01, 0.005, 0.008)): kernel 11 vs ovn_mc_forward_mb_plain
+               on the streams of its decode windows (B=64 of W=8704, L=8192,
+               H=256; the plain version on the first 16) at N=3 and at N=2
+               (the first two templates; B=256 windows of L=2048, H=256),
+               and kernel 4 on kernel 11's output vs its plain version:
+               exactly equal; times, bounds and the channel projection's
+               time
+  main_path_mc models/multichannel.fit_spiking_model_mc_fast on config 6,
+               one-shot and streaming (16 windows a call), launches of
+               kernels 11 and 4 counted in each run; labels vs the float64
+               plain twin, ll, onset counts vs the generator's truth
+  kernels_em_mc  kernels 12-13 vs em_forward_mb_mc_plain /
+               em_backward_mb_mc_plain at config 6's training shapes (B=256
+               windows of W=2528, S=178, C=4): checkpoints and la exactly
+               equal, the summed statistics within 1e-5 relative
+  train_em_mc  5 chained em_chain_mc(fb_mode="overlap_cuda") iterations on
+               config 6 from its templates after one warm-up: iterations/s,
+               launches 5 + 5, the first iteration vs one float64 step of the
+               plain overlap engine (train_em's tolerances), ll non-decreasing
+               up to the float32 ll's rounding (train_em's ll bound)
+  train_path_mc  train/em_mc.train_model_mc(yc, 3, 60, nsteps=10) from random
+               templates (default_rng(1)), then the overlap decode with the
+               learned model through kernels 11 and 4: per-channel sigma
+               within 2% of the generator's, ll non-decreasing in each EM
+               phase (the same bound), each learned template within 1% of a
+               generator template's energy
+About 7-10 minutes on an H100.
 Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
-About 6-7 minutes on an H100.
 """
 
 import json
@@ -146,12 +175,15 @@ def fwd_ops(B, W, Km1):
     return B * ((W - 1) * per_step + 5 * S)
 
 
-def ovn_fwd_ops(B, W, N, Km1):
+def ovn_fwd_ops(B, W, N, Km1, streams=False):
     """f32 operations of the general-N forward at these shapes: per window
     step 4 per state for the emission (the means are per window, not per
     step) and 1 to add it; per candidate the adds of its transition
     weight (1, or 2 where an onset log-prob joins) and one compare per
-    candidate past the first; plus the init emission and the argmax."""
+    candidate past the first; plus the init emission and the argmax.
+    streams: kernel 11's emission from the streams instead, 0 operations
+    for the silent state, 2 for a single (es + d - c1) and 3 for a pair
+    cell, plus the add."""
     P = N * (N - 1) // 2
     S = 1 + N * Km1 + P * Km1 * Km1
     disjoint = (N - 2) * (N - 3) // 2            # pairs disjoint from a pair
@@ -159,7 +191,8 @@ def ovn_fwd_ops(B, W, N, Km1):
     def cands(n_cells, n_cand, adds):
         return n_cells * (n_cand * adds + n_cand - 1)
 
-    per_step = (5 * S
+    emission = (1 + 3 * N * Km1 + 4 * P * Km1 * Km1) if streams else 5 * S
+    per_step = (emission
                 + cands(1, 1 + N + P, 1)                          # silent
                 + cands(N, 1 + (N - 1) + (P - (N - 1)), 2)        # onsets
                 + cands(N * (Km1 - 1), N, 1)                      # ring slots
@@ -181,7 +214,7 @@ def ovn_bt_bytes(labels, xT, Km1, N):
     return int((~interior).sum()) + xT.numel() * 4 + labels.numel() * 2
 
 
-def em_fwd_ops(B, W, N, S, la_steps=None):
+def em_fwd_ops(B, W, N, S, la_steps=None, emit=4):
     """(f32, transcendental) operations of kernel 5 at these shapes. A step
     t >= 1: each state's emission (4) and its add (1), the ring shift's
     add; the silent state's logsumexp over the N ring ends (N exp, 1 log)
@@ -189,26 +222,30 @@ def em_fwd_ops(B, W, N, S, la_steps=None):
     N-1 ends and logaddexp (N > 1). Step 0 is the emission. The logsumexp
     over the S states (S exp, 1 log; max, subtract and add per state) is
     counted at `la_steps` steps of a window: all W for the kernel's
-    interface, 2 for what the telescoped ll reads of `la`."""
+    interface, 2 for what the telescoped ll reads of `la`. Kernel 12 reads
+    its emissions (emit=0)."""
     la_steps = W if la_steps is None else la_steps
     onset = N * (N + 2) if N > 1 else 0
     sfu = (W - 1) * ((N + 3) + onset) + la_steps * (S + 1)
-    f32 = (W - 1) * (5 * S + N * (3 * N + 8) + 10) + 5 * S + la_steps * 3 * S
+    f32 = ((W - 1) * ((emit + 1) * S + N * (3 * N + 8) + 10) + emit * S
+           + la_steps * 3 * S)
     return B * f32, B * sfu
 
 
-def em_bwd_ops(B, W, N, S):
+def em_bwd_ops(B, W, N, S, emit=4, moments=6):
     """(f32, transcendental) operations of kernel 6: the remat repeats
     kernel 5's alpha steps (without its logsumexp); a beta step costs the
     silent state's logsumexp over the N onsets and logaddexp, each ring
     end's logsumexp over the other onsets and logaddexp (N > 1), the block
     logsumexp of alpha + beta (S exp, 1 log), gamma (S exp) and the N xi
     terms (N exp); plus adds, the masks and the three moment updates
-    (about 14 f32 operations per state)."""
+    (about 14 f32 operations per state). Kernels 12-13 read their
+    emissions (emit=0) and update 1 + 5C moments (moments) a state."""
     onset = N * (N + 2) if N > 1 else 0
     remat_sfu = (W - 1) * ((N + 3) + onset)
     walk_sfu = W * ((N + 3) + onset + 2 * S + 1 + N)
-    f32 = (W - 1) * (5 * S + N * (3 * N + 8)) + W * (14 * S + N * (3 * N + 10))
+    f32 = ((W - 1) * ((emit + 1) * S + N * (3 * N + 8))
+           + W * ((4 + emit + moments) * S + N * (3 * N + 10)))
     return B * f32, B * (remat_sfu + walk_sfu)
 
 
@@ -218,26 +255,40 @@ def ops_ms(f32, sfu):
     return max(f32 / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
 
 
-def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps):
+def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
     """Kernels 5-6 vs their plain versions on (y_win, bounds): checkpoints
     and la exactly equal, the per-window partials and their sums over the
     windows compared (sums within 1e-5 relative), CUDA-event times and the
-    bounds, as one row of the kernels_em line."""
-    B, W = y_win.shape
+    bounds, as one row of the kernels_em line. With yc_win (B, W, C),
+    kernels 12-13 instead, y_win then the (B, W, S) stream emission
+    windows."""
+    B, W = y_win.shape[:2]
     ch = fb_mb.em_chunk(c.S)
-    fwd = lambda: fb_mb.em_forward_mb(y_win, c, ch)          # noqa: E731
+    mc = yc_win is not None
+    names = ("12", "13") if mc else ("5", "6")
+    if mc:
+        fwd_k, fwd_p = fb_mb.em_forward_mb_mc, fb_mb.em_forward_mb_mc_plain
+        bwd_k = lambda cp_: fb_mb.em_backward_mb_mc(             # noqa
+            y_win, yc_win, cp_, bounds, c, ch)
+        bwd_p = lambda cp_: fb_mb.em_backward_mb_mc_plain(       # noqa
+            y_win, yc_win, cp_, bounds, c, ch)
+    else:
+        fwd_k, fwd_p = fb_mb.em_forward_mb, fb_mb.em_forward_mb_plain
+        bwd_k = lambda cp_: fb_mb.em_backward_mb(                # noqa
+            y_win, cp_, bounds, c, ch)
+        bwd_p = lambda cp_: fb_mb.em_backward_mb_plain(          # noqa
+            y_win, cp_, bounds, c, ch)
+    fwd = lambda: fwd_k(y_win, c, ch)                         # noqa: E731
     fwd()                                                     # warm-up
     fwd_ms, (cp, la) = cuda_ms(fwd, reps=fwd_reps)
-    fwd_plain_ms, (pcp, pla) = cuda_ms(
-        lambda: fb_mb.em_forward_mb_plain(y_win, c, ch), reps=1)
+    fwd_plain_ms, (pcp, pla) = cuda_ms(lambda: fwd_p(y_win, c, ch), reps=1)
     fwd_err = max_abs_err([(cp, pcp), (la, pla)])
     check(torch.equal(cp, pcp) and torch.equal(la, pla),
-          f"kernel 5 differs from its plain version at N={c.N}")
-    bwd = lambda: fb_mb.em_backward_mb(y_win, pcp, bounds, c, ch)  # noqa
+          f"kernel {names[0]} differs from its plain version at N={c.N}")
+    bwd = lambda: bwd_k(pcp)                                  # noqa: E731
     bwd()
     bwd_ms, got = cuda_ms(bwd, reps=bwd_reps)
-    bwd_plain_ms, ref = cuda_ms(
-        lambda: fb_mb.em_backward_mb_plain(y_win, pcp, bounds, c, ch), reps=1)
+    bwd_plain_ms, ref = cuda_ms(lambda: bwd_p(pcp), reps=1)
     bwd_err = max_abs_err(list(zip(got, ref)))
     # the statistics as the wrapper hands them on: summed over windows,
     # window 0's beta, and the telescoped ll from la
@@ -253,16 +304,21 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps):
     sums_rel["ll"] = rel(ek[0] + (ek[1:] - pk[1:]).sum(),
                          ep[0] + (ep[1:] - pp_[1:]).sum())
     check(max(sums_rel.values()) <= 1e-5,
-          f"kernel 6 differs from its plain version at N={c.N}: {sums_rel}")
+          f"kernel {names[1]} differs from its plain version at N={c.N}: "
+          f"{sums_rel}")
     fwd_bytes = (y_win.numel() * 4 + c.fpack.numel() * 4 + cp.numel() * 4
                  + la.numel() * 4)
     bwd_bytes = (y_win.numel() * 4 + cp.numel() * 4 + bounds.numel() * 4
-                 + c.fpack.numel() * 4 + sum(g.numel() * 4 for g in got))
-    f_f32, f_sfu = em_fwd_ops(B, W, c.N, c.S)
+                 + c.fpack.numel() * 4 + sum(g.numel() * 4 for g in got)
+                 + (yc_win.numel() * 4 if mc else 0))
+    emit_ops = 0 if mc else 4
+    moments = 1 + 5 * yc_win.shape[2] if mc else 6
+    f_f32, f_sfu = em_fwd_ops(B, W, c.N, c.S, emit=emit_ops)
     # what the ll consumes of la: two steps a window, two floats out
-    r_f32, r_sfu = em_fwd_ops(B, W, c.N, c.S, la_steps=2)
+    r_f32, r_sfu = em_fwd_ops(B, W, c.N, c.S, la_steps=2, emit=emit_ops)
     r_bytes = fwd_bytes - (la.numel() - 2 * B) * 4
-    b_f32, b_sfu = em_bwd_ops(B, W, c.N, c.S)
+    b_f32, b_sfu = em_bwd_ops(B, W, c.N, c.S, emit=emit_ops,
+                              moments=moments)
     return {"N": c.N, "K": c.Km1 + 1, "S": c.S, "B": B, "W": W, "ch": ch,
             "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                         "f32_ops": f_f32, "sfu_ops": f_sfu,
@@ -374,6 +430,355 @@ def ovn_kernels(vomb, y_win, sil, c, fwd_reps, bt_reps):
                                                          c.N)
                           / HBM_BYTES_PER_S * 1e3,
                           "max_abs_err": bt_err, "match": True}}
+
+
+def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
+    """Kernel 11 vs its plain version on the first P windows of (es_win,
+    d_win, sil), and kernel 4 on kernel 11's output vs its plain version
+    there: exact equality of every packed output and label; CUDA-event
+    times of the kernels on all windows and of the plain versions on P."""
+    B, W = es_win.shape
+    fwd = lambda: vomb.ovn_mc_forward_mb(es_win, d_win, sil, c)  # noqa
+    fwd()                                                     # warm-up
+    fwd_ms, got = cuda_ms(fwd, reps=fwd_reps)
+    fwd_plain_ms, plain = cuda_ms(lambda: vomb.ovn_mc_forward_mb_plain(
+        es_win[:P], d_win[:P], sil[:P], c), reps=1)
+    fwd_err = max_abs_err([(a[:P], b) for a, b in zip(got, plain)])
+    check(all(torch.equal(a[:P], b) for a, b in zip(got, plain)),
+          f"kernel 11 differs from its plain version at N={c.N}")
+    bt = lambda: vomb.ovn_backtrace_mb(*got, c)               # noqa: E731
+    bt()
+    bt_ms, labels = cuda_ms(bt, reps=bt_reps)
+    bt_plain_ms, plain_labels = cuda_ms(
+        lambda: vomb.ovn_backtrace_mb_plain(*plain, c), reps=1)
+    bt_err = max_abs_err([(labels[:P], plain_labels)])
+    check(torch.equal(labels[:P], plain_labels.to(torch.int16)),
+          f"kernel 4 differs from its plain version on kernel 11's output "
+          f"at N={c.N}")
+    flags, rings, rowcol, xT = got
+    fwd_bytes = (es_win.numel() * 4 + d_win.numel() * 4 + B
+                 + c.fpack.numel() * 4 + c.ipack.numel() * 4
+                 + c.em.c2.numel() * 4 + flags.numel() + rings.numel()
+                 + rowcol.numel() + B * 4)
+    row = {"N": c.N, "B": B, "W": W, "K": c.Km1 + 1, "S": c.S,
+           "plain_windows": P,
+           "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                       "bound_ops_ms": ovn_fwd_ops(B, W, c.N, c.Km1,
+                                                   streams=True)
+                       / FP32_OPS_PER_S * 1e3,
+                       "bound_bytes_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                       "max_abs_err": fwd_err, "match": True},
+           "backtrace": {"ms": bt_ms, "plain_ms": bt_plain_ms,
+                         "bound_bytes_ms": ovn_bt_bytes(labels, xT, c.Km1,
+                                                        c.N)
+                         / HBM_BYTES_PER_S * 1e3,
+                         "max_abs_err": bt_err, "match": True}}
+    row["forward"]["bound_ms"], row["forward"]["bound_by"] = bound_of(
+        row["forward"])
+    return row
+
+
+def config6(T, create_signal, create_spike_template):
+    """BASELINE.json config 6 (benchmarks/suite.py config6): N=3 templates
+    of benchmarks/suite.py's first three shapes at K=60 seen on C=4
+    channels with gains 0.3 + U (default_rng(7)), noise sigma_c = 0.25 +
+    0.1 U, onset probabilities (0.01, 0.005, 0.008); the spike train is the
+    generator's (default_rng(1234)). Returns (yc (T, C) float32, truth
+    (N, T), mu (K, N, C), sigmas (C,), lp (N,))."""
+    K, N, C = 60, 3, 4
+    pp = np.array([0.01, 0.005, 0.008])
+    temps = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES[:3]],
+                     axis=1)
+    _, truth = create_signal(T, 0.0, pp, temps,
+                             rng=np.random.default_rng(1234))
+    rng = np.random.default_rng(7)
+    mu = (temps[:, :, None] * (0.3 + rng.random((N, C)))).astype(np.float32)
+    sg = (0.25 + 0.1 * rng.random(C)).astype(np.float32)
+    yc = (sg * rng.standard_normal((T, C))).astype(np.float32)
+    for n in range(N):
+        k = truth[n]
+        m = k > 0
+        yc[m] += mu[k[m] - 1, n]
+    return yc, truth, mu.astype(np.float64), sg.astype(np.float64), np.log(pp)
+
+
+def match_mc(learned, true):
+    """Nearest generator template of each learned (K, C) template: the
+    squared difference summed over channels at the alignment of the best
+    summed cross-correlation (train/em_mc._best_overlap_mc). Returns
+    (indices, costs)."""
+    from hmmspikesorter_torch.train.em_mc import _best_overlap_mc
+
+    mm, cc = [], []
+    for i in range(learned.shape[1]):
+        costs = []
+        for j in range(true.shape[1]):
+            (i1, i2), _ = _best_overlap_mc(learned[:, i], true[:, j])
+            costs.append(float(((learned[i1, i] - true[i2, j]) ** 2).sum()))
+        mm.append(int(np.argmin(costs)))
+        cc.append(min(costs))
+    return mm, cc
+
+
+def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
+              block=2048):
+    """The multichannel phases (kernels_mc, main_path_mc, kernels_em_mc,
+    train_em_mc, train_path_mc) on BASELINE.json config 6: N=3, C=4, K=60,
+    T=2^19, decode windows L=8192, H=256, EM block 2048. Returns the rows
+    and launch counts of kernels 11-13 for the kernels line."""
+    # ---- multichannel: BASELINE.json config 6 (N=3, C=4, K=60, T=2^19) --
+    from hmmspikesorter_torch.core.emission_mc import (MCTables,
+                                                       full_float32_matmul,
+                                                       mc_streams)
+    from hmmspikesorter_torch.core.state_space import build_state_space
+    from hmmspikesorter_torch.data.synthetic import (create_signal,
+                                                     create_spike_template)
+    from hmmspikesorter_torch.io.extraction import unroll_mlseq
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
+    from hmmspikesorter_torch.parallel.overlap_save import _build_windows
+    from hmmspikesorter_torch.train import em as tem
+    from hmmspikesorter_torch.train import em_mc as tmc
+
+    f32 = torch.float32
+
+    W6, B6 = L6 + 2 * H6, -(-T6 // L6)
+    yc6, truth6, mu6, sg6, lp6 = config6(T6, create_signal,
+                                         create_spike_template)
+    K6, N6, C6 = mu6.shape
+    yc6_d = torch.as_tensor(yc6, device=dev)
+    tab6 = MCTables(mu6, sg6)
+    # the channel projection d = z @ delta alone, in full float32
+    z6 = yc6_d * torch.as_tensor(tab6.zscale, dtype=f32, device=dev)
+    delta6 = torch.as_tensor(tab6.delta, dtype=f32, device=dev)
+    with full_float32_matmul():
+        z6 @ delta6
+        proj_ms, _ = cuda_ms(lambda: z6 @ delta6, reps=20)
+    proj_bytes = 4 * (z6.numel() + delta6.numel() + T6 * delta6.shape[1])
+    proj = {"ms": proj_ms, "shape": [T6, C6, delta6.shape[1]],
+            "bytes": proj_bytes,
+            "bound_bytes_ms": proj_bytes / HBM_BYTES_PER_S * 1e3,
+            "f32_ops": 2 * T6 * C6 * delta6.shape[1]}
+    del z6, delta6
+
+    def mc_windows(tab, L_w):
+        B_w, W_w = -(-T6 // L_w), L_w + 2 * H6
+        es, d = mc_streams(yc6_d, tab)
+        es_w, _ = _build_windows(es, T=T6, L=L_w, H=H6, B=B_w, W=W_w)
+        d_w, _ = _build_windows(d.reshape(T6, -1), T=T6, L=L_w, H=H6,
+                                B=B_w, W=W_w)
+        c = vomb.ovn_mc_consts(lp6[:tab.N], tab.c1, c2_stack(tab),
+                               dtype=f32, device=dev)
+        return (es_w.contiguous(), d_w.reshape(B_w, W_w, tab.N, K6 - 1)
+                .contiguous(), torch.arange(B_w, device=dev) == 0, c)
+
+    # N=3 at the decode's windows; N=2 (the first two templates) at windows
+    # of L/4, so its plain versions (a step at a time) take a quarter as long
+    mc_rows = {}
+    for n_m, L_w in ((3, L6), (2, L6 // 4)):
+        es_w, d_w, sil_w, c11 = mc_windows(
+            tab6 if n_m == 3 else MCTables(mu6[:, :2], sg6), L_w)
+        mc_rows[f"n{n_m}"] = ovn_mc_kernels(vomb, es_w, d_w, sil_w, c11,
+                                            fwd_reps=3, bt_reps=10,
+                                            P=plain_windows)
+        del es_w, d_w
+    emit({"phase": "kernels_mc", "dtype": "float32", "card": card, "T": T6,
+          "L": L6, "H": H6, "C": C6, "projection": proj, **mc_rows})
+
+    # ---- main_path_mc: fit_spiking_model_mc_fast on config 6 -----------
+    tm6 = mcm.HMMTemplateModelMC(mu=mu6, sigmas=sg6, lp=lp6,
+                                 allow_overlaps=True)
+    mc_wr = (vomb.ovn_mc_forward_mb, vomb.ovn_backtrace_mb)
+
+    def drive_mc(tm_m, **kw):
+        for w in mc_wr:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = mcm.fit_spiking_model_mc_fast(tm_m, yc6, L=L6, H=H6,
+                                          device=dev, **kw)
+        torch.cuda.synchronize()
+        return (m, time.perf_counter() - t,
+                {w.__name__: w.launches for w in mc_wr})
+
+    drive_mc(tm6)                                      # warm-up
+    one6, one6_s, one6_launches = drive_mc(tm6)
+    stream_batch = max(B6 // 4, 1)                 # 4 calls in flight
+    str6, str6_s, str6_launches = drive_mc(tm6, streaming=True,
+                                           blocks_per_call=stream_batch)
+    f64_6, f64_6_s, _ = drive_mc(tm6, block_engine="ring",
+                                 dtype=torch.float64)
+    agree6 = float((one6.ml_seq == f64_6.ml_seq).mean())
+    ll6_rel = abs(one6.ll - f64_6.ll) / abs(f64_6.ll)
+    pos6 = unroll_mlseq(one6.ml_seq, tm6.state_space.states)
+    dec6 = (pos6 == 1).sum(axis=1)
+    true6 = (truth6 == 1).sum(axis=1)
+    onset6_rel = np.abs(dec6 - true6) / true6
+    emit({"phase": "main_path_mc", "N": N6, "C": C6, "K": K6,
+          "S": tm6.state_space.nstates, "T": T6, "L": L6, "H": H6, "W": W6,
+          "B": B6, "card": card,
+          "oneshot": {"seconds": one6_s,
+                      "mc_decode_samples_per_s": T6 / one6_s,
+                      "launches": one6_launches,
+                      "seams_repaired": one6.seams_repaired},
+          "streaming": {"seconds": str6_s,
+                        "mc_decode_samples_per_s": T6 / str6_s,
+                        "launches": str6_launches,
+                        "blocks_per_call": stream_batch},
+          "kernel_share_of_oneshot": (mc_rows["n3"]["forward"]["ms"]
+                                      + mc_rows["n3"]["backtrace"]["ms"]
+                                      + proj_ms) / 1e3 / one6_s,
+          "f64_plain_twin_seconds": f64_6_s, "agreement_vs_f64": agree6,
+          "ll": one6.ll, "ll_f64": f64_6.ll, "ll_rel_err": ll6_rel,
+          "onsets_decoded": dec6.tolist(), "onsets_true": true6.tolist()})
+    check(all(one6_launches.values()) and all(str6_launches.values()),
+          f"main_path_mc: a kernel did not run: {one6_launches} "
+          f"{str6_launches}")
+    check(str6_launches["ovn_mc_forward_mb"] >= 2,
+          "main_path_mc: streaming made fewer than 2 calls")
+    check(one6.ml_seq.shape == (T6,) and np.isfinite(one6.ll),
+          "main_path_mc: output malformed")
+    check(bool(one6.seam_ok.all()) and bool(str6.seam_ok.all()),
+          "main_path_mc: seams not ok")
+    check(np.array_equal(one6.ml_seq, str6.ml_seq),
+          "main_path_mc: one-shot and streaming labels differ")
+    check(agree6 >= 0.9999, f"main_path_mc: f32 vs f64 agreement {agree6}")
+    check(ll6_rel <= 1e-6, f"main_path_mc: ll relative error {ll6_rel}")
+    check(bool((onset6_rel <= 0.01).all()),
+          f"main_path_mc: onset counts off by > 1%: {onset6_rel}")
+
+    # ---- kernels_em_mc: kernels 12-13 at config 6's training shapes ----
+    Le6, He6 = tem.cuda_em_geometry(K6, block)
+    f32d = dict(dtype=f32, device=dev)
+    es_s, body_s = tmc._mc_streams_dense(
+        yc6_d, torch.as_tensor(mu6, **f32d), torch.as_tensor(sg6, **f32d))
+    e6_win, ycw6, bnd6 = fb_mb.mc_em_windows(
+        es_s, body_s.reshape(T6, N6, K6 - 1), yc6_d, L=Le6, H=He6)
+    bounds6 = torch.as_tensor(np.stack(bnd6, 1), dtype=torch.int32,
+                              device=dev).contiguous()
+    ce6 = fb_mb.em_consts_mc(lp6, K6, **f32d)
+    emmc = em_kernels(fb_mb, e6_win, bounds6, ce6, fwd_reps=10, bwd_reps=10,
+                      yc_win=ycw6)
+    del e6_win, ycw6, es_s, body_s
+    emit({"phase": "kernels_em_mc", "dtype": "float32", "card": card,
+          "L": Le6, "H": He6, "C": C6, "n3": emmc})
+
+    # ---- train_em_mc: 5 chained kernel EM iterations on config 6 --------
+    tab_e6 = tem.EMTables.build(build_state_space(N6, K6, False), dev)
+
+    def mc_args(dt):
+        return [torch.as_tensor(np.asarray(v, np.float64), device=dev).to(dt)
+                for v in (yc6, lp6, mu6, sg6)]
+
+    a6 = mc_args(f32)
+    n_it6 = 5
+    em_mc_wr = (fb_mb.em_forward_mb_mc, fb_mb.em_backward_mb_mc)
+
+    def chain6():
+        return tmc.em_chain_mc(*a6, tab_e6, K=K6, n_iters=n_it6,
+                               fb_mode="overlap_cuda", block=block)
+
+    chain6()                                         # warm-up
+    for w in em_mc_wr:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lp_c6, _, mu_c6, sg_c6, lls_c6 = chain6()
+    out6 = (lp_c6.cpu().numpy(), mu_c6.cpu().numpy(), sg_c6.cpu().numpy())
+    torch.cuda.synchronize()
+    chain6_s = time.perf_counter() - t
+    em6_launches = {w.__name__: w.launches for w in em_mc_wr}
+    lls6 = lls_c6.double().cpu().numpy()
+    check(all(v == n_it6 for v in em6_launches.values()),
+          f"train_em_mc: launches {em6_launches}, expected {n_it6} each")
+    check(np.all(np.isfinite(lls6)) and np.all(np.isfinite(out6[1])),
+          "train_em_mc: non-finite output")
+    first6 = tmc.em_step_mc(*a6, tab_e6, K=K6, fb_mode="overlap_cuda",
+                            block=block)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref6 = tmc.em_step_mc(*mc_args(torch.float64), tab_e6, K=K6,
+                          fb_mode="overlap", block=block)
+    torch.cuda.synchronize()
+    f64_step6_s = time.perf_counter() - t
+    # the float32 ll witness, as in train_em: the plain float32 overlap
+    # engine on the same input
+    plain6 = tmc.em_step_mc(*a6, tab_e6, K=K6, fb_mode="overlap",
+                            block=block)
+    plain6_ll_rel = float(abs(plain6[4].double() - ref6[4]) / abs(ref6[4]))
+    del plain6
+    ll6_rtol = min(f32_ll_rtol(Le6, He6), max(1e-5, 3 * plain6_ll_rel))
+    first6_errs = em_update_close(first6, ref6, "train_em_mc", ll6_rtol)
+
+    def non_decreasing(lls):
+        """Up to the float32 ll's own rounding (ll6_rtol relative): a
+        converged EM's float32 lls wander by that much."""
+        return bool(np.all(lls[1:] >= lls[:-1] - ll6_rtol * np.abs(lls[:-1])))
+
+    check(non_decreasing(lls6), f"train_em_mc: ll decreased: {lls6.tolist()}")
+    kern6_ms = emmc["forward"]["ms"] + emmc["backward"]["ms"]
+    emit({"phase": "train_em_mc", "N": N6, "C": C6, "K": K6, "T": T6,
+          "L": Le6, "H": He6, "W": Le6 + 2 * He6, "B": -(-T6 // Le6),
+          "card": card, "iterations": n_it6, "seconds": chain6_s,
+          "mc_bw_iter_per_s": n_it6 / chain6_s, "launches": em6_launches,
+          "lls": lls6.tolist(), "kernel_ms_per_iteration": kern6_ms,
+          "other_ms_per_iteration": chain6_s / n_it6 * 1e3 - kern6_ms,
+          "first_iteration_err_vs_overlap_f64": first6_errs,
+          "ll_rtol": ll6_rtol, "ll_non_decreasing": non_decreasing(lls6),
+          "plain_overlap_f32_ll_rel_err_vs_f64": plain6_ll_rel,
+          "f64_plain_overlap_step_seconds": f64_step6_s,
+          "sigmas": out6[2].tolist()})
+
+    # ---- train_path_mc: --multichannel --train's defaults, then decode --
+    for w in em_mc_wr:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tm_l6, _, lls_l6 = tmc.train_model_mc(yc6, 3, K6, 10,
+                                          rng=np.random.default_rng(1),
+                                          block=block, device=dev)
+    torch.cuda.synchronize()
+    train6_s = time.perf_counter() - t
+    train6_launches = {w.__name__: w.launches for w in em_mc_wr}
+    n_l6 = tm_l6.n_neurons
+    mm6, cc6 = match_mc(tm_l6.mu, mu6)
+    E6 = (mu6 ** 2).sum(axis=(0, 2))
+    fits6 = [bool(cc6[i] < 0.01 * E6[mm6[i]]) for i in range(n_l6)]
+    sig6_rel = np.abs(tm_l6.sigmas - sg6) / sg6
+    lls_l6 = np.asarray(lls_l6)
+    phases6 = [lls_l6[:10], lls_l6[10:]]
+    mono6 = [non_decreasing(ph) for ph in phases6]
+    tm_l6.allow_overlaps = True
+    dec_l6, dec_l6_s, dec_l6_launches = drive_mc(tm_l6)
+    pos_l6 = unroll_mlseq(dec_l6.ml_seq, tm_l6.state_space.states)
+    on_l6 = (pos_l6 == 1).sum(axis=1)
+    emit({"phase": "train_path_mc", "T": T6, "K": K6, "C": C6, "n_init": 3,
+          "card": card, "train_seconds": train6_s,
+          "train_launches": train6_launches, "n_templates": n_l6,
+          "matched_to": mm6, "match_cost": cc6, "energies": E6.tolist(),
+          "within_1pct": fits6, "sigmas": tm_l6.sigmas.tolist(),
+          "sigmas_true": sg6.tolist(), "sigma_rel_err": sig6_rel.tolist(),
+          "lp": tm_l6.lp.tolist(), "lls": lls_l6.tolist(),
+          "ll_non_decreasing_per_phase": mono6,
+          "decode_seconds": dec_l6_s, "decode_launches": dec_l6_launches,
+          "onsets_decoded": on_l6.tolist(),
+          "onsets_true": [int(true6[j]) for j in mm6],
+          "seam_ok": bool(dec_l6.seam_ok.all())})
+    check(all(v >= 10 for v in train6_launches.values()),
+          f"train_path_mc: EM kernels did not run: {train6_launches}")
+    check(bool((sig6_rel <= 0.02).all()),
+          f"train_path_mc: sigmas off by > 2%: {sig6_rel.tolist()}")
+    check(all(mono6), f"train_path_mc: ll decreased in a phase: "
+          f"{lls_l6.tolist()}")
+    check(n_l6 >= 1 and all(fits6),
+          f"train_path_mc: learned {n_l6} templates {mm6} costs {cc6}")
+    check(all(dec_l6_launches.values()),
+          f"train_path_mc: kernels 11 and 4 did not run: {dec_l6_launches}")
+
+    return {"fwd": mc_rows["n3"]["forward"], "one_launches": one6_launches,
+            "em": emmc, "em_launches": em6_launches}
 
 
 def gamma_ops(kind, B, L, N, Km1):
@@ -1097,7 +1502,10 @@ def main():
         "posterior_path_nov", dec_nov,
         (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb))
 
+    mc = mc_phases(dev, card)
+
     def gamma_entry(name, source, line, launches, row):
+        """One kernel's entry of the kernels line from its row."""
         return {"name": name, "route": "cuda",
                 "source": f"hmmspikesorter_torch/csrc/{source}",
                 "replaces": f"hmmspikesorter_tpu/ops/{line}",
@@ -1168,6 +1576,20 @@ def main():
         gamma_entry("gamma_ov2_bwd", "gamma_ov2_bwd.cu",
                     "pallas_gamma_ov2.py:237",
                     post_launches["gamma_ov2_bwd"], g_rows["ov2"]["gamma"]),
+        gamma_entry("ovn_mc_forward_mb", "viterbi_ovn_mc_fwd.cu",
+                    "pallas_viterbi_ovn_mb.py:739",
+                    mc["one_launches"]["ovn_mc_forward_mb"], mc["fwd"]),
+        gamma_entry("em_forward_mb_mc", "em_mc_fwd.cu", "pallas_fb_mb.py:797",
+                    mc["em_launches"]["em_forward_mb_mc"],
+                    dict(mc["em"]["forward"], **dict(zip(
+                        ("bound_ms", "bound_by"),
+                        bound_of(mc["em"]["forward"]))))),
+        gamma_entry("em_backward_mb_mc", "em_mc_bwd.cu",
+                    "pallas_fb_mb.py:858",
+                    mc["em_launches"]["em_backward_mb_mc"],
+                    dict(mc["em"]["backward"], **dict(zip(
+                        ("bound_ms", "bound_by"),
+                        bound_of(mc["em"]["backward"]))))),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from .models.api import HMMTemplateModel
+from .models.multichannel import HMMTemplateModelMC
 from .train.em import TrainResult
 
 
@@ -17,6 +18,17 @@ def template_model_from_numpy(mu, sigma, lp,
     """mu: (K, N) templates; sigma: noise std; lp: (N,) onset log-probs."""
     return HMMTemplateModel(
         mu=np.array(mu, dtype=np.float64), sigma=float(sigma),
+        lp=np.array(lp, dtype=np.float64), allow_overlaps=bool(allow_overlaps))
+
+
+def template_model_mc_from_numpy(mu, sigmas, lp,
+                                 allow_overlaps: bool) -> HMMTemplateModelMC:
+    """mu: (K, N, C) per-channel templates; sigmas: (C,) per-channel noise
+    stds; lp: (N,) onset log-probs (e.g. the fields of the JAX package's
+    HMMTemplateModelMC or of its train_model_mc result)."""
+    return HMMTemplateModelMC(
+        mu=np.array(mu, dtype=np.float64),
+        sigmas=np.array(sigmas, dtype=np.float64),
         lp=np.array(lp, dtype=np.float64), allow_overlaps=bool(allow_overlaps))
 
 

@@ -27,7 +27,12 @@ def _table(idx, w, like):
 
 def forward(y, in_idx, in_w, state_mu, sigma):
     """alpha: (T, S) forward log-scores (reference baumwelch.jl:25-51)."""
-    em = emission_logprob(y, state_mu, sigma)          # (T, S)
+    return forward_em(emission_logprob(y, state_mu, sigma), in_idx, in_w)
+
+
+def forward_em(em, in_idx, in_w):
+    """alpha from a (T, S) emission table (the JAX `_forward_alpha`; the
+    multi-channel E-step's gather engine)."""
     in_idx, in_w = _table(in_idx, in_w, em)
     out = torch.empty_like(em)
     a = out[0] = em[0]
@@ -38,7 +43,11 @@ def forward(y, in_idx, in_w, state_mu, sigma):
 
 def backward(y, out_idx, out_w, state_mu, sigma):
     """beta: (T, S) backward log-scores (reference baumwelch.jl:73-98)."""
-    em = emission_logprob(y, state_mu, sigma)          # (T, S)
+    return backward_em(emission_logprob(y, state_mu, sigma), out_idx, out_w)
+
+
+def backward_em(em, out_idx, out_w):
+    """beta from a (T, S) emission table (the JAX `_backward_beta`)."""
     out_idx, out_w = _table(out_idx, out_w, em)
     out = torch.empty_like(em)
     b = out[-1] = torch.zeros_like(em[0])

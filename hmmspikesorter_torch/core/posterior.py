@@ -29,8 +29,11 @@ inputs (B, n), and the rows (B, n, S), in core/state_space's flat state
 order. Forward/backward semantics are the reference's (emission-only
 forward init — the dead-pi quirk, baumwelch.jl:31-36 — and beta[T-1] = 0).
 
-Multi-channel models (ROADMAP §1 step 10) and drift-tracked models (§1
-step 11) raise NotImplementedError in `model_posteriors`.
+Multi-channel models decode (models/multichannel.py), but their
+posteriors (the `*_mc` engines with kernels for the JAX
+`_gamma_chained_impl_mc`) are the next slice of the port, and drift-tracked
+models need §1 step 11: both raise NotImplementedError in
+`model_posteriors`.
 """
 
 from __future__ import annotations
@@ -523,8 +526,10 @@ def onset_posteriors(templates, y, *, block: int = 8192, proj=None,
     y = np.asarray(y)
     if y.ndim != 1:
         raise ValueError(
-            "onset_posteriors takes a (T,) trace; multi-channel (T, C) "
-            "recordings need the multichannel slice (ROADMAP §1 step 10)")
+            "onset_posteriors takes a (T,) trace; the posteriors of a "
+            "multi-channel (T, C) recording (onset_posteriors_chained_mc) "
+            "are the next slice of the port, after the MC decode and "
+            "training (ROADMAP §1 step 10)")
     ss = templates.state_space
     if proj is None:
         proj = onset_projection(ss.states)
@@ -886,9 +891,10 @@ def model_posteriors(model, *, block: int = 8192, windowed: bool = False,
     the sequential exact path; `windowed=True` opts into the halo-window
     approximation. spike_confidence and core/qc consume this.
 
-    Multi-channel (T, C) models and drift-decoded models (carrying
-    `.track`) raise NotImplementedError: their posteriors need the
-    multichannel and drift-adaptive slices (ROADMAP §1 steps 10 and 11)."""
+    Multi-channel (T, C) models (models/multichannel.py decodes them)
+    raise NotImplementedError until the MC posteriors are ported, the next
+    slice (ROADMAP §1 step 10); drift-decoded models (carrying `.track`)
+    need the drift-adaptive slice (§1 step 11)."""
     tm = model.template_model
     y = np.asarray(model.y)
     if getattr(model, "track", None) is not None:
@@ -897,8 +903,10 @@ def model_posteriors(model, *, block: int = 8192, windowed: bool = False,
             "train/adaptive.py, ROADMAP §1 step 11 (drift-adaptive)")
     if y.ndim != 1:
         raise NotImplementedError(
-            "posteriors of a multi-channel (T, C) model need the "
-            "multichannel slice, ROADMAP §1 step 10")
+            "posteriors of a multi-channel (T, C) model "
+            "(onset_posteriors_chained_mc and the other *_mc engines) are "
+            "the next slice of the port; its MC decode and training are "
+            "ported (ROADMAP §1 step 10)")
     kw = dict(device=device, dtype=dtype)
     if windowed:
         return onset_posteriors_windowed(tm, y, **kw)

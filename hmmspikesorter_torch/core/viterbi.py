@@ -67,10 +67,43 @@ def viterbi_decode(y, in_idx, in_w, state_mu, sigma, *, silent_start=True):
         bps[t - 1] = torch.where(torch.isfinite(mx), bp, 0)
         v = mx + emission(y[t])
         scores[t - 1] = v
-    x = torch.empty(T, dtype=torch.int64, device=dev)
+    return _backtrack(v, bps, scores)
+
+
+def _backtrack(v, bps, scores):
+    """Labels from the final scores v (S,), the (T-1, S) backpointers and
+    running scores; ll = the sum of the scores along the path."""
+    T = bps.shape[0] + 1
+    x = torch.empty(T, dtype=torch.int64, device=v.device)
     x[T - 1] = torch.argmax(v)
-    incs = torch.empty(max(T - 1, 0), dtype=dtype, device=dev)
+    incs = torch.empty(T - 1, dtype=v.dtype, device=v.device)
     for t in range(T - 1, 0, -1):
         incs[t - 1] = scores[t - 1, x[t]]
         x[t - 1] = bps[t - 1, x[t]]
     return x, incs.sum()
+
+
+def viterbi_decode_em(em, in_idx, in_w, *, silent_start=True):
+    """Decode from precomputed per-state emissions em (T, S) — the same
+    dynamics, tie-break and ll as viterbi_decode with the Gaussian emission
+    replaced by an arbitrary log-probability table: the generic path for
+    the multi-channel model (core/emission_mc.py) and the oracle of its
+    ring engines. em's dtype and device are the run's."""
+    dtype, dev = em.dtype, em.device
+    in_idx = torch.as_tensor(in_idx, device=dev).long()
+    in_w = as_float(in_w, dtype, dev)
+    T, S = em.shape
+    v = em[0].clone()
+    if silent_start:
+        v[0] = 0.0
+    bps = torch.zeros((max(T - 1, 0), S), dtype=torch.int64, device=dev)
+    scores = torch.zeros((max(T - 1, 0), S), dtype=dtype, device=dev)
+    for t in range(1, T):
+        cand = v[in_idx] + in_w
+        best = torch.argmax(cand, dim=1)
+        mx = torch.gather(cand, 1, best[:, None])[:, 0]
+        bp = torch.gather(in_idx, 1, best[:, None])[:, 0]
+        bps[t - 1] = torch.where(torch.isfinite(mx), bp, 0)
+        v = mx + em[t]
+        scores[t - 1] = v
+    return _backtrack(v, bps, scores)

@@ -28,7 +28,7 @@ import math
 import numpy as np
 
 from ..config import UNSET, _section, pick
-from ..core.path_score import path_cumulative_ll
+from ..core.path_score import path_cumulative_ll, path_cumulative_ll_mc
 from ..core.reconstruction import reconstruct_signal
 from ..core.state_space import StateSpace, build_state_space
 from ..ops.ring_viterbi import ring_block_decoder, ring_engine
@@ -139,11 +139,17 @@ def _all_silent_model(templates, y) -> HMMSpikingModel:
     """Degenerate pure-noise decode for n_neurons == 0 (training can prune
     every template; the reference CLI returns a null model,
     hmmsort.jl:40-45). ll keeps the cumulative-score contract through the
-    telescoped path score."""
+    telescoped path score; a (T, C) recording takes the multi-channel score
+    with the model's per-channel sigmas."""
     y = np.asarray(y)
     x = np.zeros(len(y), np.int32)
-    ll = path_cumulative_ll(y, x, templates.state_space.states, templates.mu,
-                            float(templates.sigma), templates.lp)
+    states = templates.state_space.states
+    if y.ndim == 2:
+        ll = path_cumulative_ll_mc(y, x, states, templates.mu,
+                                   templates.sigmas, templates.lp)
+    else:
+        ll = path_cumulative_ll(y, x, states, templates.mu,
+                                float(templates.sigma), templates.lp)
     model = HMMSpikingModel(templates, x, float(ll), y)
     model.seam_ok = np.ones(0, bool)
     model.seams_repaired = 0

@@ -35,6 +35,14 @@ a shuffle-down tree within each 32-state warp, then the warps in order).
 Every transcendental constant is computed once in `em_consts` and handed
 unchanged to both.
 
+Kernels 12-13, `em_forward_mb_mc` and `em_backward_mb_mc`
+(csrc/em_mc_fwd.cu, csrc/em_mc_bwd.cu), are the multi-channel builds
+(`stream_em=True` in `_overlap_em_stats_mc_impl`): they read each step's
+emissions from (B, W, S) windows of the streams [es | eb] instead of
+computing them, and kernel 13 accumulates the first and second moments of
+each of C channels from (B, W, C) windows of the recording: Gy and Gy2 are
+(B, C, S). The recursions are kernels 5-6's (em_step.cuh).
+
 A wrapper takes its plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in its
 `launches` attribute.
@@ -85,6 +93,24 @@ def em_kernel_ok(N: int, K: int) -> bool:
             and em_smem_bytes(N, K) <= SMEM_LIMIT)
 
 
+def em_mc_smem_bytes(N: int, K: int, C: int) -> int:
+    """Dynamic shared memory of kernel 13 (the larger of kernels 12-13):
+    kernel 6's, plus the per-channel first and second moment accumulators
+    of every state (2 C S floats)."""
+    S = 1 + N * (K - 1)
+    return 4 * ((em_chunk(S) + 3 + 2 * C) * S + 64)
+
+
+def em_mc_kernel_ok(N: int, K: int, C: int) -> bool:
+    """Whether kernels 12-13 take this topology and channel count: one
+    thread per state (S = 1 + N(K-1) <= 1024) and kernel 13's shared memory
+    within one CTA. The limit on C follows from S: at N=3, K=60 (S=178,
+    chunk 32) C <= 145; at S=1024 (chunk 16) C <= 18."""
+    S = 1 + N * (K - 1)
+    return (N >= 1 and K >= 2 and C >= 1 and S <= MAX_THREADS
+            and em_mc_smem_bytes(N, K, C) <= SMEM_LIMIT)
+
+
 @dataclasses.dataclass(frozen=True)
 class EmConsts:
     """Constants of one EM iteration in the working dtype, computed once
@@ -133,6 +159,23 @@ def em_consts(lp, mu, sigma, *, dtype, device) -> EmConsts:
                     fpack=fpack.contiguous(), **w)
 
 
+def em_consts_mc(lp, K: int, *, dtype, device) -> EmConsts:
+    """The transition constants of the multi-channel E-step (kernels
+    12-13 read the emissions from stream windows): fpack = [self_w,
+    stay_w, swap_w, 0, 0, lp (N)], the layout kernels 5-6 read, with no
+    Gaussian constants and no means."""
+    lp = as_float(lp, dtype, device)
+    N = lp.shape[0]
+    lpz = torch.log1p(-torch.exp(torch.sum(lp)))
+    zero = torch.zeros((), dtype=dtype, device=device)
+    w = dict(self_w=N * lpz, stay_w=(N - 1) * lpz, swap_w=(N - 2) * lpz,
+             econst=zero, inv_2s2=zero)
+    fpack = torch.cat([torch.stack(list(w.values())), lp])
+    return EmConsts(N=N, Km1=K - 1, lp=lp,
+                    means=torch.zeros(0, dtype=dtype, device=device),
+                    fpack=fpack.contiguous(), **w)
+
+
 # --------------------------------------------------------------------------
 # window geometry (copies of the JAX `_em_window_geom` / `_em_window_1d`)
 # --------------------------------------------------------------------------
@@ -156,12 +199,14 @@ def _em_window_geom(T, L, H, B, W):
 
 
 def _em_window_1d(x, *, T, L, H, B, W, edge):
-    """(T,) -> (B, W) halo windows (pad/reshape trick), edge rows clamped
-    to the real signal edges."""
+    """(T, ...) -> (B, W, ...) halo windows (pad/reshape trick), edge rows
+    clamped to the real signal edges; trailing axes (the multi-channel
+    streams and channels) are kept."""
     Tp = B * L
-    x_ext = torch.nn.functional.pad(x, (H, Tp - T + (L - H)))
-    A = x_ext.reshape(B + 1, L)
-    xw = torch.cat([A[:B], A[1:, : 2 * H]], dim=1)               # (B, W)
+    pad = (0, 0) * (x.dim() - 1) + (H, Tp - T + (L - H))
+    x_ext = torch.nn.functional.pad(x, pad)
+    A = x_ext.reshape(B + 1, L, *x.shape[1:])
+    xw = torch.cat([A[:B], A[1:, : 2 * H]], dim=1)               # (B, W, ...)
     for b, st in edge.items():
         xw[b] = x[st:st + W]
     return xw
@@ -272,51 +317,88 @@ def _check_chunk(W, ch):
                          f"checkpoint chunk ch={ch}")
 
 
-def em_forward_mb_plain(y_win, c: EmConsts, ch: int):
-    """Plain version of kernel 5: (B, W) windows -> (cp (B, W/ch, S),
-    la (B, W))."""
-    B, W = y_win.shape
-    _check_chunk(W, ch)
-    y = y_win.to(c.means.dtype)
-    cp = torch.empty((B, W // ch, c.S), dtype=y.dtype, device=y.device)
-    la = torch.empty((B, W), dtype=y.dtype, device=y.device)
-    a = _emission(y[:, 0], c)
+def _forward_plain(em_at, B, W, c: EmConsts, ch: int, dtype, dev):
+    """The forward of kernels 5 and 12 over the emission rows em_at(t)
+    (B, S)."""
+    cp = torch.empty((B, W // ch, c.S), dtype=dtype, device=dev)
+    la = torch.empty((B, W), dtype=dtype, device=dev)
+    a = em_at(0)
     for t in range(W):
         if t > 0:
-            a = _alpha_step(a, _emission(y[:, t], c), c)
+            a = _alpha_step(a, em_at(t), c)
         la[:, t] = _block_lse(a)
         if (t + 1) % ch == 0:
             cp[:, t // ch] = a
     return cp, la
 
 
+def em_forward_mb_plain(y_win, c: EmConsts, ch: int):
+    """Plain version of kernel 5: (B, W) windows -> (cp (B, W/ch, S),
+    la (B, W))."""
+    B, W = y_win.shape
+    _check_chunk(W, ch)
+    y = y_win.to(c.means.dtype)
+    return _forward_plain(lambda t: _emission(y[:, t], c), B, W, c, ch,
+                          y.dtype, y.device)
+
+
+def em_forward_mb_mc_plain(e_win, c: EmConsts, ch: int):
+    """Plain version of kernel 12: (B, W, S) emission windows (the
+    multi-channel streams [es | eb], flat state order) -> (cp, la)."""
+    B, W, _ = e_win.shape
+    _check_chunk(W, ch)
+    e = e_win.to(c.lp.dtype)
+    return _forward_plain(lambda t: e[:, t], B, W, c, ch, e.dtype, e.device)
+
+
 def em_backward_mb_plain(y_win, cp, bounds, c: EmConsts, ch: int):
     """Plain version of kernel 6: (B, W) windows, kernel 5's checkpoints
     and (B, 3) int32 [core_lo, core_hi, xi_hi] -> per-window
     (G1, Gy, Gy2, X, Xd, beta0)."""
-    B, W = y_win.shape
-    _check_chunk(W, ch)
+    _check_chunk(y_win.shape[1], ch)
     y = y_win.to(c.means.dtype)
+    G1, Gy, Gy2, X, Xd, beta = _backward_plain(
+        lambda t: _emission(y[:, t], c), y[:, :, None], cp, bounds, c, ch)
+    return G1, Gy[:, 0], Gy2[:, 0], X, Xd, beta
+
+
+def em_backward_mb_mc_plain(e_win, yc_win, cp, bounds, c: EmConsts,
+                            ch: int):
+    """Plain version of kernel 13: (B, W, S) emission windows, (B, W, C)
+    channel windows, kernel 12's checkpoints and (B, 3) int32 bounds ->
+    per-window (G1 (B, S), Gy (B, C, S), Gy2 (B, C, S), X, Xd, beta0)."""
+    _check_chunk(e_win.shape[1], ch)
+    e = e_win.to(c.lp.dtype)
+    return _backward_plain(lambda t: e[:, t], yc_win.to(c.lp.dtype), cp,
+                           bounds, c, ch)
+
+
+def _backward_plain(em_at, yc, cp, bounds, c: EmConsts, ch: int):
+    """The backward of kernels 6 and 13 over the emission rows em_at(t)
+    (B, S), with the moments of each of yc's (B, W, C) channels."""
+    B, W, C = yc.shape
+    dt, dev = yc.dtype, yc.device
     lo, hi, xh = bounds[:, 0], bounds[:, 1], bounds[:, 2]
-    zeros = torch.zeros((B, c.S), dtype=y.dtype, device=y.device)
-    G1, Gy, Gy2 = zeros, zeros, zeros
-    X = torch.zeros((B, c.N), dtype=y.dtype, device=y.device)
-    Xd = torch.zeros((B,), dtype=y.dtype, device=y.device)
+    G1 = torch.zeros((B, c.S), dtype=dt, device=dev)
+    Gy = torch.zeros((B, C, c.S), dtype=dt, device=dev)
+    Gy2 = torch.zeros((B, C, c.S), dtype=dt, device=dev)
+    X = torch.zeros((B, c.N), dtype=dt, device=dev)
+    Xd = torch.zeros((B,), dtype=dt, device=dev)
     on = c.onset
     be = bon = eon = gp = beta = None
     for cc in range(W // ch - 1, -1, -1):
         # rematerialise the chunk's alphas from the previous checkpoint
         t0 = cc * ch
-        a = _emission(y[:, t0], c)
+        a = em_at(t0)
         if cc > 0:
             a = _alpha_step(cp[:, cc - 1], a, c)
         rows = [a]
         for s in range(1, ch):
-            rows.append(_alpha_step(rows[-1], _emission(y[:, t0 + s], c), c))
+            rows.append(_alpha_step(rows[-1], em_at(t0 + s), c))
         for s in range(ch - 1, -1, -1):
             t = t0 + s
             a = rows[s]
-            em = _emission(y[:, t], c)
+            em = em_at(t)
             xim = (t >= lo) & (t < xh)
             if t == W - 1:
                 beta = torch.zeros_like(a)       # terminal beta
@@ -333,10 +415,10 @@ def em_backward_mb_plain(y_win, cp, bounds, c: EmConsts, ch: int):
             gam = torch.exp(tot - g[:, None])
             cm = ((t >= lo) & (t < hi))[:, None]
             gm = torch.where(cm, gam, torch.zeros_like(gam))
-            y_t = y[:, t, None]
+            y_t = yc[:, t, :, None]                  # (B, C, 1)
             G1 = G1 + gm
-            Gy = Gy + gm * y_t
-            Gy2 = Gy2 + gm * (y_t * y_t)
+            Gy = Gy + gm[:, None, :] * y_t
+            Gy2 = Gy2 + gm[:, None, :] * (y_t * y_t)
             Xd = Xd + torch.where(xim, gam[:, 0], torch.zeros_like(Xd))
             be = beta + em
             bon, eon, gp = beta[:, on], em[:, on], g
@@ -414,6 +496,82 @@ def em_backward_mb(y_win, cp, bounds, c: EmConsts, ch: int):
 
 
 em_backward_mb.launches = 0
+
+
+def _check_fits_mc(name, c: EmConsts, W, ch, C):
+    if not em_mc_kernel_ok(c.N, c.Km1 + 1, C):
+        raise ValueError(
+            f"{name}: N={c.N}, K={c.Km1 + 1}, C={C} does not fit the kernel "
+            f"(S = {c.S} > {MAX_THREADS} threads or "
+            f"{em_mc_smem_bytes(c.N, c.Km1 + 1, C)} bytes of shared memory "
+            f"> {SMEM_LIMIT})")
+    _check_chunk(W, ch)
+
+
+def em_forward_mb_mc(e_win, c: EmConsts, ch: int):
+    """Kernel 12: (B, W, S) emission windows -> (cp, la). CPU tensors take
+    `em_forward_mb_mc_plain`."""
+    if e_win.device.type == "cpu":
+        return em_forward_mb_mc_plain(e_win, c, ch)
+    B, W, S = e_win.shape
+    _check_fits_mc("em_forward_mb_mc", c, W, ch, 1)
+    _check_cuda("em_forward_mb_mc", e_win=(e_win, torch.float32),
+                fpack=(c.fpack, torch.float32))
+    if S != c.S:
+        raise ValueError("em_forward_mb_mc: shape mismatch")
+    dev = e_win.device
+    cp = torch.empty((B, W // ch, c.S), dtype=torch.float32, device=dev)
+    la = torch.empty((B, W), dtype=torch.float32, device=dev)
+    fn = _lib("em_mc_fwd", "em_mc_forward_mb",
+              [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    err = fn(e_win.data_ptr(), B, W, c.N, c.Km1, ch, c.fpack.data_ptr(),
+             cp.data_ptr(), la.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"em_forward_mb_mc: CUDA error {err} at launch")
+    em_forward_mb_mc.launches += 1
+    return cp, la
+
+
+em_forward_mb_mc.launches = 0
+
+
+def em_backward_mb_mc(e_win, yc_win, cp, bounds, c: EmConsts, ch: int):
+    """Kernel 13: emission windows (B, W, S), channel windows (B, W, C),
+    checkpoints and (B, 3) int32 bounds -> per-window (G1 (B, S), Gy
+    (B, C, S), Gy2 (B, C, S), X (B, N), Xd (B,), beta0 (B, S)). CPU tensors
+    take `em_backward_mb_mc_plain`."""
+    if e_win.device.type == "cpu":
+        return em_backward_mb_mc_plain(e_win, yc_win, cp, bounds, c, ch)
+    B, W, S = e_win.shape
+    C = yc_win.shape[2]
+    _check_fits_mc("em_backward_mb_mc", c, W, ch, C)
+    _check_cuda("em_backward_mb_mc", e_win=(e_win, torch.float32),
+                yc_win=(yc_win, torch.float32), cp=(cp, torch.float32),
+                bounds=(bounds, torch.int32), fpack=(c.fpack, torch.float32))
+    if (S != c.S or yc_win.shape[:2] != (B, W)
+            or cp.shape != (B, W // ch, c.S) or bounds.shape != (B, 3)):
+        raise ValueError("em_backward_mb_mc: shape mismatch")
+    dev = e_win.device
+    G1, beta0 = (torch.empty((B, c.S), dtype=torch.float32, device=dev)
+                 for _ in range(2))
+    Gy, Gy2 = (torch.empty((B, C, c.S), dtype=torch.float32, device=dev)
+               for _ in range(2))
+    X = torch.empty((B, c.N), dtype=torch.float32, device=dev)
+    Xd = torch.empty((B,), dtype=torch.float32, device=dev)
+    fn = _lib("em_mc_bwd", "em_mc_backward_mb",
+              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+               _P, _P, _P])
+    err = fn(e_win.data_ptr(), yc_win.data_ptr(), cp.data_ptr(),
+             bounds.data_ptr(), B, W, c.N, c.Km1, ch, C, c.fpack.data_ptr(),
+             G1.data_ptr(), Gy.data_ptr(), Gy2.data_ptr(), X.data_ptr(),
+             Xd.data_ptr(), beta0.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"em_backward_mb_mc: CUDA error {err} at launch")
+    em_backward_mb_mc.launches += 1
+    return G1, Gy, Gy2, X, Xd, beta0
+
+
+em_backward_mb_mc.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -517,5 +675,75 @@ def overlap_em_stats(y, lp, mu, sigma, *, L: int, H: int):
     G1, Gy, Gy2, X, Xd, beta0, endc, pre = em_stats_from_windows(
         y_win.contiguous(), core_lo, core_hi, xi_hi, c)
     # telescoped ll: absolute first-window term + same-window differences
+    ll = endc[0] + torch.sum(endc[1:] - pre[1:])
+    return G1, Gy, Gy2, X, Xd, beta0, ll
+
+
+def em_stats_from_windows_mc(e_win, yc_win, core_lo, core_hi, xi_hi,
+                             c: EmConsts):
+    """The multi-channel em_stats_from_windows: kernels 12-13 (or their
+    plain versions on the CPU) over prebuilt (B, W, S) emission and
+    (B, W, C) channel windows, the per-window partials summed. Returns
+    (G1 (S,), Gy (C, S), Gy2 (C, S), X, Xd, beta0, endc, pre)."""
+    dev = e_win.device
+    ch = em_chunk(c.S)
+    bounds = _bounds_on(dev, core_lo, core_hi, xi_hi)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    cp, la = em_forward_mb_mc(e_win, c, ch)
+    G1, Gy, Gy2, X, Xd, beta0 = em_backward_mb_mc(e_win, yc_win, cp, bounds,
+                                                  c, ch)
+    endc, pre = _edge_reads(la, lo.long(), hi.long())
+    return (G1.sum(0), Gy.sum(0), Gy2.sum(0), X.sum(0), Xd.sum(0), beta0[0],
+            endc, pre)
+
+
+def mc_em_windows(es, eb, yc, *, L: int, H: int):
+    """The halo windows of the multi-channel E-step: (e_win (B, W, S) of
+    the flat emission [es | eb ravel], yc_win (B, W, C)) and the per-window
+    bounds (core_lo, core_hi, xi_hi), clamped edge rows as in
+    overlap_em_stats."""
+    T = es.shape[0]
+    B, W = -(-T // L), L + 2 * H
+    _, edge, core_lo, core_hi, xi_hi = _em_window_geom(T, L, H, B, W)
+    flat = torch.cat([es[:, None], eb.reshape(T, -1)], dim=1)
+    win = lambda x: _em_window_1d(x, T=T, L=L, H=H, B=B,     # noqa: E731
+                                  W=W, edge=edge).contiguous()
+    return win(flat), win(yc.to(es.dtype)), (core_lo, core_hi, xi_hi)
+
+
+def overlap_em_stats_mc(es, eb, yc, lp, *, L: int, H: int):
+    """Multi-channel EM sufficient statistics over halo windows through
+    kernels 12-13 (the counterpart of `overlap_em_stats_pallas_mc`), in
+    es's dtype on es's device: float32 on CUDA, any float dtype through the
+    plain versions on the CPU.
+
+    es: (T,) silent log-emission, eb: (T, N, K-1) body log-emissions (the
+    streams of train/em_mc._mc_streams_dense), yc: (T, C) the recording
+    (for the per-channel moments), lp: (N,).
+
+    Returns (G1 (S,), Gy (C, S), Gy2 (C, S), X (N,), Xd, beta0 (S,), ll):
+    per-state occupancies, per-channel first/second signal moments (linear
+    space, flat [silent | body] layout), onset-edge xi sums with the
+    silent-occupancy denominator, the window-0 beta at step 0 (log space)
+    and the telescoped sequence ll. Requires em_mc_kernel_ok on CUDA, W =
+    L + 2H a multiple of the checkpoint chunk, L >= 2H, and at least two
+    windows.
+    """
+    T = es.shape[0]
+    _, N, Km1 = eb.shape
+    C = yc.shape[1]
+    W = L + 2 * H
+    if es.device.type != "cpu" and not em_mc_kernel_ok(N, Km1 + 1, C):
+        raise ValueError(f"the MC EM kernels do not take N={N}, K={Km1 + 1},"
+                         f" C={C} (em_mc_kernel_ok)")
+    _check_chunk(W, em_chunk(1 + N * Km1))
+    if L < 2 * H:
+        raise ValueError("need L >= 2H")
+    if T < W or T <= L:
+        raise ValueError("signal shorter than two windows")
+    c = em_consts_mc(lp, Km1 + 1, dtype=es.dtype, device=es.device)
+    e_win, yc_win, bnd = mc_em_windows(es, eb, yc, L=L, H=H)
+    G1, Gy, Gy2, X, Xd, beta0, endc, pre = em_stats_from_windows_mc(
+        e_win, yc_win, *bnd, c)
     ll = endc[0] + torch.sum(endc[1:] - pre[1:])
     return G1, Gy, Gy2, X, Xd, beta0, ll

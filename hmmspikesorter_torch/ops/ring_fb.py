@@ -223,12 +223,13 @@ def _overlap_edge_rows(T, L, H, B, W):
 
 
 def _overlap_window_1d(x, *, T, L, H, B, W, edge_rows):
-    """(T,) -> (B, W) halo windows via the pad/reshape trick, with edge
-    rows clamped to the real signal edges."""
+    """(T, ...) -> (B, W, ...) halo windows via the pad/reshape trick, with
+    edge rows clamped to the real signal edges."""
     Tp = B * L
-    x_ext = torch.nn.functional.pad(x, (H, Tp - T + (L - H)))
-    A = x_ext.reshape(B + 1, L)
-    xw = torch.cat([A[:B], A[1:, : 2 * H]], dim=1)       # (B, W)
+    pad = (0, 0) * (x.dim() - 1) + (H, Tp - T + (L - H))
+    x_ext = torch.nn.functional.pad(x, pad)
+    A = x_ext.reshape(B + 1, L, *x.shape[1:])
+    xw = torch.cat([A[:B], A[1:, : 2 * H]], dim=1)       # (B, W, ...)
     for b in edge_rows:
         start = 0 if b == 0 else T - W
         xw[b] = x[start:start + W]
@@ -329,3 +330,51 @@ def ring_overlap_forward_backward(y, lp, mu, sigma, *, L: int, H: int):
     alpha_w, beta_w, ll = _realign_and_telescope(
         alpha_w, beta_w, edge_rows, T=T, L=L, H=H, B=B)
     return alpha_w, beta_w, y_win, ll
+
+
+def ring_overlap_forward_backward_mc(es, eb, lp, *, L: int, H: int):
+    """Multi-channel overlap-save forward/backward from precomputed
+    emission streams (the JAX `ring_overlap_forward_backward_mc`; the plain
+    twin of kernels 12-13 at the statistics level).
+
+    The channel axis is collapsed before this engine runs: per step, state
+    0 reads es(t) and body state (n, k) reads eb(t, n, k), the numbers
+    train/em_mc._mc_emission_dense stacks into its dense (T, S) table.
+    Window protocol, edge-row clamping, window-local init and telescoped ll
+    are ring_overlap_forward_backward's.
+
+    es: (T,) silent log-emission; eb: (T, N, K-1) body log-emissions; lp:
+    (N,) onset log-probs; es's dtype and device are the run's. Returns
+    (alpha_w, beta_w, ll): (W, B, S) window tensors in uniform window
+    coordinates and the telescoped sequence ll.
+    """
+    dtype, dev = es.dtype, es.device
+    T = es.shape[0]
+    _, N, Km1 = eb.shape
+    w = _weights(torch.as_tensor(lp, device=dev).to(dtype), dtype)
+    B = -(-T // L)
+    W = L + 2 * H
+    _overlap_guards(T, L, H, B, W)
+
+    edge_rows = _overlap_edge_rows(T, L, H, B, W)
+    es_steps = _overlap_window_1d(es, T=T, L=L, H=H, B=B, W=W,
+                                  edge_rows=edge_rows).T        # (W, B)
+    eb_steps = _overlap_window_1d(eb, T=T, L=L, H=H, B=B, W=W,
+                                  edge_rows=edge_rows).transpose(0, 1)
+
+    vs, vb = es_steps[0], eb_steps[0]
+    alpha = [_flat(vs, vb)]
+    for t in range(1, W):
+        vs, vb = _fwd_step(vs, vb, es_steps[t], eb_steps[t], w)
+        alpha.append(_flat(vs, vb))
+    alpha_w = torch.stack(alpha)
+
+    bs = torch.zeros((B,), dtype=dtype, device=dev)
+    bb = torch.zeros((B, N, Km1), dtype=dtype, device=dev)
+    beta = [_flat(bs, bb)]
+    for t in range(W - 1, 0, -1):
+        bs, bb = _bwd_step(bs, bb, es_steps[t], eb_steps[t], w)
+        beta.append(_flat(bs, bb))
+    beta_w = torch.stack(beta[::-1])
+    return _realign_and_telescope(alpha_w, beta_w, edge_rows, T=T, L=L, H=H,
+                                  B=B)

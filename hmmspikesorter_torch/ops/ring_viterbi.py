@@ -40,7 +40,7 @@ from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
 from . import viterbi_mb as vmb
 from . import viterbi_ovn_mb as vomb
-from .ring_viterbi_ovn import ring_viterbi_ovn
+from .ring_viterbi_ovn import _at, ring_viterbi_ovn
 
 # block engine -> the topologies (engine_name) it decodes
 BLOCK_TOPOLOGIES = {"ring": ("nov", "ov2", "ovn"), "cuda": ("ov2",),
@@ -73,9 +73,7 @@ class _NovModel:
     def __init__(self, lp, mu, sigma):
         dtype, dev = mu.dtype, mu.device
         K, N = mu.shape
-        self.N, self.Km1 = N, K - 1
-        self.lp = as_float(lp, dtype, dev)
-        lpz = torch.log1p(-torch.exp(torch.sum(self.lp)))
+        self._weights(lp, N, K - 1, dtype, dev)
         sigma = as_float(sigma, dtype, dev)
         self.log_sigma = torch.log(sigma)
         self.inv_2s2 = 1.0 / (2.0 * sigma * sigma)
@@ -84,6 +82,11 @@ class _NovModel:
         # body state (n, k) mean = mu[k, n] + sum_{m != n} mu[0, m]
         other_silent = self.silent_mean - mu[0]
         self.body_mean = mu[1:].T + other_silent[:, None]      # (N, K-1)
+
+    def _weights(self, lp, N, Km1, dtype, dev):
+        self.N, self.Km1 = N, Km1
+        self.lp = as_float(lp, dtype, dev)
+        lpz = torch.log1p(-torch.exp(torch.sum(self.lp)))
         self.onset_w = self.lp + (N - 1) * lpz
         self.self_w = N * lpz
         self.stay_w = (N - 1) * lpz
@@ -99,9 +102,14 @@ class _NovModel:
         return (-HALF_LOG_2PI - self.log_sigma - ds * ds * self.inv_2s2,
                 -HALF_LOG_2PI - self.log_sigma - db * db * self.inv_2s2)
 
+    def emit(self, inp):
+        """(es, eb) of a step input: samples, or a tuple of stream rows
+        (ops/ring_viterbi_mc.py)."""
+        return self.em(*inp) if isinstance(inp, tuple) else self.em(inp)
+
     def step(self, vs, vb, y_t):
         """One max-plus step; returns (vs, vb, bp_s (B,), bp_on (B, N))."""
-        es, ebm = self.em(y_t)
+        es, ebm = self.emit(y_t)
         # silent: in-edge order = [self, ring-end n=0, 1, ...]; a ring exit
         # leaves the other N-1 neurons paying their stay-silent term
         cand = torch.cat([(vs + self.self_w)[:, None],
@@ -120,16 +128,17 @@ class _NovModel:
 
 
 def _nov_forward(y, sil, m: _NovModel):
-    """y (B, T), sil (B,) -> (bp_s (B, T), bp_on (B, T, N), xT (B,))."""
-    B, T = y.shape
-    dev = y.device
-    es0, eb0 = m.em(y[:, 0])
+    """y (B, T) (or a tuple of stream windows), sil (B,) -> (bp_s (B, T),
+    bp_on (B, T, N), xT (B,))."""
+    B, T = (y[0] if isinstance(y, tuple) else y).shape[:2]
+    dev = m.lp.device
+    es0, eb0 = m.emit(_at(y, 0))
     vs = torch.where(sil, torch.zeros_like(es0), es0)
     vb = eb0
     bps = torch.zeros((B, T), dtype=torch.uint8, device=dev)
     bpo = torch.zeros((B, T, m.N), dtype=torch.uint8, device=dev)
     for t in range(1, T):
-        vs, vb, bps[:, t], bpo[:, t] = m.step(vs, vb, y[:, t])
+        vs, vb, bps[:, t], bpo[:, t] = m.step(vs, vb, _at(y, t))
     flat = torch.cat([vs[:, None], vb.reshape(B, -1)], dim=1)
     return bps, bpo, torch.argmax(flat, dim=1)
 
@@ -158,13 +167,14 @@ def _nov_backtrace(bps, bpo, xT, N: int, Km1: int):
 
 def _nov_replay_ll(y, sil, x, m: _NovModel):
     """Reference ll: sum over t >= 1 of the running best score at x_t."""
-    B, T = y.shape
-    es0, eb0 = m.em(y[:, 0])
+    B, T = (y[0] if isinstance(y, tuple) else y).shape[:2]
+    es0, eb0 = m.emit(_at(y, 0))
     vs = torch.where(sil, torch.zeros_like(es0), es0)
     vb = eb0
-    scores = torch.zeros((B, max(T - 1, 0)), dtype=y.dtype, device=y.device)
+    scores = torch.zeros((B, max(T - 1, 0)), dtype=m.lp.dtype,
+                         device=m.lp.device)
     for t in range(1, T):
-        vs, vb, _, _ = m.step(vs, vb, y[:, t])
+        vs, vb, _, _ = m.step(vs, vb, _at(y, t))
         flat = torch.cat([vs[:, None], vb.reshape(B, -1)], dim=1)
         scores[:, t - 1] = torch.gather(flat, 1, x[:, t, None])[:, 0]
     return scores.sum(dim=1)

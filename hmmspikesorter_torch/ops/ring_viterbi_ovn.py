@@ -38,7 +38,8 @@ matmuls pinned to HIGHEST precision.
 
 The forward (`ovn_forward`) and the backtrace (`ovn_backtrace`) write and
 read the packed choices of kernels 3-4 (ops/viterbi_ovn_mb.py), so they ARE
-those kernels' plain versions; `ring_viterbi_ovn` adds the score replay for
+those kernels' plain versions (and, with the multi-channel stream emission
+`OvnMCEmission` of ops/ring_viterbi_mc.py, kernel 11's); `ring_viterbi_ovn` adds the score replay for
 the reference ll. In float64 it is the oracle of the N >= 3 path and the
 card's float64 twin of the kernels. Functions take their dtype and device
 from `mu`.
@@ -198,11 +199,32 @@ def sc_em_ovn(mu, sigma) -> OvnEmission:
 
 
 @dataclasses.dataclass(frozen=True)
+class OvnMCEmission:
+    """Multi-channel overlap-space emission from the factorised streams
+    (core/emission_mc.py): `em(es_t, d_t) -> (es, eb, ep)` with the JAX
+    `mc_em_ovn` association, eb = (es + d) - c1 and
+    ep[q] = ((es + d_i) + d_j) - c2[q]."""
+
+    c1: torch.Tensor            # (N, K-1) single energies
+    c2: torch.Tensor            # (P, K-1, K-1) pair energies, pairs i-major
+    pi: torch.Tensor            # (P,) long: pair members
+    pj: torch.Tensor
+
+    def __call__(self, es_t, d_t):
+        """es_t (B,), d_t (B, N, K-1) -> es (B,), eb (B, N, K-1),
+        ep (B, P, K-1, K-1)."""
+        e = es_t[:, None, None]
+        return (es_t, (e + d_t) - self.c1,
+                ((e[..., None] + d_t[:, self.pi, :, None])
+                 + d_t[:, self.pj, None, :]) - self.c2)
+
+
+@dataclasses.dataclass(frozen=True)
 class OvnModel:
     """Per-model constants of the general-N engine, in the working dtype."""
 
     tab: OvnTables
-    em: OvnEmission
+    em: OvnEmission             # or OvnMCEmission
     lp: torch.Tensor            # (N,) onset log-probs
     lpz: torch.Tensor           # log1p(-exp(sum(lp)))
     mlpz: torch.Tensor          # (5,) m*lpz for m = N, N-1, ..., N-4
@@ -234,9 +256,37 @@ def ovn_model(lp, mu, sigma, *, dtype, device) -> OvnModel:
     K, N = mu.shape
     if N < 2 or K < 2:
         raise ValueError("the ovn engines need N >= 2 neurons and K >= 2")
-    tab = ovn_tables(N, K - 1, dtype=dtype, device=device)
+    return _model(lp, sc_em_ovn(mu, sigma), N, K - 1, dtype, device)
+
+
+def ovn_model_mc(lp, c1, c2, *, dtype, device) -> OvnModel:
+    """The model constants of the multi-channel stream emission: lp (N,),
+    c1 (N, K-1) and c2 (P, K-1, K-1) from core/emission_mc.MCTables."""
+    lp = as_float(lp, dtype, device)
+    c1 = as_float(c1, dtype, device)
+    N, Km1 = c1.shape
+    if N < 2 or lp.shape != (N,):
+        raise ValueError("the ovn engines need N >= 2 neurons and (N,) lp")
+    c2 = as_float(c2, dtype, device).reshape(N * (N - 1) // 2, Km1, Km1)
+    return _model(lp, mc_em_ovn(c1, c2.contiguous()), N, Km1, dtype, device)
+
+
+def mc_em_ovn(c1, c2) -> OvnMCEmission:
+    """The direct-form stream emission (the JAX `mc_em_ovn`) of c1
+    (N, K-1) and c2 (P, K-1, K-1) tensors, pairs i-major."""
+    pairs = _pairs(c1.shape[0])
+    return OvnMCEmission(
+        c1=c1, c2=c2,
+        pi=torch.tensor([i for i, _ in pairs], dtype=torch.long,
+                        device=c1.device),
+        pj=torch.tensor([j for _, j in pairs], dtype=torch.long,
+                        device=c1.device))
+
+
+def _model(lp, em, N, Km1, dtype, device) -> OvnModel:
+    tab = ovn_tables(N, Km1, dtype=dtype, device=device)
     lpz = torch.log1p(-torch.exp(torch.sum(lp)))
-    return OvnModel(tab=tab, em=sc_em_ovn(mu, sigma), lp=lp, lpz=lpz,
+    return OvnModel(tab=tab, em=em, lp=lp, lpz=lpz,
                     mlpz=torch.stack([m * lpz for m in range(N, N - 5, -1)]),
                     lpij=lp[tab.pi] + lp[tab.pj])
 
@@ -251,10 +301,23 @@ def _flat(es, eb, ep):
     return torch.cat([es[:, None], eb.reshape(B, -1), ep.reshape(B, -1)], 1)
 
 
+def _emit(m: OvnModel, inp):
+    """The step's (es, eb, ep) from its input: samples (B,) for the
+    single-channel emission, a tuple of stream rows for the multi-channel
+    one (ops/ring_viterbi_mc.py)."""
+    return m.em(*inp) if isinstance(inp, tuple) else m.em(inp)
+
+
+def _at(y, t):
+    """Step t of the windows: y is (B, W) samples or a tuple of streams
+    (es (B, W), d (B, W, N, K-1))."""
+    return tuple(s[:, t] for s in y) if isinstance(y, tuple) else y[:, t]
+
+
 def ovn_init(y0, sil, m: OvnModel):
     """Emission-only init on the flat (B, S) state; rows with sil get the
     forced silent start (src/viterbi.jl:56-63)."""
-    v = _flat(*m.em(y0))
+    v = _flat(*_emit(m, y0))
     v[:, 0] = torch.where(sil, torch.zeros_like(v[:, 0]), v[:, 0])
     return v
 
@@ -342,24 +405,25 @@ def maxplus_step(v, y_t, m: OvnModel, out=None):
         rings_t[:, :, 1:] = bp_ring.to(u8)
         rowcol_t[:, :P, 1:] = bp_row.to(u8)
         rowcol_t[:, P:, 1:] = bp_col.to(u8)
-    new += _flat(*m.em(y_t))
+    new += _flat(*_emit(m, y_t))
     return new
 
 
 def ovn_forward(y, sil, m: OvnModel):
-    """(B, W) windows in the model's dtype, (B,) bool silent-start rows ->
+    """(B, W) windows in the model's dtype (or a tuple of stream windows for
+    a stream emission), (B,) bool silent-start rows ->
     packed choices (flags (B, W, 1+N+P), rings (B, W, N, K-1), rowcol (B,
     W, 2P, K-1), all uint8, t = 0 rows and slot/edge index 0 zero) and xT
     (B,) int32, the first max of the final flat state (src/viterbi.jl:90)."""
-    B, W = y.shape
-    dev = y.device
+    B, W = (y[0] if isinstance(y, tuple) else y).shape[:2]
+    dev = m.lp.device
     N, K1, P = m.N, m.Km1, m.P
     flags = torch.zeros((B, W, 1 + N + P), dtype=torch.uint8, device=dev)
     rings = torch.zeros((B, W, N, K1), dtype=torch.uint8, device=dev)
     rowcol = torch.zeros((B, W, 2 * P, K1), dtype=torch.uint8, device=dev)
-    v = ovn_init(y[:, 0], sil.to(torch.bool), m)
+    v = ovn_init(_at(y, 0), sil.to(torch.bool), m)
     for t in range(1, W):
-        v = maxplus_step(v, y[:, t], m,
+        v = maxplus_step(v, _at(y, t), m,
                          (flags[:, t], rings[:, t], rowcol[:, t]))
     return flags, rings, rowcol, torch.argmax(v, dim=1).to(torch.int32)
 
@@ -429,11 +493,12 @@ def replay_ll(y, sil, x, m: OvnModel):
     """Reference ll of each row: the sum over t >= 1 of the running best
     score at x_t (src/viterbi.jl:92-96), replayed along the known path so
     no (T, S) score tensor is stored."""
-    B, T = y.shape
-    v = ovn_init(y[:, 0], sil, m)
-    scores = torch.zeros((B, max(T - 1, 0)), dtype=y.dtype, device=y.device)
+    B, T = (y[0] if isinstance(y, tuple) else y).shape[:2]
+    v = ovn_init(_at(y, 0), sil, m)
+    scores = torch.zeros((B, max(T - 1, 0)), dtype=m.lp.dtype,
+                         device=m.lp.device)
     for t in range(1, T):
-        v = maxplus_step(v, y[:, t], m)
+        v = maxplus_step(v, _at(y, t), m)
         scores[:, t - 1] = torch.gather(v, 1, x[:, t, None])[:, 0]
     return scores.sum(dim=1)
 

@@ -117,6 +117,15 @@ def _ov2_step(v, y_t, c: Ov2Consts, flags_t=None, rings_t=None):
     and, when given the (B,) and (B, K-1) output rows, writes the packed
     choices. Expression order and tie-breaks as in ring_viterbi_ov2 of the
     JAX package (transitions from reference src/types.jl:94-113)."""
+    new = _ov2_transition(v, c, flags_t, rings_t)
+    new += _ov2_emission(y_t, c)
+    return new
+
+
+def _ov2_transition(v, c, flags_t=None, rings_t=None):
+    """The max-plus step of `_ov2_step` before the emission is added; c
+    needs Km1, lp0, lp1, lpz and two_lpz only (the multi-channel engine of
+    ops/ring_viterbi_mc.py adds its stream emission instead)."""
     B = v.shape[0]
     K1 = c.Km1
     P = 1 + 2 * K1
@@ -164,7 +173,6 @@ def _ov2_step(v, y_t, c: Ov2Consts, flags_t=None, rings_t=None):
         flags_t.copy_(bp | (on0b > on0a).long() << 2
                       | (on1b > on1a).long() << 3)
         rings_t[:, 1:] = b0r.to(torch.uint8) | b1r.to(torch.uint8) << 1
-    new += _ov2_emission(y_t, c)
     return new
 
 

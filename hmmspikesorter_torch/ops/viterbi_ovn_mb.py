@@ -12,7 +12,14 @@ silent start, strict first-max tie-breaks, and the termination argmax.
 Kernel 4, `ovn_backtrace_mb` (csrc/viterbi_ovn_bt.cu), replaces
 `_make_bt_kernel` (launched by `_backtrace_native`): the per-window pointer
 chase. Both take any N >= 2 whose state fits one CTA's shared memory
-(`ovn_kernel_ok`). The plain versions are ops/ring_viterbi_ovn.py's
+(`ovn_kernel_ok`).
+Kernel 11, `ovn_mc_forward_mb` (csrc/viterbi_ovn_mc_fwd.cu), replaces the
+multi-channel front-end `_forward_native_mc`: the same dynamics (shared
+with kernel 3 through csrc/ovn_fwd.cuh) with the emission read from the
+factorised streams es (B, W) and d (B, W, N, K-1) of core/emission_mc.py
+and the static energies c1, c2 (`ovn_mc_kernel_ok`). Its packed output is
+kernel 3's, so kernel 4 decodes it, as the JAX package shares
+`_backtrace_native`. The plain versions are ops/ring_viterbi_ovn.py's
 forward and backtrace, whose module docstring lists the candidate order,
 association and tie-breaks the kernels follow.
 
@@ -66,14 +73,43 @@ def ovn_consts(lp, mu, sigma, *, dtype, device) -> OvnConsts:
     fpack = torch.cat([torch.stack([em.silent_mean, em.econst, em.inv_2s2]),
                        m.mlpz, m.lp, m.lpij, em.cq, em.sgl_mean.reshape(-1),
                        em.a.reshape(-1)])
-    ipack = torch.cat([tab.pi, tab.pj,
-                       (2 * tab.ring_q + tab.ring_i).reshape(-1),
-                       (2 * tab.row_q + tab.row_i).reshape(-1),
-                       (2 * tab.col_q + tab.col_i).reshape(-1)])
-    return OvnConsts(**{f.name: getattr(m, f.name)
-                        for f in dataclasses.fields(m)},
-                     fpack=fpack.contiguous(),
-                     ipack=ipack.to(torch.int32).contiguous())
+    return OvnConsts(**_fields(m), fpack=fpack.contiguous(),
+                     ipack=_ipack(tab))
+
+
+def _fields(m: rvo.OvnModel) -> dict:
+    return {f.name: getattr(m, f.name)
+            for f in dataclasses.fields(rvo.OvnModel)}
+
+
+def _ipack(tab: rvo.OvnTables) -> torch.Tensor:
+    """The int32 topology tables of kernels 3, 4 and 11."""
+    return torch.cat([tab.pi, tab.pj,
+                      (2 * tab.ring_q + tab.ring_i).reshape(-1),
+                      (2 * tab.row_q + tab.row_i).reshape(-1),
+                      (2 * tab.col_q + tab.col_i).reshape(-1)]).to(
+                          torch.int32).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class OvnMCConsts(rvo.OvnModel):
+    """An OvnModel with the multi-channel stream emission (em is an
+    rvo.OvnMCEmission holding c1 and c2) plus the values packed for kernel
+    11: the dynamics' float constants and c1 in `fpack`, the topology
+    tables in `ipack` (kernel 3's), c2 as a contiguous (P, K-1, K-1)
+    tensor. Handed unchanged to the kernel and to the plain version."""
+
+    fpack: torch.Tensor         # [m*lpz (5) | lp (N) | lp_i+lp_j (P) | c1]
+    ipack: torch.Tensor
+
+
+def ovn_mc_consts(lp, c1, c2, *, dtype, device) -> OvnMCConsts:
+    """lp: (N,) onset log-probs; c1: (N, K-1) single energies; c2: (P, K-1,
+    K-1) pair energies, pairs i-major (core/emission_mc.MCTables)."""
+    m = rvo.ovn_model_mc(lp, c1, c2, dtype=dtype, device=device)
+    fpack = torch.cat([m.mlpz, m.lp, m.lpij, m.em.c1.reshape(-1)])
+    return OvnMCConsts(**_fields(m), fpack=fpack.contiguous(),
+                       ipack=_ipack(m.tab))
 
 
 def ovn_smem_bytes(N: int, K: int) -> int:
@@ -85,6 +121,28 @@ def ovn_smem_bytes(N: int, K: int) -> int:
     n_f = 8 + N + 2 * P + 2 * N * Km1
     n_i = 2 * P + N * (N - 1) + 2 * P * (N - 2)
     return 4 * (2 * S + n_f + n_i)
+
+
+def ovn_mc_smem_bytes(N: int, K: int) -> int:
+    """Dynamic shared memory of kernel 11: the two state buffers, the float
+    constants (the dynamics' and c1), the int tables and two staged stream
+    rows of 1 + N(K-1) floats; c2 stays in global memory."""
+    Km1 = K - 1
+    P = N * (N - 1) // 2
+    S = 1 + N * Km1 + P * Km1 * Km1
+    n_f = 5 + N + P + N * Km1
+    n_i = 2 * P + N * (N - 1) + 2 * P * (N - 2)
+    return 4 * (2 * S + n_f + n_i + 2 * (1 + N * Km1))
+
+
+def ovn_mc_kernel_ok(N: int, K: int) -> bool:
+    """Whether kernel 11 (and kernel 4 after it) takes this topology: N >=
+    2, K-1 <= 64 and its shared memory within one CTA. Admits what
+    ovn_kernel_ok admits for N <= 4 (N=4, K=65: 201,996 bytes) and N=5 up
+    to K=54."""
+    return (N >= 2 and 1 <= K - 1 <= KP
+            and ovn_mc_smem_bytes(N, K) <= SMEM_LIMIT
+            and ovn_kernel_ok(N, K))
 
 
 def ovn_kernel_ok(N: int, K: int) -> bool:
@@ -104,6 +162,14 @@ def ovn_forward_mb_plain(y_win, sil, c: OvnConsts):
     """Plain version of kernel 3: (B, W) windows, (B,) bool silent-start
     rows -> (flags, rings, rowcol, xT), packed as the kernel packs them."""
     return rvo.ovn_forward(y_win.to(c.lp.dtype), sil, c)
+
+
+def ovn_mc_forward_mb_plain(es_win, d_win, sil, c: OvnMCConsts):
+    """Plain version of kernel 11: stream windows es (B, W), d (B, W, N,
+    K-1), (B,) bool silent-start rows -> (flags, rings, rowcol, xT), packed
+    as kernel 3 packs them."""
+    dt = c.lp.dtype
+    return rvo.ovn_forward((es_win.to(dt), d_win.to(dt)), sil, c)
 
 
 def ovn_backtrace_mb_plain(flags, rings, rowcol, xT, c: OvnConsts):
@@ -189,6 +255,49 @@ def ovn_backtrace_mb(flags, rings, rowcol, xT, c: OvnConsts):
 ovn_backtrace_mb.launches = 0
 
 
+def ovn_mc_forward_mb(es_win, d_win, sil, c: OvnMCConsts):
+    """Kernel 11: stream windows es (B, W), d (B, W, N, K-1), (B,) bool
+    silent-start rows -> (flags, rings, rowcol, xT). CPU tensors take
+    `ovn_mc_forward_mb_plain`."""
+    if es_win.device.type == "cpu":
+        return ovn_mc_forward_mb_plain(es_win, d_win, sil, c)
+    N, K1, P = c.N, c.Km1, c.P
+    if not ovn_mc_kernel_ok(N, K1 + 1):
+        raise ValueError(
+            f"ovn_mc_forward_mb: N={N}, K={K1 + 1} does not fit the kernel "
+            f"(K-1 <= {KP}, {ovn_mc_smem_bytes(N, K1 + 1)} bytes of shared "
+            f"memory > {SMEM_LIMIT})")
+    B, W = es_win.shape
+    sil8 = sil.to(torch.uint8).contiguous()
+    c2 = c.em.c2
+    _check_cuda("ovn_mc_forward_mb", es_win=(es_win, torch.float32),
+                d_win=(d_win, torch.float32), sil=(sil8, torch.uint8),
+                fpack=(c.fpack, torch.float32), ipack=(c.ipack, torch.int32),
+                c2=(c2, torch.float32))
+    if (d_win.shape != (B, W, N, K1) or sil8.shape != (B,)
+            or c2.shape != (P, K1, K1)):
+        raise ValueError("ovn_mc_forward_mb: shape mismatch")
+    dev = es_win.device
+    flags = torch.empty((B, W, 1 + N + P), dtype=torch.uint8, device=dev)
+    rings = torch.empty((B, W, N, K1), dtype=torch.uint8, device=dev)
+    rowcol = torch.empty((B, W, 2 * P, K1), dtype=torch.uint8, device=dev)
+    xT = torch.empty((B,), dtype=torch.int32, device=dev)
+    fn = _lib("viterbi_ovn_mc_fwd", "ovn_mc_forward_mb",
+              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+               _P, _P])
+    err = fn(es_win.data_ptr(), d_win.data_ptr(), sil8.data_ptr(), B, W, N,
+             K1, c.fpack.data_ptr(), c.fpack.numel(), c.ipack.data_ptr(),
+             c.ipack.numel(), c2.data_ptr(), flags.data_ptr(),
+             rings.data_ptr(), rowcol.data_ptr(), xT.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"ovn_mc_forward_mb: CUDA error {err} at launch")
+    ovn_mc_forward_mb.launches += 1
+    return flags, rings, rowcol, xT
+
+
+ovn_mc_forward_mb.launches = 0
+
+
 def ovn_decode_mb(y_win, sil, c: OvnConsts):
     """(B, W) windows -> (B, W) labels through kernels 3 and 4 (the port
     of `ovn_decode_pallas_mb`)."""
@@ -198,3 +307,15 @@ def ovn_decode_mb(y_win, sil, c: OvnConsts):
 def ovn_decode_mb_plain(y_win, sil, c: OvnConsts):
     """The same decode through the plain versions, on any device."""
     return ovn_backtrace_mb_plain(*ovn_forward_mb_plain(y_win, sil, c), c)
+
+
+def ovn_mc_decode_mb(es_win, d_win, sil, c: OvnMCConsts):
+    """(B, W) MC stream windows -> (B, W) labels through kernels 11 and 4
+    (the port of `ovn_mc_decode_pallas_mb`)."""
+    return ovn_backtrace_mb(*ovn_mc_forward_mb(es_win, d_win, sil, c), c)
+
+
+def ovn_mc_decode_mb_plain(es_win, d_win, sil, c: OvnMCConsts):
+    """The same decode through the plain versions, on any device."""
+    return ovn_backtrace_mb_plain(
+        *ovn_mc_forward_mb_plain(es_win, d_win, sil, c), c)

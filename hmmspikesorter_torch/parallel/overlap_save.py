@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from ..core.state_space import n_states
 from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..ops.viterbi_mb import KP, labels_dtype
-from ..ops.viterbi_ovn_mb import ovn_kernel_ok
+from ..ops.viterbi_ovn_mb import ovn_kernel_ok, ovn_mc_kernel_ok
 from ..utils.device import as_float, numpy_dtype
 
 
@@ -90,12 +90,14 @@ def _build_windows(y, *, T, L, H, B, W):
     """Uniform halo windows: row b covers [b*L - H, b*L - H + W) of the
     H-zero-padded signal (rows of one reshape plus a shifted head). Rows
     whose uniform window would cross a real signal edge decode the real
-    edge instead and are rolled back after the decode.
+    edge instead and are rolled back after the decode. Trailing axes of y
+    (T, ...) are kept: (B, W, ...).
 
-    Returns (y_win (B, W), edge_rows {row: realign shift})."""
+    Returns (y_win (B, W, ...), edge_rows {row: realign shift})."""
     Tp = B * L
-    y_ext = F.pad(y, (H, Tp - T + (L - H)))          # length Tp + L
-    A = y_ext.reshape(B + 1, L)
+    pad = (0, 0) * (y.dim() - 1) + (H, Tp - T + (L - H))
+    y_ext = F.pad(y, pad)                            # length Tp + L
+    A = y_ext.reshape(B + 1, L, *y.shape[1:])
     y_win = torch.cat([A[:B], A[1:, : 2 * H]], dim=1)
     edge_rows = _edge_rows(T, L, H, B, W)
     for b in edge_rows:
@@ -208,7 +210,9 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
     Streams batches of `blocks_per_call` halo windows through
     `block_decoder` ((B, W) device windows, (B,) bool silent-start rows ->
     (B, W) device labels, e.g. ops/ring_viterbi.ring_block_decoder), then
-    snaps every seam to common silence and stitches on the host. Choice
+    snaps every seam to common silence and stitches on the host. y may be
+    multi-channel (T, C): windows are cut along time and keep the channel
+    axis, (B, W, C) (ops/ring_viterbi_mc.mc_block_decoder). Choice
     memory is bounded by blocks_per_call * (L+2H) * K bytes.
 
     Windows are cut on the host, cast to `window_dtype` (raw integers stay
@@ -248,7 +252,8 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
         y_win = y[idx].astype(window_dtype)
         if c1 - c0 < blocks_per_call:      # keep one batch shape
             padb = blocks_per_call - (c1 - c0)
-            y_win = np.concatenate([y_win, np.zeros((padb, W), window_dtype)])
+            y_win = np.concatenate(
+                [y_win, np.zeros((padb, W) + y.shape[1:], window_dtype)])
         # the block containing sample 0 gets the reference's forced silent
         # start (src/viterbi.jl:63)
         sil = np.zeros(len(y_win), bool)
@@ -289,3 +294,96 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
         a, e = bounds[b], bounds[b + 1]
         x[a:e] = labels[b, a - starts[b]: e - starts[b]]
     return x, seam_ok
+
+
+def resolve_block_engine_mc(block_engine, overlaps, K, N, device):
+    """The multi-channel mirror of resolve_block_engine: kernel 11 (with
+    kernel 4) covers every overlap N >= 2 that
+    ops/viterbi_ovn_mb.ovn_mc_kernel_ok admits, on a CUDA device. "auto"
+    takes it there ("cuda_ovn") and the plain engines ("ring") elsewhere;
+    "cuda" and "cuda_ovn" both name it (the JAX "pallas"/"pallas_ovn") and
+    raise where it cannot run."""
+    if block_engine not in ("auto", "cuda", "cuda_ovn", "ring"):
+        raise ValueError(f"unknown block_engine {block_engine!r}; expected "
+                         "'auto', 'ring', 'cuda' or 'cuda_ovn'")
+    if block_engine == "ring":
+        return "ring"
+    feasible = (overlaps and N >= 2 and ovn_mc_kernel_ok(N, K)
+                and torch.device(device).type == "cuda")
+    if feasible:
+        return "cuda_ovn"
+    if block_engine != "auto":
+        raise ValueError(
+            f"block_engine={block_engine!r} (MC) requires an overlap "
+            f"topology with N >= 2, K <= {KP + 1}, a state that fits one "
+            "CTA's shared memory, and a CUDA device")
+    return "ring"
+
+
+def _mc_prepare(yc, mu, sigmas, *, L, H, overlaps, block_engine, device,
+                dtype):
+    """Shared MC front-end prep: resolve the engine, build the tables and
+    project the channel streams on `device` (es (T,), d (T, N, K-1))."""
+    from ..core.emission_mc import MCTables, mc_streams
+
+    if L < 2 * H:
+        raise ValueError("need L >= 2H so seam cuts are monotone")
+    K, N, _ = np.shape(mu)
+    block_engine = resolve_block_engine_mc(block_engine, overlaps, K, N,
+                                           device)
+    tables = MCTables(mu, sigmas)
+    es, d = mc_streams(_to_device(yc, device, dtype), tables)
+    return es, d, tables, block_engine
+
+
+def mc_overlap_save(yc, lp, mu, sigmas, *, L: int, H: int, overlaps: bool,
+                    block_engine: str = "auto", device, dtype):
+    """Multi-channel one-shot overlap-save decode on `device`.
+
+    yc: (T, C) observations; mu: (K, N, C) per-channel templates; sigmas:
+    (C,) per-channel noise stds. The channel axis collapses before the
+    windows are built: the factorised emission (core/emission_mc.py) turns
+    yc into the streams (es, d) with one (T, C) x (C, N(K-1)) product, and
+    windowing commutes with that pointwise map, so the halo windows are
+    built over the stream features and the block decodes, seam snap and
+    stitch are the single-channel machinery. block_engine: "auto" /
+    "cuda_ovn" (kernels 11 and 4 on CUDA), "ring" (the plain engines: nov,
+    the cross-form ov2, the direct-form ovn).
+
+    Returns (x (T,) int16/int32 tensor, seam_ok (B-1,) bool tensor), both
+    on `device`.
+    """
+    es, d, tables, block_engine = _mc_prepare(
+        yc, mu, sigmas, L=L, H=H, overlaps=overlaps,
+        block_engine=block_engine, device=device, dtype=dtype)
+    return _mc_overlap_save_impl(es, d, lp, tables, L=L, H=H,
+                                 overlaps=overlaps, block_engine=block_engine)
+
+
+def _mc_overlap_save_impl(es, d, lp, tables, *, L, H, overlaps,
+                          block_engine):
+    from ..ops.ring_viterbi_mc import mc_stream_decoder
+
+    T = es.shape[0]
+    dev, dtype = es.device, es.dtype
+    B = -(-T // L)
+    W = L + 2 * H
+    if B == 1 or T < W:
+        # whole signal in one exact decode; the plain engine in the form
+        # the kernel would use (direct at N=2 when kernel 11 is the engine)
+        dec = mc_stream_decoder(lp, tables, overlaps=overlaps,
+                                block_engine="ring", device=dev, dtype=dtype,
+                                direct=block_engine == "cuda_ovn")
+        x = dec(es[None], d[None], torch.ones(1, dtype=torch.bool,
+                                              device=dev))[0]
+        return x, torch.ones(0, dtype=torch.bool, device=dev)
+    es_win, edge_rows = _build_windows(es, T=T, L=L, H=H, B=B, W=W)
+    d_win, _ = _build_windows(d.reshape(T, -1), T=T, L=L, H=H, B=B, W=W)
+    d_win = d_win.reshape(B, W, *d.shape[1:])
+    sil0 = torch.arange(B, device=dev) == 0        # forced silent start
+    dec = mc_stream_decoder(lp, tables, overlaps=overlaps,
+                            block_engine=block_engine, device=dev,
+                            dtype=dtype)
+    xb = dec(es_win, d_win, sil0)
+    del es_win, d_win
+    return _snap_and_stitch(xb, T=T, L=L, H=H, B=B, edge_rows=edge_rows)

@@ -91,6 +91,33 @@ def test_posterior_slice_modules_are_covered(mod):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+@pytest.mark.parametrize("mod", ["core.emission_mc", "ops.ring_viterbi_mc",
+                                 "models.multichannel", "train.em_mc"])
+def test_multichannel_slice_modules_are_covered(mod):
+    """The multichannel slice's modules are among the files the source scan
+    reads and import on their own with torch, numpy and scipy only."""
+    test_posterior_slice_modules_are_covered(mod)
+
+
+def test_mc_tables_copy_matches():
+    """core/emission_mc.MCTables is a numpy copy of the JAX class: every
+    table equal."""
+    from hmmspikesorter_torch.core.emission_mc import MCTables as TT
+    from hmmspikesorter_tpu.core.emission_mc import MCTables as JT
+
+    rng = np.random.default_rng(0)
+    mu = rng.normal(0.0, 0.5, (9, 3, 4))
+    sigmas = 0.2 + rng.random(4)
+    a, b = JT(mu, sigmas), TT(mu, sigmas)
+    for f in ("zscale", "silent_sum", "u_const", "b_sil", "c1", "delta",
+              "K", "N", "C"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    for f in ("c2", "x2"):
+        assert getattr(a, f).keys() == getattr(b, f).keys()
+        for k in getattr(a, f):
+            np.testing.assert_array_equal(getattr(a, f)[k], getattr(b, f)[k])
+
+
 @pytest.mark.parametrize("N,K,overlaps", [(1, 5, True), (2, 6, True),
                                           (3, 4, True), (3, 6, False)])
 def test_state_space_copy_matches(N, K, overlaps):

@@ -1,9 +1,11 @@
 """The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2),
-ops/viterbi_ovn_mb.py (general N), ops/fb_mb.py (the EM E-step),
-ops/gamma_mb.py and ops/gamma_ov2.py (the chained onset posteriors) against
-their plain PyTorch versions on the card: packed outputs, labels,
-checkpoints, per-step logsumexps, EM statistics, posteriors and betas
-exactly equal.
+ops/viterbi_ovn_mb.py (general N, and kernel 11 of the multichannel
+decode), ops/fb_mb.py (the EM E-step, and kernels 12-13 of the
+multichannel one), ops/gamma_mb.py and ops/gamma_ov2.py (the chained onset
+posteriors) against their plain PyTorch versions on the card: packed
+outputs, labels, checkpoints, per-step logsumexps, EM statistics,
+posteriors and betas exactly equal; and the multichannel channel
+projection in full float32.
 
 Needs an NVIDIA GPU with nvcc; every test skips without one. This file
 imports neither jax nor the JAX package, so it runs on a machine without
@@ -424,3 +426,269 @@ def test_gamma_kernels_refuse_what_they_cannot_take(cuda):
                               chained, big, 16)
     with pytest.raises(ValueError, match="multiple"):
         gamma_ov2.onset_gammas_cuda_ov2(y[0], lp, temps, 0.3, L=66)
+
+
+# --- multi-channel: kernel 11 (general-N forward from streams), kernels
+# 12-13 (the E-step from stream windows with per-channel moments) and the
+# float32 channel projection
+
+
+def _mc_model(N, K, C, seed):
+    """(mu (K, N, C), sigmas (C,), lp (N,)): the PARAMS shapes scaled by
+    per-channel gains."""
+    from hmmspikesorter_torch.data.synthetic import create_spike_template
+
+    rng = np.random.default_rng(seed)
+    temps = np.stack([create_spike_template(K, *PARAMS[n % 4])
+                      for n in range(N)], axis=1)
+    mu = temps[:, :, None] * (0.3 + rng.random((N, C)))[None]
+    sigmas = 0.25 + 0.1 * rng.random(C)
+    return mu, sigmas, np.log(np.resize([0.03, 0.02, 0.025, 0.015], N))
+
+
+def _mc_windows(N, K, C, B, W, seed):
+    """(B, W, C) windows of an MC signal with two spikes forced to overlap
+    in row 0, and the model."""
+    mu, sigmas, lp = _mc_model(N, K, C, seed)
+    rng = np.random.default_rng(seed + 1)
+    yc = sigmas * rng.standard_normal((B, W, C))
+    for b in range(B):
+        _, truth = create_signal_fast(W, 0.0, np.exp(lp), mu[:, :, 0],
+                                      rng=rng)
+        for n in range(N):
+            k = truth[n]
+            m = k > 0
+            yc[b][m] += mu[k[m] - 1, n]
+    n = min(K - 1, W - 8)
+    yc[0, 5:5 + n] += mu[1:1 + n, 0]
+    yc[0, 8:8 + n] += mu[1:1 + n, 1]
+    return yc, mu, sigmas, lp
+
+
+@pytest.mark.parametrize("N,K,C,B,W", [
+    (2, 2, 1, 3, 17),
+    (2, 12, 4, 4, 128),
+    (3, 9, 3, 5, 129),
+    (3, 60, 4, 4, 301),
+    (4, 7, 2, 3, 200),
+    (4, 60, 4, 3, 257),
+    (3, 65, 4, 2, 131),       # K-1 = 64, the largest the kernels take
+    (4, 65, 2, 2, 99),
+])
+@pytest.mark.parametrize("silent", SILENT)
+def test_ovn_mc_kernel_equal_plain(cuda, N, K, C, B, W, silent):
+    """Kernel 11 vs ovn_mc_forward_mb_plain on the same stream windows,
+    and kernel 4 on its output: every packed output and label exact."""
+    from hmmspikesorter_torch.core.emission_mc import MCTables, mc_streams
+    from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
+
+    yc, mu, sigmas, lp = _mc_windows(N, K, C, B, W, seed=N * 100 + K + C)
+    tables = MCTables(mu, sigmas)
+    es, d = mc_streams(torch.as_tensor(yc, dtype=torch.float32, device=cuda),
+                       tables)
+    c = vomb.ovn_mc_consts(lp, tables.c1, c2_stack(tables),
+                           dtype=torch.float32, device=cuda)
+    sil = _silent(silent, B, cuda)
+    n_fwd = vomb.ovn_mc_forward_mb.launches
+    got = vomb.ovn_mc_forward_mb(es, d, sil, c)
+    plain = vomb.ovn_mc_forward_mb_plain(es, d, sil, c)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    labels = vomb.ovn_backtrace_mb(*got, c)
+    ref = vomb.ovn_backtrace_mb_plain(*plain, c)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, ref.to(torch.int16))
+    assert vomb.ovn_mc_forward_mb.launches == n_fwd + 1
+    if K >= 7:                  # the forced overlap reaches a pair state
+        assert bool((ref[0] >= c.tab.PB).any())
+
+
+def test_ovn_mc_kernel_refuses_what_it_cannot_take(cuda):
+    from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
+    from hmmspikesorter_torch.core.emission_mc import MCTables
+
+    sil = torch.zeros(2, dtype=torch.bool, device=cuda)
+    for N, K in ((3, 66), (5, 60)):
+        tables = MCTables(np.ones((K, N, 2)), np.ones(2))
+        c = vomb.ovn_mc_consts(np.full(N, -5.0), tables.c1, c2_stack(tables),
+                               dtype=torch.float32, device=cuda)
+        with pytest.raises(ValueError, match="does not fit"):
+            vomb.ovn_mc_forward_mb(torch.zeros((2, 8), device=cuda),
+                                   torch.zeros((2, 8, N, K - 1), device=cuda),
+                                   sil, c)
+    tables = MCTables(np.ones((12, 3, 2)), np.ones(2))
+    c64 = vomb.ovn_mc_consts(np.full(3, -5.0), tables.c1, c2_stack(tables),
+                             dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        vomb.ovn_mc_forward_mb(
+            torch.zeros((2, 8), dtype=torch.float64, device=cuda),
+            torch.zeros((2, 8, 3, 11), dtype=torch.float64, device=cuda),
+            sil, c64)
+
+
+def test_auto_runs_mc_kernels(cuda):
+    """fit_spiking_model_mc_fast on the card takes kernels 11 and 4 for N=2
+    and N=3, one-shot and streaming, and agrees with the plain direct-form
+    engine in float32."""
+    from hmmspikesorter_torch.models import multichannel as mcm
+
+    K, L, H, C = 20, 512, 80, 3
+    for N in (2, 3):
+        yc, mu, sigmas, lp = _mc_windows(N, K, C, 1, 6 * L + 77, seed=N)
+        tm = mcm.HMMTemplateModelMC(mu=mu, sigmas=sigmas, lp=lp,
+                                    allow_overlaps=True)
+        for kw in ({}, {"streaming": True, "blocks_per_call": 4}):
+            n_fwd = vomb.ovn_mc_forward_mb.launches
+            n_bt = vomb.ovn_backtrace_mb.launches
+            m = mcm.fit_spiking_model_mc_fast(tm, yc[0], L=L, H=H, **kw)
+            assert vomb.ovn_mc_forward_mb.launches > n_fwd
+            assert vomb.ovn_backtrace_mb.launches > n_bt
+            assert m.ml_seq.shape == (len(yc[0]),) and np.isfinite(m.ll)
+        with pytest.raises(ValueError):
+            mcm.fit_spiking_model_mc_fast(tm, yc[0], L=L, H=H,
+                                          block_engine="cuda_ovn",
+                                          dtype=torch.float64)
+
+
+def test_mc_projection_is_full_float32(cuda):
+    """The channel projection d = z @ delta never runs in TF32, even with
+    TF32 allowed globally: within float32 rounding of a float64 product,
+    far below TF32's ~1e-3."""
+    from hmmspikesorter_torch.core.emission_mc import MCTables, mc_streams
+
+    mu, sigmas, _ = _mc_model(3, 60, 16, seed=2)
+    tables = MCTables(mu, sigmas)
+    yc = np.random.default_rng(0).standard_normal((1 << 14, 16))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, d32 = mc_streams(torch.as_tensor(yc, dtype=torch.float32,
+                                            device=cuda), tables)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert torch.backends.cuda.matmul.allow_tf32 == old
+    z = yc * tables.zscale
+    ref = (z @ tables.delta).reshape(d32.shape)
+    err = np.abs(d32.double().cpu().numpy() - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max()
+
+
+def _mc_em_windows(N, K, C, L, H, T, seed, cuda):
+    from hmmspikesorter_torch.train import em_mc as tmc
+
+    mu, sigmas, lp = _mc_model(N, K, C, seed)
+    rng = np.random.default_rng(seed)
+    yc = sigmas * rng.standard_normal((T, C))
+    _, truth = create_signal_fast(T, 0.0, np.exp(lp) * 0.5, mu[:, :, 0],
+                                  rng=rng)
+    for n in range(N):
+        k = truth[n]
+        m = k > 0
+        yc[m] += mu[k[m] - 1, n]
+    f32 = dict(dtype=torch.float32, device=cuda)
+    mu0 = tmc.init_templates_mc(K, N, C, sigmas * 1.2, rng)
+    es, body = tmc._mc_streams_dense(torch.as_tensor(yc, **f32),
+                                     torch.as_tensor(mu0, **f32),
+                                     torch.as_tensor(sigmas, **f32))
+    eb = body.reshape(T, N, K - 1)
+    e_win, yc_win, bnd = fb_mb.mc_em_windows(
+        es, eb, torch.as_tensor(yc, **f32), L=L, H=H)
+    c = fb_mb.em_consts_mc(lp, K, **f32)
+    bounds = torch.as_tensor(np.stack(bnd, 1), dtype=torch.int32,
+                             device=cuda).contiguous()
+    return e_win, yc_win, bounds, c
+
+
+@pytest.mark.parametrize("K", [2, 12, 60, 65])
+@pytest.mark.parametrize("N,C", [(1, 1), (2, 3), (3, 4), (8, 2)])
+def test_em_mc_kernels_equal_plain(cuda, N, K, C):
+    """Kernels 12-13 vs their plain versions on stream windows with a
+    ragged tail: checkpoints, la and every per-window statistic bit for
+    bit."""
+    L, H = 64, 16
+    T = 5 * L + 7
+    e_win, yc_win, bounds, c = _mc_em_windows(N, K, C, L, H, T,
+                                              seed=10 * N + K + C, cuda=cuda)
+    ch = fb_mb.em_chunk(c.S)
+    n_f = fb_mb.em_forward_mb_mc.launches
+    n_b = fb_mb.em_backward_mb_mc.launches
+    cp, la = fb_mb.em_forward_mb_mc(e_win, c, ch)
+    pcp, pla = fb_mb.em_forward_mb_mc_plain(e_win, c, ch)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp) and torch.equal(la, pla)
+    got = fb_mb.em_backward_mb_mc(e_win, yc_win, pcp, bounds, c, ch)
+    ref = fb_mb.em_backward_mb_mc_plain(e_win, yc_win, pcp, bounds, c, ch)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    assert got[1].shape == (e_win.shape[0], C, c.S)
+    assert fb_mb.em_forward_mb_mc.launches == n_f + 1
+    assert fb_mb.em_backward_mb_mc.launches == n_b + 1
+    torch.testing.assert_close(got[0].sum(), torch.tensor(
+        float(T), device=cuda), rtol=1e-5, atol=0)
+
+
+def test_em_mc_kernels_refuse_what_they_cannot_take(cuda):
+    e_win, yc_win, bounds, c = _mc_em_windows(2, 12, 3, 64, 16, 300, 0,
+                                              cuda)
+    ch = fb_mb.em_chunk(c.S)
+    with pytest.raises(ValueError, match="multiple"):
+        fb_mb.em_forward_mb_mc(e_win[:, :90].contiguous(), c, ch)
+    with pytest.raises(TypeError):
+        fb_mb.em_forward_mb_mc(e_win.double(), c, ch)
+    # S = 1024 states leave room for 18 channels' moments, not 19
+    big = fb_mb.em_consts_mc(np.full(31, -8.0), 34, dtype=torch.float32,
+                             device=cuda)
+    assert fb_mb.em_mc_kernel_ok(31, 34, 18)
+    with pytest.raises(ValueError, match="does not fit"):
+        fb_mb.em_backward_mb_mc(
+            torch.zeros((1, 32, big.S), device=cuda),
+            torch.zeros((1, 32, 19), device=cuda),
+            torch.zeros((1, 32 // fb_mb.em_chunk(big.S), big.S), device=cuda),
+            torch.zeros((1, 3), dtype=torch.int32, device=cuda), big,
+            fb_mb.em_chunk(big.S))
+
+
+def test_train_model_mc_runs_mc_kernels(cuda):
+    """train_model_mc on the card chooses fb_mode "overlap_cuda" for a
+    signal of two kernel windows and launches kernels 12-13 every EM
+    iteration; its first step agrees with the plain engine in float64."""
+    from hmmspikesorter_torch.core.state_space import build_state_space
+    from hmmspikesorter_torch.train import em as tem
+    from hmmspikesorter_torch.train import em_mc as tmc
+
+    N, K, C, T = 2, 20, 3, 12000
+    assert tmc.auto_fb_mode_mc(T, K, N, C, cuda) == "overlap_cuda"
+    mu, sigmas, lp = _mc_model(N, K, C, seed=4)
+    rng = np.random.default_rng(4)
+    yc = sigmas * rng.standard_normal((T, C))
+    _, truth = create_signal_fast(T, 0.0, np.array([0.01, 0.006]),
+                                  mu[:, :, 0], rng=rng)
+    for n in range(N):
+        k = truth[n]
+        m = k > 0
+        yc[m] += mu[k[m] - 1, n]
+    n_f = fb_mb.em_forward_mb_mc.launches
+    n_b = fb_mb.em_backward_mb_mc.launches
+    model, _, lls = tmc.train_model_mc(yc, 3, K, 4,
+                                       rng=np.random.default_rng(1))
+    n_it = len(lls)
+    assert fb_mb.em_forward_mb_mc.launches - n_f == n_it
+    assert fb_mb.em_backward_mb_mc.launches - n_b == n_it
+    assert np.isfinite(lls).all() and np.isfinite(model.mu).all()
+    tab = tem.EMTables.build(build_state_space(N, K, False), cuda)
+
+    def args(dt):
+        return [torch.as_tensor(np.asarray(v, np.float64), device=cuda).to(dt)
+                for v in (yc, lp, mu, sigmas)]
+
+    got = tmc.em_step_mc(*args(torch.float32), tab, K=K,
+                         fb_mode="overlap_cuda")
+    ref = tmc.em_step_mc(*args(torch.float64), tab, K=K, fb_mode="overlap")
+    for name, a, b in zip(("lp", "pi", "mu", "sigmas", "ll"), got, ref):
+        a, b = a.double().cpu().numpy(), b.cpu().numpy()
+        if name == "pi":
+            m = b > -50
+            a, b = a[m], b[m]
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-4, err_msg=name)
