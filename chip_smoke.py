@@ -8,7 +8,7 @@ output.
 
 Phases, each printing one JSON line:
   platform     torch and CUDA versions, the card (nvidia-smi)
-  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-13), all
+  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-15), all
                sources at once
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
@@ -106,7 +106,32 @@ Phases, each printing one JSON line:
                within 2% of the generator's, ll non-decreasing in each EM
                phase (the same bound), each learned template within 1% of a
                generator template's energy
-About 7-10 minutes on an H100.
+  kernels_gamma_mc  kernels 14-15 (the multichannel chained onset
+               posteriors, reading the emission stream) vs
+               gamma_fwd_mb_mc_plain / gamma_bwd_mb_mc_plain at config 6 with
+               overlaps off (S=178, T=2^19, B=128 windows of L=4096; the
+               plain versions on the first 16): checkpoints, first-position
+               betas and posteriors exactly equal; times and bounds
+  posterior_bench_mc  core/posterior.onset_posteriors_chained_mc on config 6
+               with overlaps off, T=2^19, float32, after one warm-up
+               (kernels 14-15, launches 2 + 2); samples/s; within 1e-4 of
+               the float64 plain chained run on the card, or of the float32
+               plain engines' own error where that is larger (at most 1e-3);
+               expected onset counts within 1e-3 of a non-overlap decode's
+  posterior_path_mc  the --confidence --qc composition (posterior_path's) on
+               that non-overlap multichannel decode, through kernels 14-15
+  cli_path     the CLI's body on arrays (cli._sort_loaded, everything after
+               the HDF5 loaders; the MAT file written with scipy.io.savemat
+               under build/cli_path/ and read back): --engine fast
+               --confidence --qc on bench.py's problem at T=2^21 (kernels 1-2,
+               9-10; labels equal main_path's); a 4-window recording whose
+               seams find no common silence (seams repaired, labels equal
+               the float64 plain twin's); --multichannel --engine fast
+               --confidence --qc on config 6 with overlaps on at T=2^14
+               (kernels 11 + 4, then the plain chained ovn MC posteriors at
+               S=10,621; labels equal the library decode's; the float32
+               posteriors' error against a float64 run on the card)
+About 8-12 minutes on an H100.
 Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
@@ -778,7 +803,120 @@ def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
           f"train_path_mc: kernels 11 and 4 did not run: {dec_l6_launches}")
 
     return {"fwd": mc_rows["n3"]["forward"], "one_launches": one6_launches,
-            "em": emmc, "em_launches": em6_launches}
+            "em": emmc, "em_launches": em6_launches,
+            "config6": (yc6, truth6, mu6, sg6, lp6)}
+
+
+def mc_posterior_phases(dev, card, config6_, Lg=4096, plain_windows=16):
+    """The multichannel posterior phases on BASELINE.json config 6 with
+    overlaps off (S=178, the kernel path): kernels_gamma_mc,
+    posterior_bench_mc, posterior_path_mc. Returns the kernel rows and the
+    launch counts of kernels 14-15 for the kernels line."""
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import fb_mb, gamma_mb
+    from hmmspikesorter_torch.train import em_mc as tmc
+
+    yc6, _, mu6, sg6, lp6 = config6_
+    T6, C6 = yc6.shape
+    K6, N6 = mu6.shape[:2]
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- kernels_gamma_mc: kernels 14-15 vs their plain versions ---------
+    Bg = -(-T6 // Lg)
+    ch = gamma_mb.gamma_chunk(N6, K6)
+    yc_pad = torch.zeros((Bg * Lg + 1, C6), **f32)
+    yc_pad[:T6] = torch.as_tensor(yc6, **f32)
+    es, body = tmc._mc_streams_dense(yc_pad, torch.as_tensor(mu6, **f32),
+                                     torch.as_tensor(sg6, **f32))
+    e6 = torch.cat([es[:, None], body], dim=1).contiguous()
+    del yc_pad, es, body
+    c14 = fb_mb.em_consts_mc(lp6, K6, **f32)
+    term, lastw, chained = gamma_mb.chain_geometry(T6, Lg, dev)
+    parts = gamma_kernels(
+        lambda e, en, hi: gamma_mb.gamma_fwd_mb_mc(e, en, hi, c14, ch, Lg),
+        lambda e, cp, en, hi, ex, tr, _yb, lw, em_: gamma_mb.gamma_bwd_mb_mc(
+            e, cp, en, hi, ex, tr, lw, c14, ch, Lg, em_),
+        lambda e, en, hi: gamma_mb.gamma_fwd_mb_mc_plain(e, en, hi, c14, ch,
+                                                         Lg),
+        lambda e, cp, en, hi, ex, tr, _yb, lw, em_:
+            gamma_mb.gamma_bwd_mb_mc_plain(e, cp, en, hi, ex, tr, lw, c14,
+                                           ch, Lg, em_),
+        e6, None, term, lastw, chained, lambda ex: ex, c14, c14.S,
+        plain_windows, reps=5, L=Lg)
+    rows = {part: gamma_row("mc_" + part, *v, Bg, Lg, N6, K6 - 1, ch,
+                            plain_windows)
+            for part, v in parts.items()}
+    del e6
+    emit({"phase": "kernels_gamma_mc", "dtype": "float32", "card": card,
+          "N": N6, "K": K6, "C": C6, "S": c14.S, "T": T6, "L": Lg, "B": Bg,
+          "ch": ch, "stream_bytes": 4 * (Bg * Lg + 1) * c14.S, **rows})
+
+    # ---- a non-overlap decode of config 6 (the plain nov MC engine) ------
+    tm_nov = mcm.HMMTemplateModelMC(mu=mu6, sigmas=sg6, lp=lp6,
+                                    allow_overlaps=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dec_nov = mcm.fit_spiking_model_mc_fast(tm_nov, yc6, device=dev)
+    dec_nov_s = time.perf_counter() - t
+
+    # ---- posterior_bench_mc: onset_posteriors_chained_mc, T=2^19, f32 ---
+    pair = (gamma_mb.gamma_fwd_mb_mc, gamma_mb.gamma_bwd_mb_mc)
+    tpost.onset_posteriors_chained_mc(tm_nov, yc6, L=Lg)     # warm-up
+    for w in pair:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_po = tpost.onset_posteriors_chained_mc(tm_nov, yc6, L=Lg)
+    post_s = time.perf_counter() - t
+    bench_launches = {w.__name__: w.launches for w in pair}
+    t = time.perf_counter()
+    p_64 = tpost.onset_posteriors_chained_mc(tm_nov, yc6, L=Lg,
+                                             dtype=torch.float64)
+    torch.cuda.synchronize()
+    p64_s = time.perf_counter() - t
+    # witness of the float32 floor: the plain chained engines in float32
+    # (an explicit projection keeps them off the kernels)
+    p_32 = tpost.onset_posteriors_chained_mc(
+        tm_nov, yc6, L=Lg,
+        proj=tpost.onset_projection(tm_nov.state_space.states))
+    plain32_err = float(np.abs(p_32 - p_64).max())
+    del p_32
+    dec_on = tevents._onsets_dense(dec_nov.ml_seq, N=N6, K=K6,
+                                   overlaps=False)
+    dec_c = np.array([len(o) for o in dec_on], float)
+    exp_c = p_po.sum(axis=0)
+    count_rel = float(np.max(np.abs(exp_c - dec_c) / np.maximum(dec_c, 1.0)))
+    post_err = float(np.abs(p_po - p_64).max())
+    # tests/test_pallas_gamma.py's 1e-4, or the float32 floor where the
+    # plain float32 engines (the JAX association) show one above it: at
+    # T=2^19 an onset split 0.99988 / 0.00012 between two samples rounds
+    # to 1.0 in both at alpha + beta magnitudes of ~1e4 (float32 ulp 1e-3)
+    post_tol = min(1e-3, max(1e-4, plain32_err))
+    emit({"phase": "posterior_bench_mc", "N": N6, "K": K6, "C": C6,
+          "S": c14.S, "T": T6, "L": Lg, "card": card, "seconds": post_s,
+          "posterior_exact_mc_samples_per_s": T6 / post_s,
+          "launches": bench_launches,
+          "posterior_count_rel_err": count_rel,
+          "expected_onsets": exp_c.tolist(), "decoded_onsets": dec_c.tolist(),
+          "max_abs_err_vs_f64_plain_chained": post_err,
+          "plain_f32_chained_max_abs_err_vs_f64": plain32_err,
+          "tolerance": post_tol,
+          "f64_plain_chained_seconds": p64_s,
+          "nov_decode_seconds": dec_nov_s})
+    check(p_po.shape == (T6, N6) and np.isfinite(p_po).all(),
+          "posterior_bench_mc: output malformed")
+    check(list(bench_launches.values()) == [2, 2],
+          f"posterior_bench_mc: launches {bench_launches}, expected 2 + 2")
+    check(post_err <= post_tol, f"posterior_bench_mc: {post_err} from the "
+          f"float64 plain chained run (> {post_tol})")
+    check(count_rel <= 1e-3, f"posterior_bench_mc: count error {count_rel}")
+    del p_64, p_po
+
+    # ---- posterior_path_mc: --confidence --qc on the nov MC decode ------
+    path_launches = posterior_path("posterior_path_mc", dec_nov, pair, card)
+    return {"rows": rows, "launches": path_launches}
 
 
 def gamma_ops(kind, B, L, N, Km1):
@@ -798,13 +936,17 @@ def gamma_ops(kind, B, L, N, Km1):
       gamma (the emit_gamma variants): the remat repeats the forward; z_t
         costs alpha + beta, max, subtract and sum over the states (4 S) and
         S exp plus a log; each onset row an exp and an add per term.
+      mc (kernels 14-15): the nov kernels with each state's emission read
+        from the stream, not computed (4 f32 operations a state fewer in
+        each forward, remat and beta step).
     kind: "nov_fwd", "nov_chain", "nov_gamma", "ov2_fwd", "ov2_chain",
-    "ov2_gamma"."""
-    if kind.startswith("nov"):
+    "ov2_gamma", "mc_fwd", "mc_chain", "mc_gamma"."""
+    if kind.startswith(("nov", "mc")):
         S = 1 + N * Km1
+        emit = 0 if kind.startswith("mc") else 4
         onset = N * (N + 2) if N > 1 else 0
-        f_f32, f_sfu = em_fwd_ops(B, L, N, S, la_steps=0)
-        b_f32, b_sfu = 6 * S + N * (3 * N + 10), (N + 3) + onset
+        f_f32, f_sfu = em_fwd_ops(B, L, N, S, la_steps=0, emit=emit)
+        b_f32, b_sfu = (2 + emit) * S + N * (3 * N + 10), (N + 3) + onset
         g_f32, g_sfu = 4 * S + 2 * N, S + 1 + N
     else:
         S = 1 + 2 * Km1 + Km1 * Km1
@@ -823,19 +965,22 @@ def gamma_ops(kind, B, L, N, Km1):
 def gamma_bytes(kind, B, L, N, S, ch):
     """Bytes kernels 7-10 must move: each input read once, each output
     written once (windows, entry/exit/terminal states, checkpoints, per-window
-    integers, posteriors, first-position betas)."""
+    integers, posteriors, first-position betas). The mc kinds read the
+    stream's S floats a step in place of a sample, and its boundary rows
+    in place of the boundary samples."""
     cps = B * (L // ch) * S
+    win = B * L * S if kind.startswith("mc") else B * L
+    bnd = B * S if kind.startswith("mc") else B
     if kind.endswith("fwd"):
-        return 4 * (B * L + B * S + cps + B)
+        return 4 * (win + B * S + cps + B)
     if kind.endswith("chain"):
-        return 4 * (B * L + 2 * B * S + 4 * B)
-    return 4 * (B * L + cps + 3 * B * S + 5 * B + B * L * N)
+        return 4 * (win + bnd + 2 * B * S + 3 * B)
+    return 4 * (win + bnd + cps + 3 * B * S + 4 * B + B * L * N)
 
 
 def gamma_row(kind, ms, plain_ms, err, B, L, N, Km1, ch, plain_windows):
     """One kernel row of the kernels_gamma line, with its bound."""
-    S = (1 + N * Km1) if kind.startswith("nov") else (1 + 2 * Km1
-                                                      + Km1 * Km1)
+    S = (1 + 2 * Km1 + Km1 * Km1) if kind.startswith("ov2") else (1 + N * Km1)
     f32, sfu = gamma_ops(kind, B, L, N, Km1)
     byt = gamma_bytes(kind, B, L, N, S, ch)
     row = {"ms": ms, "plain_ms": plain_ms, "plain_windows": plain_windows,
@@ -848,14 +993,17 @@ def gamma_row(kind, ms, plain_ms, err, B, L, N, Km1, ch, plain_windows):
 
 
 def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
-                  chained, tmx_of, c, S, P, reps):
+                  chained, tmx_of, c, S, P, reps, L=None):
     """One chained posterior pass at these windows through a kernel pair
     (fwd, bwd) and against its plain versions on the first P windows:
     checkpoints, first-position betas and onset posteriors must be bit for
     bit equal. `bwd(..., exits_or_terminal, emit)` takes the per-window
     beta input (exit betas for kernel 8, terminal betas from `tmx_of` for
-    kernel 10). Returns {part: (ms, plain_ms, max_abs_err)}."""
-    B = y_win.shape[0]
+    kernel 10). With L, y_win is the (B*L+1, S) emission stream of kernels
+    14-15 and its first P windows are its first P*L+1 rows. Returns
+    {part: (ms, plain_ms, max_abs_err)}."""
+    B = chained.shape[0]
+    head = (lambda x: x[:P]) if L is None else (lambda x: x[:P * L + 1])
     zero = torch.zeros((B, S), dtype=torch.float32, device=y_win.device)
     no_init = torch.zeros_like(chained)
     from hmmspikesorter_torch.core.posterior import (_recenter, _shift_down,
@@ -865,7 +1013,7 @@ def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
     run_f = lambda: fwd(y_win, entry, chained)                # noqa: E731
     run_f()
     f_ms, cp = cuda_ms(run_f, reps=reps)
-    f_pms, pcp = cuda_ms(lambda: fwd_plain(y_win[:P], entry[:P],
+    f_pms, pcp = cuda_ms(lambda: fwd_plain(head(y_win), entry[:P],
                                            chained[:P]), reps=1)
     f_err = max_abs_err([(cp[:P], pcp)])
     check(torch.equal(cp[:P], pcp), f"{fwd.__name__} differs from its "
@@ -878,8 +1026,8 @@ def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
         run_b()
         b_ms, (gam, b0) = cuda_ms(run_b, reps=reps)
         b_pms, (pgam, pb0) = cuda_ms(lambda: bwd_plain(
-            y_win[:P], cp[:P], entry[:P], chained[:P], bx[:P], term[:P],
-            ybnd[:P], lastw[:P], emit), reps=1)
+            head(y_win), cp[:P], entry[:P], chained[:P], bx[:P], term[:P],
+            None if ybnd is None else ybnd[:P], lastw[:P], emit), reps=1)
         pairs = [(b0[:P], pb0)] + ([(gam[:P], pgam)] if emit else [])
         b_err = max_abs_err(pairs)
         check(all(torch.equal(a, b) for a, b in pairs),
@@ -890,6 +1038,215 @@ def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
     return out
 
 
+def posterior_path(phase, model, pair, card):
+    """The --confidence --qc composition on a decoded model, with the
+    launch counts of the kernel `pair` set to 0 just before and read just
+    after: model_posteriors, confidence_from_posteriors,
+    core/qc.unit_qc(posteriors=p), qc_arrays. Gates: 2 + 2 launches, median
+    confidence above 0.9, isi_invariant_violations 0. Returns the launch
+    counts."""
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.core import qc as tqc
+
+    for w in pair:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = tpost.model_posteriors(model)
+    tm_m = model.template_model
+    onsets = tevents._onsets_dense(model.ml_seq, N=tm_m.n_neurons,
+                                   K=tm_m.K, overlaps=tm_m.allow_overlaps)
+    conf = tpost.confidence_from_posteriors(p, onsets,
+                                            half_width=(tm_m.K - 1) // 2)
+    qcs = tqc.unit_qc(model, posteriors=p)
+    qa = tqc.qc_arrays(qcs)
+    wall = time.perf_counter() - t
+    launches = {w.__name__: w.launches for w in pair}
+    # the posteriors alone, again: the rest of the wall is the host QC
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tpost.model_posteriors(model)
+    post_only = time.perf_counter() - t
+    emit({"phase": phase, "N": tm_m.n_neurons, "K": tm_m.K,
+          "S": tm_m.state_space.nstates, "T": len(model.ml_seq),
+          "L": 4096, "B": -(-len(model.ml_seq) // 4096), "card": card,
+          "seconds": wall,
+          "samples_per_s": len(model.ml_seq) / wall,
+          "posteriors_seconds": post_only,
+          "launches": launches,
+          "median_confidence": [float(np.median(cf)) for cf in conf],
+          "n_spikes": qa["n_spikes"].tolist(),
+          "expected_onsets": p.sum(axis=0).tolist(),
+          "missing_mass": qa["missing_mass"].tolist(),
+          "isi_invariant_violations":
+              qa["isi_invariant_violations"].tolist(),
+          "conf_median_qc": qa["conf_median"].tolist()})
+    check(p.shape == (len(model.ml_seq), tm_m.n_neurons)
+          and np.isfinite(p).all() and p.min() >= -1e-6
+          and p.max() <= 1 + 1e-4, f"{phase}: posteriors malformed")
+    check(list(launches.values()) == [2, 2],
+          f"{phase}: kernel launches {launches}, expected 2 + 2")
+    check(all(v == 0 for v in qa["isi_invariant_violations"]),
+          f"{phase}: ISI invariant violated")
+    check(all(np.median(cf) > 0.9 for cf in conf),
+          f"{phase}: median confidence below 0.9")
+    return launches
+
+
+def dense_seams(y, temps, L, halfwidth):
+    """Back-to-back spikes of the first two neurons, staggered by K//2,
+    over [s - halfwidth, s + halfwidth) around every seam s = L, 2L, ...
+    (tests/test_seam_repair.py's recipe, which tests/test_torch_overlap_save.py
+    reuses): the combined state is never silent there, so no seam finds a
+    common silence and every one goes to seam repair."""
+    K = temps.shape[0]
+    for seam in range(L, len(y) - halfwidth, L):
+        for n, phase in ((0, 0), (1, K // 2)):
+            t = seam - halfwidth + phase
+            while t < seam + halfwidth:
+                end = min(t + K - 1, len(y))
+                y[t:end] += temps[1:1 + (end - t), n]
+                t += K
+
+
+def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
+    """The CLI's body on arrays (hmmspikesorter_torch.cli._sort_loaded, all
+    of sort_data after the HDF5 loaders), writing the MAT file with
+    scipy.io.savemat under build/cli_path/ and reading it back:
+      (a) the single-channel production run, --engine fast --confidence
+          --qc, on bench.py's problem at T=2^21 (kernels 1-2 and 9-10);
+          labels equal main_path's library decode;
+      (a') a recording of 4 windows whose seams find no common silence
+          (dense_seams): the library decode repairs them (seams_repaired >
+          0) and the CLI's labels equal the float64 plain twin's;
+      (b) --multichannel --engine fast --confidence --qc on config 6 with
+          overlaps on (kernels 11 + 4, then the plain chained ovn MC
+          posteriors at S=10,621), cut to T_mc samples; labels equal the
+          library decode's; the error of the float32 posteriors the CLI
+          computed against a float64 run on the card."""
+    import pathlib
+
+    import scipy.io
+
+    from hmmspikesorter_torch import cli
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.io.extraction import unroll_mlseq
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import gamma_ov2
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+
+    tm, y, decoded, temps = sc
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "cli_path"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    keys = {"mlseq", "ll", "waveforms", "lp", "sigma", "confidence", "qc"}
+
+    def run(tm_r, data, name, o, wrappers):
+        for w in wrappers:
+            w.launches = 0
+        path = str(out_dir / f"{name}.mat")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cli._sort_loaded(tm_r, data, path, o, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        back = scipy.io.loadmat(path, squeeze_me=True)
+        check(np.array_equal(back["mlseq"], out["mlseq"]),
+              f"cli_path {name}: the MAT file's mlseq differs")
+        return out, wall, {w.__name__: w.launches for w in wrappers}
+
+    def conf_ok(out, n_spikes):
+        return all(len(c) == n for c, n in zip(out["confidence"], n_spikes))
+
+    full = cli._options(engine="fast", confidence=True, qc=True)
+    # ---- (a) the single-channel production run ---------------------------
+    out_a, wall_a, la_a = run(
+        tm, y, "sc", full, (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb,
+                            gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd))
+    ref_a = unroll_mlseq(decoded.ml_seq, tm.state_space.states) + 1
+    qc_a = out_a.get("qc", {})
+    # ---- (a') forced seam repair ------------------------------------------
+    y_s = np.array(y[:4 * L])
+    dense_seams(y_s, temps, L, 600)
+    lib_s = api.fit_spiking_model_fast(tm, y_s, streaming=True, L=L)
+    f64_s = api.fit_spiking_model_fast(tm, y_s, L=L, block_engine="ring",
+                                       dtype=torch.float64)
+    out_s, wall_s, _ = run(tm, y_s, "seams", cli._options(engine="fast"),
+                           ())
+    ref_s = unroll_mlseq(f64_s.ml_seq, tm.state_space.states) + 1
+    # ---- (b) the multichannel run on config 6, overlaps on --------------
+    yc6, _, mu6, sg6, lp6 = config6_
+    yc_b = np.asarray(yc6[:T_mc], np.float64)
+    tm6 = mcm.HMMTemplateModelMC(mu=mu6, sigmas=sg6, lp=lp6,
+                                 allow_overlaps=True)
+    # keep the float32 posteriors the CLI computes, for their error
+    captured, real = [], tpost.model_posteriors
+
+    def keep(*a, **k):
+        captured.append(real(*a, **k))
+        return captured[-1]
+
+    tpost.model_posteriors = keep
+    try:
+        out_b, wall_b, la_b = run(
+            tm6, yc_b.T, "mc", cli._options(engine="fast", confidence=True,
+                                            qc=True, multichannel=True),
+            (vomb.ovn_mc_forward_mb, vomb.ovn_backtrace_mb))
+    finally:
+        tpost.model_posteriors = real
+    lib_b = mcm.fit_spiking_model_mc_fast(tm6, yc_b, L=L)
+    ref_b = unroll_mlseq(lib_b.ml_seq, tm6.state_space.states) + 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p64 = tpost.model_posteriors(lib_b, dtype=torch.float64)
+    torch.cuda.synchronize()
+    p64_s = time.perf_counter() - t
+    p32 = captured[0]
+    p_err = float(np.abs(p32 - p64).max())
+    emit({"phase": "cli_path", "card": card,
+          "sc": {"T": len(y), "seconds": wall_a,
+                 "samples_per_s": len(y) / wall_a, "launches": la_a,
+                 "keys": sorted(out_a),
+                 "n_spikes": np.asarray(qc_a.get("n_spikes", [])).tolist(),
+                 "median_confidence": [float(np.median(c))
+                                       for c in out_a["confidence"]]},
+          "seams": {"T": len(y_s), "seconds": wall_s,
+                    "seams_repaired": lib_s.seams_repaired,
+                    "seams_repaired_f64": f64_s.seams_repaired,
+                    "agreement_vs_f64": float((out_s["mlseq"]
+                                               == ref_s).mean())},
+          "mc": {"T": T_mc, "N": tm6.n_neurons, "C": tm6.n_channels,
+                 "S": tm6.state_space.nstates, "seconds": wall_b,
+                 "samples_per_s": T_mc / wall_b, "launches": la_b,
+                 "keys": sorted(out_b),
+                 "median_confidence": [float(np.median(c))
+                                       for c in out_b["confidence"]],
+                 "posteriors_f64_seconds": p64_s,
+                 "posteriors_f32_max_abs_err_vs_f64": p_err,
+                 "expected_onsets": p32.sum(axis=0).tolist()}})
+    for name, out, ref, tm_r, T_r in (("sc", out_a, ref_a, tm, len(y)),
+                                      ("mc", out_b, ref_b, tm6, T_mc)):
+        check(set(out) == keys, f"cli_path {name}: keys {sorted(out)}")
+        check(out["mlseq"].shape == (tm_r.n_neurons, T_r)
+              and np.isfinite(out["ll"]),
+              f"cli_path {name}: output malformed")
+        check(np.array_equal(out["mlseq"], ref),
+              f"cli_path {name}: labels differ from the library decode")
+        check(conf_ok(out, out["qc"]["n_spikes"])
+              and all(v == 0 for v in out["qc"]["isi_invariant_violations"]),
+              f"cli_path {name}: confidence or qc malformed")
+    check(all(la_a.values()) and all(la_b.values()),
+          f"cli_path: a kernel did not run: {la_a} {la_b}")
+    check(lib_s.seams_repaired > 0,
+          f"cli_path: no seam was repaired ({lib_s.seams_repaired})")
+    check(np.array_equal(out_s["mlseq"], ref_s),
+          "cli_path: repaired labels differ from the float64 plain twin's")
+    check(np.isfinite(p32).all() and p_err <= 1e-2,
+          f"cli_path mc: float32 posteriors {p_err} from float64")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -897,7 +1254,6 @@ def main():
         return 1
     from hmmspikesorter_torch.core import events as tevents
     from hmmspikesorter_torch.core import posterior as tpost
-    from hmmspikesorter_torch.core import qc as tqc
     from hmmspikesorter_torch.core.path_score import path_cumulative_ll
     from hmmspikesorter_torch.core.state_space import build_state_space
     from hmmspikesorter_torch.core.viterbi import viterbi_decode
@@ -1447,62 +1803,19 @@ def main():
     # ---- the --confidence --qc composition on a decoded model: the N=2
     # overlap decode of main_path (kernels 9-10), and a non-overlap N=2
     # decode of the same signal (kernels 7-8), T=2^21 -------------------
-    def posterior_path(phase, model, pair):
-        for w in pair:
-            w.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        p = tpost.model_posteriors(model)
-        tm_m = model.template_model
-        onsets = tevents._onsets_dense(model.ml_seq, N=tm_m.n_neurons,
-                                       K=tm_m.K, overlaps=tm_m.allow_overlaps)
-        conf = tpost.confidence_from_posteriors(p, onsets,
-                                                half_width=(tm_m.K - 1) // 2)
-        qcs = tqc.unit_qc(model, posteriors=p)
-        qa = tqc.qc_arrays(qcs)
-        wall = time.perf_counter() - t
-        launches = {w.__name__: w.launches for w in pair}
-        # the posteriors alone, again: the rest of the wall is the host QC
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        tpost.model_posteriors(model)
-        post_only = time.perf_counter() - t
-        emit({"phase": phase, "N": tm_m.n_neurons, "K": tm_m.K,
-              "S": tm_m.state_space.nstates, "T": len(model.ml_seq),
-              "L": 4096, "B": -(-len(model.ml_seq) // 4096), "card": card,
-              "seconds": wall,
-              "samples_per_s": len(model.ml_seq) / wall,
-              "posteriors_seconds": post_only,
-              "launches": launches,
-              "median_confidence": [float(np.median(cf)) for cf in conf],
-              "n_spikes": qa["n_spikes"].tolist(),
-              "expected_onsets": p.sum(axis=0).tolist(),
-              "missing_mass": qa["missing_mass"].tolist(),
-              "isi_invariant_violations":
-                  qa["isi_invariant_violations"].tolist(),
-              "conf_median_qc": qa["conf_median"].tolist()})
-        check(p.shape == (len(model.ml_seq), tm_m.n_neurons)
-              and np.isfinite(p).all() and p.min() >= -1e-6
-              and p.max() <= 1 + 1e-4, f"{phase}: posteriors malformed")
-        check(list(launches.values()) == [2, 2],
-              f"{phase}: kernel launches {launches}, expected 2 + 2")
-        check(all(v == 0 for v in qa["isi_invariant_violations"]),
-              f"{phase}: ISI invariant violated")
-        check(all(np.median(cf) > 0.9 for cf in conf),
-              f"{phase}: median confidence below 0.9")
-        return launches
-
     post_launches = posterior_path(
         "posterior_path", decoded_n2,
-        (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd))
+        (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd), card)
     tm_nov = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
                                   allow_overlaps=False)
     dec_nov = api.fit_spiking_model_fast(tm_nov, y, L=L)
     nov_launches = posterior_path(
         "posterior_path_nov", dec_nov,
-        (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb))
+        (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb), card)
 
     mc = mc_phases(dev, card)
+    mcp = mc_posterior_phases(dev, card, mc["config6"])
+    cli_path(dev, card, (tm, y, decoded_n2, temps), mc["config6"])
 
     def gamma_entry(name, source, line, launches, row):
         """One kernel's entry of the kernels line from its row."""
@@ -1590,6 +1903,12 @@ def main():
                     dict(mc["em"]["backward"], **dict(zip(
                         ("bound_ms", "bound_by"),
                         bound_of(mc["em"]["backward"]))))),
+        gamma_entry("gamma_fwd_mb_mc", "gamma_mc_fwd.cu",
+                    "pallas_gamma_mb.py:649",
+                    mcp["launches"]["gamma_fwd_mb_mc"], mcp["rows"]["fwd"]),
+        gamma_entry("gamma_bwd_mb_mc", "gamma_mc_bwd.cu",
+                    "pallas_gamma_mb.py:719",
+                    mcp["launches"]["gamma_bwd_mb_mc"], mcp["rows"]["gamma"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

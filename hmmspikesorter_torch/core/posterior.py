@@ -1,6 +1,6 @@
 """State posteriors and per-spike confidence from forward-backward
-(counterpart of the JAX package's core/posterior.py, single-channel and
-stationary).
+(counterpart of the JAX package's core/posterior.py, stationary models,
+single- and multi-channel).
 
 The reference computes alpha/beta only inside EM (src/baumwelch.jl:25-98)
 and exposes no posterior; spike-sorting practice wants a per-spike score of
@@ -21,18 +21,22 @@ how much posterior mass backs each decoded onset. This module provides
     overlap space runs kernels 9-10 (ops/gamma_ov2.py) and the non-overlap
     space kernels 7-8 (ops/gamma_mb.py); everything else runs the plain
     block engines below, where the JAX package runs XLA;
+  * ``onset_posteriors_mc``, ``onset_posteriors_windowed_mc``,
+    ``onset_posteriors_chained_mc`` — the same three for a multi-channel
+    (T, C) model (models/multichannel.py) over the factorised channel
+    streams (core/emission_mc.py), computed per block or window batch. On
+    a CUDA device in float32 the chained pass of a non-overlap model runs
+    kernels 14-15 (ops/gamma_mb.onset_gammas_cuda_mc);
   * ``model_posteriors``, ``confidence_from_posteriors``,
     ``spike_confidence`` — what the CLI's --confidence and --qc consume.
 
 The block engines are batched over windows: a carry is (B, S), a block of
-inputs (B, n), and the rows (B, n, S), in core/state_space's flat state
-order. Forward/backward semantics are the reference's (emission-only
+inputs (B, n) — for the multi-channel engines the stream pair (es (B, n),
+d (B, n, N, K-1)) — and the rows (B, n, S), in core/state_space's flat
+state order. Forward/backward semantics are the reference's (emission-only
 forward init — the dead-pi quirk, baumwelch.jl:31-36 — and beta[T-1] = 0).
 
-Multi-channel models decode (models/multichannel.py), but their
-posteriors (the `*_mc` engines with kernels for the JAX
-`_gamma_chained_impl_mc`) are the next slice of the port, and drift-tracked
-models need §1 step 11: both raise NotImplementedError in
+Drift-tracked models need §1 step 11 and raise NotImplementedError in
 `model_posteriors`.
 """
 
@@ -123,6 +127,14 @@ def _ring_consts(mu, sigma, lp, dtype):
     return mu, lp, lpz, econst, inv_2s2
 
 
+def _step_input(inps, t):
+    """Step t of a block's inputs: a (B, n, ...) tensor, or a tuple of
+    them (the multi-channel engines' (es, d) streams)."""
+    if isinstance(inps, tuple):
+        return tuple(x[:, t] for x in inps)
+    return inps[:, t]
+
+
 def _scan(fstep, bstep, first_fn, carry, inps, *, first, reverse, valid,
           rows):
     """The shared time loop of the block engines.
@@ -135,24 +147,24 @@ def _scan(fstep, bstep, first_fn, carry, inps, *, first, reverse, valid,
     row) — the chained pass places beta[T-1] = 0 exactly at the true
     signal end inside a zero-padded tail window so. Returns (carry_out,
     rows (B, n, S) or None)."""
-    n = inps.shape[1]
+    n = (inps[0] if isinstance(inps, tuple) else inps).shape[1]
     out = []
     if not reverse:
         c = carry
         t0 = 0
         if first:
-            c = first_fn(inps[:, 0])
+            c = first_fn(_step_input(inps, 0))
             t0 = 1
             if rows:
                 out.append(c)
         for t in range(t0, n):
-            c = fstep(c, inps[:, t])
+            c = fstep(c, _step_input(inps, t))
             if rows:
                 out.append(c)
     else:
         c = carry
         for t in range(n - 1, -1, -1):
-            new = bstep(c, inps[:, t])
+            new = bstep(c, _step_input(inps, t))
             if valid is not None:
                 new = torch.where(valid[:, t, None], new, c)
             c = new
@@ -166,49 +178,69 @@ def _scan(fstep, bstep, first_fn, carry, inps, *, first, reverse, valid,
     return c, torch.stack(out, dim=1)
 
 
+def _nov_fb_scan(carry, inps, em, w, N, Km1, *, first, reverse, valid,
+                 rows):
+    """Non-overlap log-plus block scan, generic over the emission model
+    `em(inp_t) -> (es (B,), eb (B, N, K-1))`: ops/ring_fb's structural steps
+    (the one home of the transition structure)."""
+    from ..ops.ring_fb import _bwd_step, _flat, _fwd_step, _unflat
+
+    def fstep(c, inp):
+        vs, vb = _unflat(c, N, Km1)
+        es, eb = em(inp)
+        return _flat(*_fwd_step(vs, vb, es, eb, w))
+
+    def bstep(c, inp):
+        bs, bb = _unflat(c, N, Km1)
+        es, eb = em(inp)
+        return _flat(*_bwd_step(bs, bb, es, eb, w))
+
+    return _scan(fstep, bstep, lambda inp: _flat(*em(inp)), carry, inps,
+                 first=first, reverse=reverse, valid=valid, rows=rows)
+
+
 def _nov_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
                   reverse: bool, valid=None, rows: bool = True):
-    """Single-channel non-overlap block: ops/ring_fb's structural steps (the
-    one home of the transition structure) on raw samples."""
-    from ..ops.ring_fb import _bwd_step, _emission_fns, _flat, _fwd_step, \
-        _unflat, _weights
+    """Single-channel non-overlap block (raw-sample emission)."""
+    from ..ops.ring_fb import _emission_fns, _weights
 
     dtype = mu.dtype
     K, N = mu.shape
-    Km1 = K - 1
     lp = torch.as_tensor(lp, device=mu.device).to(dtype)
-    w = _weights(lp, dtype)
     emf = _emission_fns(mu, sigma)
 
     def em(y_t):
         es, eb = emf(y_t[:, None, None])
         return es[:, 0, 0], eb
 
-    def fstep(c, y_t):
-        vs, vb = _unflat(c, N, Km1)
-        es, eb = em(y_t)
-        return _flat(*_fwd_step(vs, vb, es, eb, w))
+    return _nov_fb_scan(carry, y_blk.to(dtype), em, _weights(lp, dtype), N,
+                        K - 1, first=first, reverse=reverse, valid=valid,
+                        rows=rows)
 
-    def bstep(c, y_t):
-        bs, bb = _unflat(c, N, Km1)
-        es, eb = em(y_t)
-        return _flat(*_bwd_step(bs, bb, es, eb, w))
 
-    return _scan(fstep, bstep, lambda y0: _flat(*em(y0)), carry,
-                 y_blk.to(dtype), first=first, reverse=reverse, valid=valid,
-                 rows=rows)
+def _nov_fb_block_mc(carry, es_blk, d_blk, lp, c1, *, first: bool,
+                     reverse: bool, valid=None, rows: bool = True):
+    """Multi-channel non-overlap block over the factorised stream slices
+    (es (B, n), d (B, n, N, K-1)) of core/emission_mc.mc_streams:
+    eb = (es + d) - c1 (the ring_viterbi_mc association)."""
+    from ..ops.ring_fb import _weights
+    from ..ops.ring_viterbi_mc import mc_em_nov
+
+    dtype = es_blk.dtype
+    N, Km1 = d_blk.shape[2], d_blk.shape[3]
+    lp = torch.as_tensor(lp, device=es_blk.device).to(dtype)
+    em_sd = mc_em_nov(c1)
+    return _nov_fb_scan(carry, (es_blk, d_blk), lambda inp: em_sd(*inp),
+                        _weights(lp, dtype), N, Km1, first=first,
+                        reverse=reverse, valid=valid, rows=rows)
 
 
 def _ov2_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
                   reverse: bool, valid=None, rows: bool = True):
-    """Single-channel N=2 pairwise-overlap block. The forward's structural
-    cases mirror ops/ring_viterbi.ring_viterbi_ov2 with logsumexp in place
-    of max; the backward is their exact edge transposition. Flat order
-    [silent | single 0 | single 1 | pair grid k1-major]."""
+    """Single-channel N=2 pairwise-overlap block (raw-sample emission)."""
     dtype = mu.dtype
     Km1 = mu.shape[0] - 1
     mu, lp, lpz, econst, inv_2s2 = _ring_consts(mu, sigma, lp, dtype)
-    lp0, lp1 = lp[0], lp[1]
     silent_mean = mu[0, 0] + mu[0, 1]
     b0_mean = mu[1:, 0] + mu[0, 1]
     b1_mean = mu[1:, 1] + mu[0, 0]
@@ -221,6 +253,41 @@ def _ov2_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
     def em(y_t):
         return (g(y_t, silent_mean), g(y_t[:, None], b0_mean),
                 g(y_t[:, None], b1_mean), g(y_t[:, None, None], pair_mean))
+
+    return _ov2_fb_scan(carry, y_blk.to(dtype), em, lp, lpz, Km1,
+                        first=first, reverse=reverse, valid=valid, rows=rows)
+
+
+def _ov2_fb_block_mc(carry, es_blk, d_blk, lp, c1, x2, *, first: bool,
+                     reverse: bool, valid=None, rows: bool = True):
+    """Multi-channel N=2 overlap block from the factorised streams: the
+    emission of the ov2 MC Viterbi engine in its cross form,
+    e_n = (es + d_n) - c1[n] and ep = ((e_0 + e_1) - es) + x2."""
+    dtype = es_blk.dtype
+    Km1 = d_blk.shape[3]
+    lp = torch.as_tensor(lp, device=es_blk.device).to(dtype)
+    lpz = torch.log1p(-torch.exp(torch.sum(lp)))
+
+    def em(inp):
+        es_t, d_t = inp
+        e = es_t[:, None]
+        e0 = (e + d_t[:, 0]) - c1[0]
+        e1 = (e + d_t[:, 1]) - c1[1]
+        ep = ((e0[:, :, None] + e1[:, None, :]) - e[:, :, None]) + x2
+        return es_t, e0, e1, ep
+
+    return _ov2_fb_scan(carry, (es_blk, d_blk), em, lp, lpz, Km1,
+                        first=first, reverse=reverse, valid=valid, rows=rows)
+
+
+def _ov2_fb_scan(carry, inps, em, lp, lpz, Km1, *, first, reverse, valid,
+                 rows):
+    """N=2 pairwise-overlap log-plus block scan, generic over the emission
+    model `em(inp_t) -> (es, e0, e1, ep)`. The forward's structural cases
+    mirror ops/ring_viterbi.ring_viterbi_ov2 with logsumexp in place of
+    max; the backward is their exact edge transposition. Flat order
+    [silent | single 0 | single 1 | pair grid k1-major]."""
+    lp0, lp1 = lp[0], lp[1]
 
     def unflat(f):
         B = f.shape[0]
@@ -283,27 +350,52 @@ def _ov2_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
             dim=1)
         return flat(new_bs, new_b0, new_b1, new_bp)
 
-    return _scan(fstep, bstep, lambda y0: flat(*em(y0)), carry,
-                 y_blk.to(dtype), first=first, reverse=reverse, valid=valid,
-                 rows=rows)
+    return _scan(fstep, bstep, lambda inp: flat(*em(inp)), carry, inps,
+                 first=first, reverse=reverse, valid=valid, rows=rows)
 
 
 def _ovn_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
                   reverse: bool, valid=None, rows: bool = True):
-    """Single-channel any-N pairwise-overlap block. The forward mirrors
-    ops/ring_viterbi_ovn.maxplus_step's candidate assembly with logsumexp
-    in place of first-max; the backward is its exact edge transposition.
-    Cross-pair reads are index selections on ops/ring_viterbi_ovn's tables
-    (the JAX engine's one-hot products pinned to full precision select the
-    same values). Flat order [silent | singles n-major | pair grids i-major,
-    k1-major]."""
-    from ..ops.ring_viterbi_ovn import _pairs, ovn_tables, sc_em_ovn
+    """Single-channel any-N pairwise-overlap block (raw-sample emission)."""
+    from ..ops.ring_viterbi_ovn import sc_em_ovn
 
     dtype = mu.dtype
-    dev = mu.device
     K, N = mu.shape
-    Km1 = K - 1
-    lp = torch.as_tensor(lp, device=dev).to(dtype)
+    lp = torch.as_tensor(lp, device=mu.device).to(dtype)
+    return _ovn_fb_scan(carry, y_blk.to(dtype), sc_em_ovn(mu, sigma), lp, N,
+                        K - 1, first=first, reverse=reverse, valid=valid,
+                        rows=rows)
+
+
+def _ovn_fb_block_mc(carry, es_blk, d_blk, lp, c1, c2, *, first: bool,
+                     reverse: bool, valid=None, rows: bool = True):
+    """Multi-channel any-N overlap block from the factorised streams:
+    eb = (es + d) - c1, ep[q] = ((es + d_i) + d_j) - c2[q] (the direct-form
+    pair tables, pairs i-major: the ovn MC association)."""
+    from ..ops.ring_viterbi_ovn import mc_em_ovn
+
+    N, Km1 = d_blk.shape[2], d_blk.shape[3]
+    lp = torch.as_tensor(lp, device=es_blk.device).to(es_blk.dtype)
+    em_sd = mc_em_ovn(c1, c2)
+    return _ovn_fb_scan(carry, (es_blk, d_blk), lambda inp: em_sd(*inp), lp,
+                        N, Km1, first=first, reverse=reverse, valid=valid,
+                        rows=rows)
+
+
+def _ovn_fb_scan(carry, inps, em, lp, N, Km1, *, first, reverse, valid,
+                 rows):
+    """Any-N pairwise-overlap log-plus block scan, generic over the emission
+    model `em(inp_t) -> (es, eb (B, N, K-1), ep (B, P, K-1, K-1))`. The
+    forward mirrors ops/ring_viterbi_ovn.maxplus_step's candidate assembly
+    with logsumexp in place of first-max; the backward is its exact edge
+    transposition. Cross-pair reads are index selections on
+    ops/ring_viterbi_ovn's tables (the JAX engine's one-hot products pinned
+    to full precision select the same values). Flat order [silent | singles
+    n-major | pair grids i-major, k1-major]."""
+    from ..ops.ring_viterbi_ovn import _pairs, ovn_tables
+
+    dtype = lp.dtype
+    dev = lp.device
     lpz = torch.log1p(-torch.exp(torch.sum(lp)))
     tab = ovn_tables(N, Km1, dtype=dtype, device=dev)
     P = tab.P
@@ -317,7 +409,6 @@ def _ovn_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
                          device=dev).reshape(P, nO)
     lp_m = lp[m_idx]                                         # (P, nO)
     c = {m: m * lpz for m in range(N, N - 5, -1)}            # m * lpz
-    em = sc_em_ovn(mu, sigma)
     lse = logsumexp_rows
 
     def unflat(f):
@@ -437,9 +528,8 @@ def _ovn_fb_block(carry, y_blk, lp, mu, sigma, *, first: bool,
             dim=3)
         return flat(new_bs, new_bb, new_bp)
 
-    return _scan(fstep, bstep, lambda y0: flat(*em(y0)), carry,
-                 y_blk.to(dtype), first=first, reverse=reverse, valid=valid,
-                 rows=rows)
+    return _scan(fstep, bstep, lambda inp: flat(*em(inp)), carry, inps,
+                 first=first, reverse=reverse, valid=valid, rows=rows)
 
 
 def _sc_engine_name(templates) -> str:
@@ -451,12 +541,32 @@ def _sc_engine_name(templates) -> str:
 
 
 _SC_FB = {"nov": _nov_fb_block, "ov2": _ov2_fb_block, "ovn": _ovn_fb_block}
+_MC_FB = {"nov": _nov_fb_block_mc, "ov2": _ov2_fb_block_mc,
+          "ovn": _ovn_fb_block_mc}
 
 
 def _ring_fb_block_fn(templates):
     """Structural log-plus block engine of the topology (the gather engine
     remains the universal oracle)."""
     return _SC_FB[_sc_engine_name(templates)]
+
+
+def _ring_fb_block_fn_mc(templates):
+    """The multi-channel block engine of the topology."""
+    return _MC_FB[_sc_engine_name(templates)]
+
+
+def _mc_extra_tables(engine: str, tables, dtype, device):
+    """The MC engine's static energy tables after (lp,): (c1,) for nov,
+    (c1, x2) for ov2, (c1, c2 stacked pairs i-major) for ovn."""
+    from ..ops.ring_viterbi_mc import c2_stack
+
+    c1 = as_float(tables.c1, dtype, device)
+    if engine == "nov":
+        return (c1,)
+    if engine == "ov2":
+        return (c1, as_float(tables.x2[(0, 1)], dtype, device))
+    return (c1, as_float(c2_stack(tables), dtype, device))
 
 
 # --------------------------------------------------------------------------
@@ -526,10 +636,8 @@ def onset_posteriors(templates, y, *, block: int = 8192, proj=None,
     y = np.asarray(y)
     if y.ndim != 1:
         raise ValueError(
-            "onset_posteriors takes a (T,) trace; the posteriors of a "
-            "multi-channel (T, C) recording (onset_posteriors_chained_mc) "
-            "are the next slice of the port, after the MC decode and "
-            "training (ROADMAP §1 step 10)")
+            "onset_posteriors takes a (T,) trace; for multi-channel (T, C) "
+            "recordings use onset_posteriors_mc")
     ss = templates.state_space
     if proj is None:
         proj = onset_projection(ss.states)
@@ -573,6 +681,40 @@ def onset_posteriors(templates, y, *, block: int = 8192, proj=None,
     return _two_pass(run_gather, T, S, block, proj, dt, dev)
 
 
+def onset_posteriors_mc(templates, yc, *, block: int = 8192, proj=None,
+                        device=None, dtype=None) -> np.ndarray:
+    """Multi-channel onset marginals: the (T, N) posterior that neuron n
+    onsets at t under the joint (T, C) model (models/multichannel
+    HMMTemplateModelMC), on `device` in `dtype`. The two-pass of
+    onset_posteriors over the factorised channel streams; the streams are
+    pointwise in t, so each pass computes its block's streams from the yc
+    slice and nothing (T, N, K-1)-shaped stays live."""
+    from .emission_mc import MCTables, mc_streams
+
+    dev, dt = _resolve(device, dtype)
+    yc = np.asarray(yc)
+    if yc.ndim != 2:
+        raise ValueError("onset_posteriors_mc takes a (T, C) recording")
+    ss = templates.state_space
+    if proj is None:
+        proj = onset_projection(ss.states)
+    proj = as_float(proj, dt, dev)
+    T = yc.shape[0]
+    block = max(2, min(block, T))
+    tables = MCTables(templates.mu, templates.sigmas)
+    yc_d = as_float(yc, dt, dev)
+    lp_d = as_float(templates.lp, dt, dev)
+    fbfn = _ring_fb_block_fn_mc(templates)
+    extra = _mc_extra_tables(_sc_engine_name(templates), tables, dt, dev)
+
+    def run(carry, lo, hi, first, reverse, rows):
+        es, d = mc_streams(yc_d[lo:hi], tables, dtype=dt)
+        return fbfn(carry, es[None], d[None], lp_d, *extra, first=first,
+                    reverse=reverse, rows=rows)
+
+    return _two_pass(run, T, ss.nstates, block, proj, dt, dev)
+
+
 # --------------------------------------------------------------------------
 # windowed (halo) approximation
 # --------------------------------------------------------------------------
@@ -590,17 +732,18 @@ def _check_window_f32(W, dtype):
             "L/H, use float64, or use the exact onset_posteriors path")
 
 
-def _windowed_gamma_sc(y_win, lp, mu, sigma, proj, *, engine: str):
+def _windowed_gamma(fb, ins, args, proj):
     """Per-window forward-backward and per-t normalised projected gamma,
-    batched over halo windows (B, W) -> (B, W, M). Each window cold-starts
-    (emission-only alpha at its first sample, beta = 0 at its last) — exact
-    at the true signal edges, forgetting-limited elsewhere."""
-    fb = _SC_FB[engine]
-    B = y_win.shape[0]
+    batched over halo windows: `fb` a block engine, `ins` its (B, W, ...)
+    window inputs (the samples, or the MC stream pair), `args` its model
+    arguments -> (B, W, M). Each window cold-starts (emission-only alpha at
+    its first sample, beta = 0 at its last) — exact at the true signal
+    edges, forgetting-limited elsewhere."""
+    B = ins[0].shape[0]
     S = proj.shape[0]
-    zeros = torch.zeros((B, S), dtype=mu.dtype, device=mu.device)
-    _, a_all = fb(zeros, y_win, lp, mu, sigma, first=True, reverse=False)
-    _, b_rest = fb(zeros, y_win[:, 1:], lp, mu, sigma, first=False,
+    zeros = torch.zeros((B, S), dtype=proj.dtype, device=proj.device)
+    _, a_all = fb(zeros, *ins, *args, first=True, reverse=False)
+    _, b_rest = fb(zeros, *(x[:, 1:] for x in ins), *args, first=False,
                    reverse=True)
     g = a_all + torch.cat([b_rest, zeros[:, None, :]], dim=1)
     g = g - logsumexp_rows(g, axis=2)[:, :, None]
@@ -617,10 +760,11 @@ def _window_starts(T, L, H, B, W):
     return [b * L - H + shifts.get(b, 0) for b in range(B)]
 
 
-def _windowed_sc_run(y_d, *, T, L, H, B, W, proj_d, batch_windows, lp, mu,
-                     sigma, engine) -> np.ndarray:
-    """Window-batch loop of the windowed posteriors: build the halo windows,
-    run _windowed_gamma_sc per batch, copy each window's core rows out."""
+def _windowed_run(y_d, gamma_of, *, T, L, H, B, W, proj_d,
+                  batch_windows) -> np.ndarray:
+    """Window-batch loop of the windowed posteriors: build the halo windows
+    of y_d (T, ...) (each trailing channel alike), run `gamma_of(windows)
+    -> (nw, W, M)` per batch, copy each window's core rows out."""
     from ..parallel.overlap_save import _build_windows
 
     y_win, _ = _build_windows(y_d, T=T, L=L, H=H, B=B, W=W)
@@ -633,8 +777,7 @@ def _windowed_sc_run(y_d, *, T, L, H, B, W, proj_d, batch_windows, lp, mu,
     out = np.empty((T, M), np.float64)
     for i in range(0, B, batch_windows):
         nw = min(batch_windows, B - i)
-        gb = _windowed_gamma_sc(y_win[i:i + nw], lp, mu, sigma, proj_d,
-                                engine=engine).cpu().numpy()
+        gb = gamma_of(y_win[i:i + nw]).cpu().numpy()
         for k in range(nw):
             b = i + k
             s0 = b * L
@@ -671,12 +814,52 @@ def onset_posteriors_windowed(templates, y, *, L: int = 4096,
     _check_window_f32(W, dt)
     if proj is None:
         proj = onset_projection(ss.states)
-    return _windowed_sc_run(
-        as_float(y, dt, dev), T=T, L=L, H=H, B=B, W=W,
-        proj_d=as_float(proj, dt, dev), batch_windows=batch_windows,
-        lp=as_float(templates.lp, dt, dev), mu=as_float(templates.mu, dt, dev),
-        sigma=as_float(templates.sigma, dt, dev),
-        engine=_sc_engine_name(templates))
+    proj_d = as_float(proj, dt, dev)
+    fb = _ring_fb_block_fn(templates)
+    args = tuple(as_float(v, dt, dev) for v in
+                 (templates.lp, templates.mu, templates.sigma))
+    return _windowed_run(
+        as_float(y, dt, dev),
+        lambda yw: _windowed_gamma(fb, (yw,), args, proj_d),
+        T=T, L=L, H=H, B=B, W=W, proj_d=proj_d, batch_windows=batch_windows)
+
+
+def onset_posteriors_windowed_mc(templates, yc, *, L: int = 4096,
+                                 H: int | None = None, proj=None,
+                                 batch_windows: int | None = None,
+                                 device=None, dtype=None) -> np.ndarray:
+    """Multi-channel mirror of onset_posteriors_windowed: the joint (T, C)
+    recording's halo windows (every channel windowed alike), each batch's
+    factorised streams computed from its raw windows (windowing commutes
+    with the pointwise channel projection)."""
+    from .emission_mc import MCTables, mc_streams
+
+    dev, dt = _resolve(device, dtype)
+    yc = np.asarray(yc)
+    if yc.ndim != 2:
+        raise ValueError("onset_posteriors_windowed_mc takes (T, C)")
+    ss = templates.state_space
+    if H is None:
+        H = max(4 * templates.K, 64)
+    T = yc.shape[0]
+    W = L + 2 * H
+    B = -(-T // L)
+    if H < 1 or L < 2 * H or B < 2 or T < W:
+        return onset_posteriors_mc(templates, yc, proj=proj, device=dev,
+                                   dtype=dt)
+    _check_window_f32(W, dt)
+    if proj is None:
+        proj = onset_projection(ss.states)
+    proj_d = as_float(proj, dt, dev)
+    tables = MCTables(templates.mu, templates.sigmas)
+    fb = _ring_fb_block_fn_mc(templates)
+    args = (as_float(templates.lp, dt, dev),
+            *_mc_extra_tables(_sc_engine_name(templates), tables, dt, dev))
+    return _windowed_run(
+        as_float(yc, dt, dev),
+        lambda yw: _windowed_gamma(fb, mc_streams(yw, tables, dtype=dt),
+                                   args, proj_d),
+        T=T, L=L, H=H, B=B, W=W, proj_d=proj_d, batch_windows=batch_windows)
 
 
 # --------------------------------------------------------------------------
@@ -698,33 +881,99 @@ def onset_posteriors_windowed(templates, y, *, L: int = 4096,
 # --------------------------------------------------------------------------
 
 
-def _chained_fwd_sweep(y_win, entries, lp, mu, sg, *, engine, first):
-    """Terminal alpha of each (B, L) window given entry alphas (ignored when
-    first=True: cold emission init). O(S) memory per window."""
-    c, _ = _SC_FB[engine](entries, y_win, lp, mu, sg, first=first,
-                          reverse=False, rows=False)
+def _chained_fwd_sweep(fb, ins, entries, args, *, first):
+    """Terminal alpha of each window of the block engine `fb` on the window
+    inputs `ins` given entry alphas (ignored when first=True: cold emission
+    init). O(S) memory per window."""
+    c, _ = fb(entries, *ins, *args, first=first, reverse=False, rows=False)
     return c
 
 
-def _chained_bwd_sweep(y_next_win, valid, exits, lp, mu, sg, *, engine):
+def _chained_bwd_sweep(fb, ins_next, valid, exits, args):
     """First-position beta of each window given exit betas (inputs are the
-    NEXT-step samples; invalid pad steps pass the carry through)."""
-    c, _ = _SC_FB[engine](exits, y_next_win, lp, mu, sg, first=False,
-                          reverse=True, valid=valid, rows=False)
+    NEXT-step ones; invalid pad steps pass the carry through)."""
+    c, _ = fb(exits, *ins_next, *args, first=False, reverse=True,
+              valid=valid, rows=False)
     return c
 
 
-def _chained_gamma_batch(y_win, y_next_win, valid, entries, exits, lp, mu,
-                         sg, proj, *, engine, first):
+def _chained_gamma_batch(fb, ins, ins_next, valid, entries, exits, args,
+                         proj, *, first):
     """Per-window alpha (from entry) and beta (from exit) rows, per-t
     renormalised and projected: the final pass of the chained two-pass."""
-    fb = _SC_FB[engine]
-    _, a_all = fb(entries, y_win, lp, mu, sg, first=first, reverse=False)
-    _, b_all = fb(exits, y_next_win, lp, mu, sg, first=False, reverse=True,
+    _, a_all = fb(entries, *ins, *args, first=first, reverse=False)
+    _, b_all = fb(exits, *ins_next, *args, first=False, reverse=True,
                   valid=valid)
     g = a_all + b_all
     g = g - logsumexp_rows(g, axis=2)[:, :, None]
     return torch.exp(g) @ proj
+
+
+def _chained_run(windows, fb, args, *, T, L, B, proj_d, refine,
+                 batch_windows, sweep_windows) -> np.ndarray:
+    """The chained two-pass over the block engine `fb` (model arguments
+    `args`): `windows(lo, hi) -> (ins, ins_next)` gives the inputs of
+    windows [lo, hi) and their next-step inputs. The sweeps take
+    `sweep_windows` windows at a time (they keep O(S) per window), the
+    final gamma pass `batch_windows`."""
+    dt, dev = proj_d.dtype, proj_d.device
+    S, M = proj_d.shape
+    valid = (torch.arange(B * L, device=dev) < T - 1).reshape(B, L)
+    zeros = torch.zeros((B, S), dtype=dt, device=dev)
+
+    def spans(lo, hi):
+        return [(i, min(i + sweep_windows, hi))
+                for i in range(lo, hi, sweep_windows)]
+
+    def fwd(lo, hi, entries, first):
+        return torch.cat([
+            _chained_fwd_sweep(fb, windows(i, j)[0], entries[i - lo:j - lo],
+                               args, first=first) for i, j in spans(lo, hi)])
+
+    def fwd_sweep(entries):
+        """entries=None: all cold. Else window 0 cold (the exact reference
+        init), the rest chained."""
+        if entries is None:
+            return fwd(0, B, zeros, True)
+        return torch.cat([fwd(0, 1, zeros[:1], True),
+                          fwd(1, B, entries[1:], False)])
+
+    def bwd_sweep(exits):
+        return torch.cat([
+            _chained_bwd_sweep(fb, windows(i, j)[1], valid[i:j], exits[i:j],
+                               args) for i, j in spans(0, B)])
+
+    # forward chaining: cold sweep, then entry := predecessor's terminal
+    entries = _shift_down(_recenter(fwd_sweep(None)))
+    for _ in range(max(0, refine - 1)):
+        entries = _shift_down(_recenter(fwd_sweep(entries)))
+
+    # backward chaining: cold sweep (the last window's 0 exit is exact),
+    # then exit := successor's first-position beta
+    exits = _shift_up(_recenter(bwd_sweep(zeros)))
+    for _ in range(max(0, refine - 1)):
+        exits = _shift_up(_recenter(bwd_sweep(exits)))
+
+    def gamma(lo, hi, first):
+        ins, ins_next = windows(lo, hi)
+        return _chained_gamma_batch(
+            fb, ins, ins_next, valid[lo:hi], (zeros if first else entries)
+            [lo:hi], exits[lo:hi], args, proj_d, first=first).cpu().numpy()
+
+    # final gamma pass: window 0 cold, the rest from their chained entries,
+    # in bounded-memory batches
+    out = np.empty((T, M), np.float64)
+    out[: min(L, T)] = gamma(0, 1, True)[0, : min(L, T)]
+    if batch_windows is None:
+        batch_windows = max(1, int(2e9 // (2 * L * S * 4)))
+    batch_windows = max(1, min(batch_windows, B - 1))
+    for i in range(1, B, batch_windows):
+        gb = gamma(i, min(i + batch_windows, B), False)
+        for k in range(gb.shape[0]):
+            s0 = (i + k) * L
+            e0 = min(s0 + L, T)
+            out[s0:e0] = gb[k, : e0 - s0]
+    return out
 
 
 def _recenter(v):
@@ -813,69 +1062,89 @@ def onset_posteriors_chained(templates, y, *, L: int = 4096,
                                          refine=refine, device=dev)
     if proj is None:
         proj = onset_projection(ss.states)
-    proj_d = as_float(proj, dt, dev)
-    S, M = proj_d.shape
-    engine = _sc_engine_name(templates)
-    lp_d = as_float(templates.lp, dt, dev)
-    mu_d = as_float(templates.mu, dt, dev)
-    sg_d = as_float(templates.sigma, dt, dev)
-
     y_pad = torch.zeros(B * L + 1, dtype=dt, device=dev)
     y_pad[:T] = as_float(y, dt, dev)
     y_win = y_pad[: B * L].reshape(B, L)
-    y_next = y_pad[1: B * L + 1].reshape(B, L)
-    tpos = torch.arange(B * L, device=dev).reshape(B, L)
-    valid = tpos < T - 1                     # beta step t uses em at t+1
-    zeros = torch.zeros((B, S), dtype=dt, device=dev)
-    args = (lp_d, mu_d, sg_d)
+    y_next = y_pad[1: B * L + 1].reshape(B, L)   # beta step t: em at t+1
+    return _chained_run(
+        lambda lo, hi: ((y_win[lo:hi],), (y_next[lo:hi],)),
+        _ring_fb_block_fn(templates),
+        tuple(as_float(v, dt, dev) for v in
+              (templates.lp, templates.mu, templates.sigma)),
+        T=T, L=L, B=B, proj_d=as_float(proj, dt, dev), refine=refine,
+        batch_windows=batch_windows, sweep_windows=B)
 
-    def fwd_sweep(entries):
-        """entries=None: all cold. Else window 0 cold (the exact reference
-        init), the rest chained."""
-        f0 = _chained_fwd_sweep(y_win[:1], zeros[:1], *args, engine=engine,
-                                first=True)
-        if entries is None:
-            fr = _chained_fwd_sweep(y_win[1:], zeros[1:], *args,
-                                    engine=engine, first=True)
-        else:
-            fr = _chained_fwd_sweep(y_win[1:], entries[1:], *args,
-                                    engine=engine, first=False)
-        return torch.cat([f0, fr])
 
-    # forward chaining: cold sweep, then entry := predecessor's terminal
-    entries = _shift_down(_recenter(fwd_sweep(None)))
-    for _ in range(max(0, refine - 1)):
-        entries = _shift_down(_recenter(fwd_sweep(entries)))
+def _cuda_gamma_mc_ok(templates, L, T) -> bool:
+    """Kernels 14-15 take this multi-channel model: the non-overlap topology
+    (N < 2 overlap spaces included), one thread per state within one CTA
+    (gamma_kernel_ok) inside the JAX front-end's N <= 8, K-1 <= 64, L a
+    multiple of the checkpoint chunk, and the checkpoints and the (B·L+1, S)
+    emission stream within the card's budget (ops/gamma_mb.py's gates)."""
+    from ..ops import gamma_mb
 
-    # backward chaining: cold sweep (the last window's 0 exit is exact),
-    # then exit := successor's first-position beta
-    exits = _shift_up(_recenter(_chained_bwd_sweep(y_next, valid, zeros,
-                                                   *args, engine=engine)))
-    for _ in range(max(0, refine - 1)):
-        exits = _shift_up(_recenter(_chained_bwd_sweep(y_next, valid, exits,
-                                                       *args,
-                                                       engine=engine)))
+    N, K = templates.n_neurons, templates.K
+    return ((not templates.allow_overlaps or N < 2)
+            and gamma_mb.gamma_mc_kernel_ok(N, K)
+            and L % gamma_mb.gamma_chunk(N, K) == 0
+            and gamma_mb.gamma_mc_hbm_ok(T, N, K, templates.n_channels, L))
 
-    # final gamma pass: window 0 cold, the rest from their chained entries,
-    # in bounded-memory batches
-    out = np.empty((T, M), np.float64)
-    g0 = _chained_gamma_batch(y_win[:1], y_next[:1], valid[:1], zeros[:1],
-                              exits[:1], *args, proj_d, engine=engine,
-                              first=True).cpu().numpy()
-    out[: min(L, T)] = g0[0, : min(L, T)]
-    if batch_windows is None:
-        batch_windows = max(1, int(2e9 // (2 * L * S * 4)))
-    batch_windows = max(1, min(batch_windows, B - 1))
-    for i in range(1, B, batch_windows):
-        sl = slice(i, min(i + batch_windows, B))
-        gb = _chained_gamma_batch(y_win[sl], y_next[sl], valid[sl],
-                                  entries[sl], exits[sl], *args, proj_d,
-                                  engine=engine, first=False).cpu().numpy()
-        for k in range(gb.shape[0]):
-            s0 = (i + k) * L
-            e0 = min(s0 + L, T)
-            out[s0:e0] = gb[k, : e0 - s0]
-    return out
+
+def onset_posteriors_chained_mc(templates, yc, *, L: int = 4096,
+                                refine: int = 1, proj=None,
+                                batch_windows: int | None = None,
+                                device=None, dtype=None) -> np.ndarray:
+    """EXACT multi-channel (T, N) onset marginals with window parallelism:
+    the chained two-pass of onset_posteriors_chained over the factorised
+    channel streams, each batch's streams computed from its slice of the
+    raw (T, C) recording (windowing commutes with the channel collapse).
+
+    On a CUDA device in float32 with the onset projection, a non-overlap
+    model runs kernels 14-15 where their gates hold (decided from the
+    shapes before any launch); everything else runs the plain engines, as
+    the JAX package goes to XLA. The sweeps take as many windows at a time
+    as keep their streams within about 2 GB."""
+    from .emission_mc import MCTables, mc_streams
+
+    dev, dt = _resolve(device, dtype)
+    yc = np.asarray(yc)
+    if yc.ndim != 2:
+        raise ValueError("onset_posteriors_chained_mc takes (T, C)")
+    ss = templates.state_space
+    T, C = yc.shape
+    B = -(-T // L)
+    if B < 2:
+        return onset_posteriors_mc(templates, yc, proj=proj, device=dev,
+                                   dtype=dt)
+    _check_window_f32(L, dt)
+    if (proj is None and dev.type == "cuda" and dt == torch.float32
+            and _cuda_gamma_mc_ok(templates, L, T)):
+        from ..ops.gamma_mb import onset_gammas_cuda_mc
+
+        return onset_gammas_cuda_mc(yc, templates.lp, templates.mu,
+                                    templates.sigmas, L=L, refine=refine,
+                                    device=dev)
+    if proj is None:
+        proj = onset_projection(ss.states)
+    tables = MCTables(templates.mu, templates.sigmas)
+    N, Km1 = tables.N, tables.K - 1
+    yc_pad = torch.zeros((B * L + 1, C), dtype=dt, device=dev)
+    yc_pad[:T] = as_float(yc, dt, dev)
+
+    def windows(lo, hi):
+        es, d = mc_streams(yc_pad[lo * L: hi * L + 1], tables, dtype=dt)
+        nw = hi - lo
+        return ((es[:-1].reshape(nw, L), d[:-1].reshape(nw, L, N, Km1)),
+                (es[1:].reshape(nw, L), d[1:].reshape(nw, L, N, Km1)))
+
+    item = torch.finfo(dt).bits // 8
+    return _chained_run(
+        windows, _ring_fb_block_fn_mc(templates),
+        (as_float(templates.lp, dt, dev),
+         *_mc_extra_tables(_sc_engine_name(templates), tables, dt, dev)),
+        T=T, L=L, B=B, proj_d=as_float(proj, dt, dev), refine=refine,
+        batch_windows=batch_windows,
+        sweep_windows=max(1, int(2e9 // (L * (1 + N * Km1) * item))))
 
 
 # --------------------------------------------------------------------------
@@ -885,29 +1154,28 @@ def onset_posteriors_chained(templates, y, *, L: int = 4096,
 
 def model_posteriors(model, *, block: int = 8192, windowed: bool = False,
                      device=None, dtype=None) -> np.ndarray:
-    """(T, N) onset posteriors of a decoded single-channel model. EXACT at
-    any length: recordings of 8192 samples or more route to the chained
-    window-parallel two-pass (kernels 7-10 on the card), shorter ones to
-    the sequential exact path; `windowed=True` opts into the halo-window
-    approximation. spike_confidence and core/qc consume this.
+    """(T, N) onset posteriors of a decoded stationary model, single-channel
+    or multi-channel (a (T, C) signal takes the *_mc engines). EXACT at any
+    length: recordings of 8192 samples or more route to the chained
+    window-parallel two-pass (kernels 7-10 and 14-15 on the card), shorter
+    ones to the sequential exact path; `windowed=True` opts into the
+    halo-window approximation. spike_confidence and core/qc consume this.
 
-    Multi-channel (T, C) models (models/multichannel.py decodes them)
-    raise NotImplementedError until the MC posteriors are ported, the next
-    slice (ROADMAP §1 step 10); drift-decoded models (carrying `.track`)
-    need the drift-adaptive slice (§1 step 11)."""
+    Drift-decoded models (carrying `.track`) need the drift-adaptive slice
+    (ROADMAP §1 step 11) and raise NotImplementedError."""
     tm = model.template_model
     y = np.asarray(model.y)
     if getattr(model, "track", None) is not None:
         raise NotImplementedError(
             "posteriors of a drift-decoded model (it carries .track) need "
             "train/adaptive.py, ROADMAP §1 step 11 (drift-adaptive)")
-    if y.ndim != 1:
-        raise NotImplementedError(
-            "posteriors of a multi-channel (T, C) model "
-            "(onset_posteriors_chained_mc and the other *_mc engines) are "
-            "the next slice of the port; its MC decode and training are "
-            "ported (ROADMAP §1 step 10)")
     kw = dict(device=device, dtype=dtype)
+    if y.ndim == 2:
+        if windowed:
+            return onset_posteriors_windowed_mc(tm, y, **kw)
+        if y.shape[0] >= 8192:
+            return onset_posteriors_chained_mc(tm, y, **kw)
+        return onset_posteriors_mc(tm, y, block=block, **kw)
     if windowed:
         return onset_posteriors_windowed(tm, y, **kw)
     if y.shape[0] >= 8192:

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("viterbi_ov2_fwd", "viterbi_ov2_bt", "viterbi_ovn_fwd",
            "viterbi_ovn_bt", "em_fwd", "em_bwd", "gamma_fwd", "gamma_bwd",
            "gamma_ov2_fwd", "gamma_ov2_bwd", "viterbi_ovn_mc_fwd",
-           "em_mc_fwd", "em_mc_bwd")
+           "em_mc_fwd", "em_mc_bwd", "gamma_mc_fwd", "gamma_mc_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -99,6 +99,83 @@ def test_multichannel_slice_modules_are_covered(mod):
     test_posterior_slice_modules_are_covered(mod)
 
 
+@pytest.mark.parametrize("mod", ["cli", "utils.guards"])
+def test_cli_slice_modules_are_covered(mod):
+    """The CLI slice's modules are among the files the source scan reads
+    and import on their own with torch, numpy and scipy only."""
+    test_posterior_slice_modules_are_covered(mod)
+
+
+def test_cli_imports_h5py_only_in_a_loader(tmp_path):
+    """Importing hmmspikesorter_torch.cli loads no h5py (the GPU host has
+    none); a loader imports it when it runs."""
+    import h5py
+
+    path = tmp_path / "d.h5"
+    with h5py.File(path, "w") as f:
+        f["rh/data/analogData"] = np.arange(5.0)
+    code = ("import sys\n"
+            "from hmmspikesorter_torch import cli\n"
+            "before = 'h5py' in sys.modules\n"
+            f"y = cli.load_data_file({str(path)!r})\n"
+            "print(before, 'h5py' in sys.modules, y.tolist())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split("[")[0].split() == ["False", "True"]
+    assert "[0.0, 1.0, 2.0, 3.0, 4.0]" in out.stdout
+
+
+@pytest.mark.parametrize("y,sigma", [
+    (np.array([0.0, np.nan, 1.0]), 0.3),               # NaN sample
+    (np.array([0.0, np.inf]), 0.3),                    # inf sample
+    (np.array([[0.0, 1.0], [2.0, -np.inf]]), [0.3, 0.2]),
+    (np.array([1, 2, 3], np.int16), 0.3),              # int16 skips the scan
+    (np.zeros(0), 0.3),                                # empty signal
+    (np.zeros((2, 3, 4)), 0.3),                        # 3-D
+    (np.ones(4), 0.0),                                 # bad sigma
+    (np.ones(4), -1.0),
+    (np.ones(4), np.nan),
+    (np.ones((2, 4)), [0.3, np.inf]),                  # one bad channel
+    (np.ones((2, 4)), [0.3, 0.2]),                     # fine
+])
+def test_guard_inputs_copy_matches(y, sigma):
+    """utils/guards.guard_inputs is a numpy copy of the JAX function: the
+    same inputs pass, or raise the same ValueError."""
+    from hmmspikesorter_torch.utils.guards import guard_inputs as tg
+    from hmmspikesorter_tpu.utils.guards import guard_inputs as jg
+
+    outcomes = []
+    for fn in (jg, tg):
+        try:
+            fn(y, sigma)
+            outcomes.append(None)
+        except ValueError as e:
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
+
+
+def test_assert_finite_tree_matches_jax():
+    """assert_finite_tree over numpy and torch leaves: NaN raises naming
+    the leaf in the JAX order, -inf passes."""
+    from hmmspikesorter_torch.utils.guards import assert_finite_tree as tf
+    from hmmspikesorter_tpu.utils.guards import assert_finite_tree as jf
+
+    ok = {"a": np.array([0.0, -np.inf]), "b": [np.ones(2), np.arange(3)]}
+    jf(ok)
+    tf(ok)
+    tf({"a": torch.tensor([0.0, -np.inf]), "b": (torch.ones(2),)})
+    bad = {"b": [np.ones(2), np.array([np.nan])], "a": np.zeros(1)}
+    msgs = []
+    for fn in (jf, tf):
+        with pytest.raises(ValueError) as e:
+            fn(bad, name="state")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "leaf 2" in msgs[0]
+    with pytest.raises(ValueError, match="leaf 0"):
+        tf([torch.tensor([float("nan")])])
+
+
 def test_mc_tables_copy_matches():
     """core/emission_mc.MCTables is a numpy copy of the JAX class: every
     table equal."""

@@ -692,3 +692,104 @@ def test_train_model_mc_runs_mc_kernels(cuda):
             m = b > -50
             a, b = a[m], b[m]
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-4, err_msg=name)
+
+
+# --- multi-channel chained onset posteriors: kernels 14-15 (kernels 7-8
+# reading the flat emission stream)
+
+
+def _gamma_mc_inputs(N, K, C, L, T, seed, cuda):
+    """(e (B*L+1, S), term, lastw, chained, entry, exits, c, ch, yc, mu,
+    sigmas, lp): the stream of a ragged-tail (T, C) recording with random
+    recentred entry and exit states."""
+    from hmmspikesorter_torch.train import em_mc as tmc
+
+    mu, sigmas, lp = _mc_model(N, K, C, seed)
+    rng = np.random.default_rng(seed)
+    yc = sigmas * rng.standard_normal((T, C))
+    _, truth = create_signal_fast(T, 0.0, np.exp(lp) * 0.5, mu[:, :, 0],
+                                  rng=rng)
+    for n in range(N):
+        k = truth[n]
+        m = k > 0
+        yc[m] += mu[k[m] - 1, n]
+    f32 = dict(dtype=torch.float32, device=cuda)
+    B = -(-T // L)
+    yc_pad = torch.zeros((B * L + 1, C), **f32)
+    yc_pad[:T] = torch.as_tensor(yc, **f32)
+    es, body = tmc._mc_streams_dense(yc_pad, torch.as_tensor(mu, **f32),
+                                     torch.as_tensor(sigmas, **f32))
+    e = torch.cat([es[:, None], body], dim=1).contiguous()
+    c = fb_mb.em_consts_mc(lp, K, **f32)
+    term, lastw, chained = gamma_mb.chain_geometry(T, L, cuda)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda: tpost._recenter(                          # noqa: E731
+        3 * torch.randn((B, c.S), generator=g)).to(cuda).contiguous()
+    return (e, term, lastw, chained, rand(), rand(), c,
+            gamma_mb.gamma_chunk(N, K), yc, mu, sigmas, lp)
+
+
+@pytest.mark.parametrize("K", [2, 12, 60, 65])
+@pytest.mark.parametrize("N,C,L,nw", [(1, 1, 64, 3), (2, 3, 64, 3),
+                                      (3, 4, 64, 3), (4, 2, 32, 130)])
+def test_gamma_mc_kernels_equal_plain(cuda, N, K, C, L, nw):
+    """Kernels 14-15 on a ragged tail (T = nw L + 37; 131 windows in the
+    last case) with chained and cold windows and random entry/exit states:
+    checkpoints, onset posteriors and first-position betas bit for bit,
+    both kernel-15 variants."""
+    (e, term, lastw, chained, entry, exits, c, ch,
+     *_) = _gamma_mc_inputs(N, K, C, L, nw * L + 37, 30 * N + K, cuda)
+    n_f = gamma_mb.gamma_fwd_mb_mc.launches
+    n_b = gamma_mb.gamma_bwd_mb_mc.launches
+    cp = gamma_mb.gamma_fwd_mb_mc(e, entry, chained, c, ch, L)
+    pcp = gamma_mb.gamma_fwd_mb_mc_plain(e, entry, chained, c, ch, L)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp)
+    for emit in (False, True):
+        got = gamma_mb.gamma_bwd_mb_mc(e, pcp, entry, chained, exits, term,
+                                       lastw, c, ch, L, emit)
+        ref = gamma_mb.gamma_bwd_mb_mc_plain(e, pcp, entry, chained, exits,
+                                             term, lastw, c, ch, L, emit)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        if emit:
+            assert torch.equal(got[0], ref[0])
+            assert torch.isfinite(got[0]).all()
+    assert gamma_mb.gamma_fwd_mb_mc.launches == n_f + 1
+    assert gamma_mb.gamma_bwd_mb_mc.launches == n_b + 2
+
+
+@pytest.mark.parametrize("N,C,T,L", [(2, 3, 800, 128), (2, 2, 777, 128),
+                                     (3, 2, 500, 96)])
+def test_chained_mc_posteriors_run_the_kernels(cuda, N, C, T, L):
+    """onset_posteriors_chained_mc of a non-overlap model on the card in
+    float32 launches kernels 14-15 2 + 2 times and lands within 1e-4 of
+    the float64 exact path on the CPU (tests/test_pallas_gamma.py's bar)."""
+    from hmmspikesorter_torch.models.multichannel import HMMTemplateModelMC
+
+    *_, yc, mu, sigmas, lp = _gamma_mc_inputs(N, 12, C, L, T, T, cuda)
+    tm = HMMTemplateModelMC(mu=mu, sigmas=sigmas, lp=lp,
+                            allow_overlaps=False)
+    pair = (gamma_mb.gamma_fwd_mb_mc, gamma_mb.gamma_bwd_mb_mc)
+    before = [w.launches for w in pair]
+    p = tpost.onset_posteriors_chained_mc(tm, yc, L=L)
+    assert [w.launches - n for w, n in zip(pair, before)] == [2, 2]
+    ref = tpost.onset_posteriors_mc(tm, yc, device="cpu")
+    assert p.shape == ref.shape == (T, N)
+    assert np.abs(p - ref).max() < 1e-4
+
+
+def test_gamma_mc_kernels_refuse_what_they_cannot_take(cuda):
+    (e, term, lastw, chained, entry, exits, c, ch,
+     *_) = _gamma_mc_inputs(2, 12, 3, 64, 200, 0, cuda)
+    with pytest.raises(TypeError):
+        gamma_mb.gamma_fwd_mb_mc(e.double(), entry, chained, c, ch, 64)
+    with pytest.raises(TypeError):
+        gamma_mb.gamma_bwd_mb_mc(e.double(), entry[:, None].expand(
+            -1, 64 // ch, -1).contiguous(), entry, chained, exits, term,
+            lastw, c, ch, 64, True)
+    with pytest.raises(ValueError, match="stream"):
+        gamma_mb.gamma_fwd_mb_mc(e[:-1].contiguous(), entry, chained, c, ch,
+                                 64)
+    with pytest.raises(ValueError, match="multiple"):
+        gamma_mb.gamma_fwd_mb_mc(e, entry, chained, c, ch, 48)

@@ -5,8 +5,8 @@ with `valid`) to 1e-12 relative; onset_posteriors (structural and gather),
 onset_posteriors_windowed and onset_posteriors_chained (the plain route)
 to 1e-10 (the chained path's own file is test_torch_posterior_chained.py);
 model_posteriors' routing; spike_confidence and
-extract_units(with_confidence=True); the refusals of multi-channel and
-drift-tracked models."""
+extract_units(with_confidence=True); a multi-channel model's posterior
+grid and the refusal of drift-tracked models."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -200,11 +200,20 @@ def test_extract_units_with_confidence_matches_jax(tmp_path):
 
 
 def test_multichannel_and_tracked_models_raise():
+    """A stationary (T, C) model gets its finite (T, N) posterior grid (the
+    MC engines; their parity is test_torch_posterior_mc.py's); a
+    drift-tracked one still raises, and a (T, C) signal is no trace."""
+    from hmmspikesorter_torch.models.multichannel import HMMTemplateModelMC
+
     _, tmod = _decoded(3000)
-    mc = HMMSpikingModel(tmod.template_model, tmod.ml_seq, tmod.ll,
+    tm = tmod.template_model
+    tmc = HMMTemplateModelMC(mu=np.stack([tm.mu, tm.mu], axis=2),
+                             sigmas=np.array([tm.sigma, tm.sigma]), lp=tm.lp,
+                             allow_overlaps=True)
+    mc = HMMSpikingModel(tmc, tmod.ml_seq, tmod.ll,
                          np.stack([tmod.y, tmod.y], axis=1))
-    with pytest.raises(NotImplementedError, match="step 10"):
-        tp.model_posteriors(mc, **CPU)
+    p = tp.model_posteriors(mc, **CPU)
+    assert p.shape == (3000, 2) and np.isfinite(p).all()
     tmod.track = object()
     with pytest.raises(NotImplementedError, match="step 11"):
         tp.spike_confidence(tmod, **CPU)
