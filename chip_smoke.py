@@ -8,12 +8,17 @@ output.
 
 Phases, each printing one JSON line:
   platform     torch and CUDA versions, the card (nvidia-smi)
-  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-15), all
+  build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-19), all
                sources at once
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
                rings, xT exactly equal), kernel 2 vs ov2_backtrace_mb_plain
                (labels exactly equal); CUDA-event times and the card's bound
+  kernels_ov2_r1  kernel 19 (the round-1 N=2 forward in the JAX
+               ov2_forward_pallas layout: kernel 1's source with its final
+               state written out) on 16 of those windows: every output
+               exactly equal to its plain version's; its labels equal
+               kernels 1 + 2's and the plain decode's
   kernels_ovn  kernels 3-4 vs ovn_forward_mb_plain / ovn_backtrace_mb_plain
                (flags, rings, rowcol, xT and labels exactly equal) at the
                N=3 main path's shapes (B=128 windows of W=8704, K=60) and
@@ -77,6 +82,21 @@ Phases, each printing one JSON line:
                confidence above 0.9, isi_invariant_violations 0
   posterior_path_nov  the same for a non-overlap N=2 decode of the same
                signal, through kernels 7-8
+  drift_path   the drift-adaptive path: bench.py's topology (N=2, K=60,
+               sigma=0.3) on create_drifting_signal (T=2^21, scale 1.0 ->
+               2.0, default_rng(1234)); api.fit_spiking_model_adaptive at
+               the CLI defaults (chunk 32768, forget 0.3): tracking through
+               kernels 5-6, decode through kernels 16 + 2 (launches 1 + 1),
+               the tracking, decode and host ll walls; onset errors of the
+               tracked and of a stationary decode against the truth (the
+               tracked below the stationary); labels >= 0.9999 equal to the
+               float64 plain twin; kernel 16 vs its plain version on 4
+               windows at full width (W=33,248) and kernels 17-18 vs theirs
+               at T=2^19, L=4096 (32 windows): exactly equal; then
+               model_posteriors (kernels 17-18, 2 + 2), confidence and
+               unit_qc: within 1e-4 of the float64 plain chained piecewise
+               run (or of the plain float32 chain's own error where larger,
+               at most 1e-3), median confidence above 0.9
   kernels_mc   the multichannel configuration (BASELINE.json config 6,
                benchmarks/suite.py config6: N=3, C=4, K=60, S=10,621,
                T=2^19, per-channel gains 0.3 + U, sigma_c = 0.25 + 0.1 U,
@@ -130,8 +150,10 @@ Phases, each printing one JSON line:
                --confidence --qc on config 6 with overlaps on at T=2^14
                (kernels 11 + 4, then the plain chained ovn MC posteriors at
                S=10,621; labels equal the library decode's; the float32
-               posteriors' error against a float64 run on the card)
-About 8-12 minutes on an H100.
+               posteriors' error against a float64 run on the card);
+               --adaptive --confidence --qc on drift_path's recording
+               (labels equal the library's)
+About 12-15 minutes on an H100.
 Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
@@ -1094,6 +1116,293 @@ def posterior_path(phase, model, pair, card):
     return launches
 
 
+def kernels_ov2_r1(vmb, y16, lp, temps, sigma, labels12, card):
+    """Kernel 19 (the round-1 N=2 forward in the JAX ov2_forward_pallas
+    layout) on 16 of the main path's windows: every output bit for bit
+    against its plain version; its decode (kernel 19, then kernel 2 on the
+    repacked choices) equal to kernels 1 + 2's labels and to the plain
+    backtrace of the plain outputs. Returns the kernels-line row."""
+    from hmmspikesorter_torch.ops import viterbi_ov2 as vo
+
+    B, W = y16.shape
+    Km1 = temps.shape[0] - 1
+    S = 1 + 2 * Km1 + Km1 * Km1
+    run = lambda: vo.ov2_forward_cuda(y16, lp, temps, sigma)  # noqa: E731
+    run()
+    ms, outs = cuda_ms(run, reps=5)
+    plain_ms, pouts = cuda_ms(
+        lambda: vo.ov2_forward_plain(y16, lp, temps, sigma), reps=1)
+    err = max_abs_err(list(zip(outs, pouts)))
+    check(all(a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(outs, pouts)),
+          "kernel 19 differs from its plain version")
+    vo.ov2_forward_cuda.launches = 0
+    lab = vo.ov2_decode_cuda(y16, lp, temps, sigma)
+    launches = vo.ov2_forward_cuda.launches
+    plain_lab = vo.ov2_decode_from_kernel(tuple(o.cpu() for o in pouts),
+                                          Km1, W)
+    check(launches == 1, f"kernels_ov2_r1: launches {launches}")
+    check(torch.equal(lab, labels12),
+          "kernel 19's labels differ from kernels 1 + 2's")
+    check(torch.equal(lab.cpu(), plain_lab),
+          "kernel 19's labels differ from the plain decode's")
+    byt = (y16.numel() * 4 + 6 * 4 + S * 4 + B * W * (1 + Km1) + B * 4
+           + B * S * 4)
+    row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ops_ms": fwd_ops(B, W, Km1) / FP32_OPS_PER_S * 1e3,
+           "bound_bytes_ms": byt / HBM_BYTES_PER_S * 1e3,
+           "launches": launches}
+    row["bound_ms"], row["bound_by"] = bound_of(row)
+    emit({"phase": "kernels_ov2_r1", "B": B, "W": W, "K": Km1 + 1,
+          "dtype": "float32", "card": card, "ov2_forward_cuda": row,
+          "labels_equal_kernels_1_2": True, "labels_equal_plain": True})
+    return row
+
+
+def onset_errors(onsets, truth, tol=2):
+    """False plus missed onsets under a one-to-one greedy matching of
+    decoded to true onsets within +-tol samples (tests/test_adaptive.py's
+    count)."""
+    tot = 0
+    for n in range(truth.shape[0]):
+        to = np.sort(np.nonzero(truth[n] == 1)[0])
+        dec = np.sort(np.asarray(onsets[n], np.int64))
+        i = j = hit = 0
+        while i < len(dec) and j < len(to):
+            if abs(int(dec[i]) - int(to[j])) <= tol:
+                hit += 1
+                i += 1
+                j += 1
+            elif dec[i] < to[j] - tol:
+                i += 1
+            else:
+                j += 1
+        tot += (len(dec) - hit) + (len(to) - hit)
+    return tot
+
+
+def with_pack_bytes(row, B, S):
+    """A kernels 17-18 row with the (B, 6 + S) per-window constant pack
+    added to the bytes its bound counts."""
+    row = dict(row, bytes=row["bytes"] + 4 * B * (6 + S))
+    row["bound_bytes_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = bound_of(row)
+    return row
+
+
+def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
+               P16=4, P17=32):
+    """The drift-adaptive path at full width: bench.py's N=2, K=60,
+    sigma=0.3 topology on a drifting recording (create_drifting_signal,
+    T=2^21, template scale 1.0 -> 2.0, default_rng(1234)).
+    api.fit_spiking_model_adaptive at the CLI defaults (chunk 32768, forget
+    0.3) with the launch counts of kernels 5-6 (tracking) and 16 + 2
+    (decode) set to 0 just before and read just after; the tracking, the
+    decode and its host ll timed apart; onset errors of the tracked and of
+    a stationary fit_spiking_model_fast decode against the truth; the f32
+    labels against decode_tracked through the plain versions in float64;
+    kernel 16 against its plain version on P16 windows at full width;
+    kernels 17-18 against theirs at T=Tg, L=Lg (P17 windows); then the
+    --confidence --qc composition (model_posteriors through kernels 17-18,
+    confidence_from_posteriors, unit_qc) and its posteriors against the
+    float64 plain chained piecewise run on the card. Returns the kernel
+    rows, the launches and (model template, signal, decoded model) for
+    cli_path."""
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.core import qc as tqc
+    from hmmspikesorter_torch.data.synthetic import create_drifting_signal
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import fb_mb, gamma_mb, gamma_ov2
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+    from hmmspikesorter_torch.parallel.overlap_save import _build_windows
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    f32, f64 = torch.float32, torch.float64
+    K = temps.shape[0]
+    pp = np.exp(lp)
+    y, truth, _ = create_drifting_signal(T, sigma, pp, temps,
+                                         scale_start=1.0, scale_end=2.0,
+                                         rng=np.random.default_rng(1234))
+    tm0 = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
+                               allow_overlaps=True)
+    wr_fit = (fb_mb.em_forward_mb, fb_mb.em_backward_mb,
+              vmb.ov2_forward_mb_tracked, vmb.ov2_backtrace_mb)
+    api.fit_spiking_model_adaptive(tm0, y)                   # warm-up
+    for w in wr_fit:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = api.fit_spiking_model_adaptive(tm0, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    fit_launches = {w.__name__: w.launches for w in wr_fit}
+    tr = m.track
+    # the parts apart: tracking, decode (ll included), the host ll alone
+    t = time.perf_counter()
+    tr2 = tad.track_drift(tm0, y)
+    track_s = time.perf_counter() - t
+    t = time.perf_counter()
+    m2 = tad.decode_tracked(tr2, y)
+    decode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tad._piecewise_path_ll(y, m2.ml_seq, tr2, tm0.state_space)
+    host_ll_s = time.perf_counter() - t
+    check(np.array_equal(m2.ml_seq, m.ml_seq) and np.array_equal(tr2.mu,
+                                                                  tr.mu),
+          "drift_path: a second run gave another track or other labels")
+    m_static = api.fit_spiking_model_fast(tm0, y)
+    e_tracked = onset_errors(m.spike_onsets, truth)
+    e_static = onset_errors(tevents._onsets_dense(m_static.ml_seq, N=2, K=K,
+                                                  overlaps=True), truth)
+    t = time.perf_counter()
+    m64 = tad.decode_tracked(tr, y, dtype=f64)
+    twin_s = time.perf_counter() - t
+    agree = float((m.ml_seq == m64.ml_seq).mean())
+
+    # ---- kernel 16 vs its plain version at full width ------------------
+    L, H = tr.chunk, max(4 * K, 64)
+    W, B = L + 2 * H, -(-T // tr.chunk)
+    y_win, _ = _build_windows(torch.as_tensor(y, dtype=f32, device=dev),
+                              T=T, L=L, H=H, B=B, W=W)
+    y_win = y_win.contiguous()
+    sil = torch.arange(B, device=dev) == 0
+    c16 = vmb.ov2_consts(tr.lp, tr.mu, tr.sigma, dtype=f32, device=dev)
+    run16 = lambda: vmb.ov2_forward_mb_tracked(y_win, sil, c16)  # noqa
+    run16()
+    k16_ms, (f16, r16, x16) = cuda_ms(run16, reps=3)
+    sub = np.linspace(0, B - 1, P16).round().astype(int)
+    sub_d = torch.as_tensor(sub, device=dev)
+    c_sub = vmb.ov2_consts(tr.lp[sub], tr.mu[sub], tr.sigma[sub], dtype=f32,
+                           device=dev)
+    p16_ms, (pf, pr, px) = cuda_ms(lambda: vmb.ov2_forward_mb_plain(
+        y_win[sub_d], sil[sub_d], c_sub), reps=1)
+    k16_pairs = [(f16[sub_d], pf), (r16[sub_d], pr), (x16[sub_d], px)]
+    k16_err = max_abs_err(k16_pairs)
+    check(all(torch.equal(a, b) for a, b in k16_pairs),
+          "kernel 16 differs from its plain version")
+    S = c16.S
+    k16_bytes = (y_win.numel() * 4 + B + B * (6 + S) * 4 + f16.numel()
+                 + r16.numel() + B * 4)
+    row16 = {"ms": k16_ms, "plain_ms": p16_ms, "plain_windows": P16,
+             "max_abs_err": k16_err,
+             "bound_ops_ms": fwd_ops(B, W, K - 1) / FP32_OPS_PER_S * 1e3,
+             "bound_bytes_ms": k16_bytes / HBM_BYTES_PER_S * 1e3}
+    row16["bound_ms"], row16["bound_by"] = bound_of(row16)
+    del y_win, f16, r16, pf, pr
+
+    # ---- kernels 17-18 vs their plain versions at T=2^19, L=4096 --------
+    yg, ybnd, term, lastw, chained = gamma_mb.chain_inputs(y[:Tg], Tg, Lg,
+                                                           f32, dev)
+    Bg = yg.shape[0]
+    own = tpost._window_owner(Bg, Lg, tr)
+    pw = (tr.lp[own], tr.mu[own], tr.sigma[own])
+    c17 = vmb.ov2_consts(*pw, dtype=f32, device=dev)
+    c17p = vmb.ov2_consts(*(v[:P17] for v in pw), dtype=f32, device=dev)
+    pw_d = tuple(torch.as_tensor(v, dtype=f32, device=dev) for v in pw)
+    parts = gamma_kernels(
+        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_tracked(yw, en, hi, c17),
+        lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
+            gamma_ov2.gamma_ov2_bwd_tracked(yw, cp, en, hi, tx, tm_, c17, e),
+        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi, c17p),
+        lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
+            gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tm_, c17p, e),
+        yg, ybnd, term, lastw, chained,
+        lambda ex: gamma_ov2.terminal_exits(ex, ybnd, lastw, *pw_d),
+        c17, S, P17, reps=3)
+    rows17 = {part: with_pack_bytes(gamma_row(
+        {"fwd": "ov2_fwd", "chain": "ov2_chain", "gamma": "ov2_gamma"}[part],
+        *v, Bg, Lg, 2, K - 1, gamma_ov2.CH2, P17), Bg, S)
+        for part, v in parts.items()}
+    del yg
+
+    # ---- --confidence --qc on the tracked decode (kernels 17-18) --------
+    wr_post = (gamma_ov2.gamma_ov2_fwd_tracked,
+               gamma_ov2.gamma_ov2_bwd_tracked)
+    for w in wr_post:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = tpost.model_posteriors(m)
+    conf = tpost.confidence_from_posteriors(p, m.spike_onsets,
+                                            half_width=(K - 1) // 2)
+    qa = tqc.qc_arrays(tqc.unit_qc(m, posteriors=p))
+    conf_qc_s = time.perf_counter() - t
+    post_launches = {w.__name__: w.launches for w in wr_post}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tpost.model_posteriors(m)
+    post_s = time.perf_counter() - t
+    own_t = tpost._window_owner(-(-T // Lg), Lg, tr)
+    args = (y, tr.lp[own_t], tr.mu[own_t], tr.sigma[own_t])
+    t = time.perf_counter()
+    p64 = gamma_ov2.onset_gammas_cuda_ov2_tracked(*args, L=Lg, dtype=f64,
+                                                  plain=True)
+    p64_s = time.perf_counter() - t
+    post_err = float(np.abs(p - p64).max())
+    # the float32 floor's witness (the plain float32 chain), only where the
+    # kernels are above tests/test_pallas_gamma.py's 1e-4
+    plain32_err = None
+    if post_err > 1e-4:
+        p32 = gamma_ov2.onset_gammas_cuda_ov2_tracked(*args, L=Lg,
+                                                      dtype=f32, plain=True)
+        plain32_err = float(np.abs(p32 - p64).max())
+        del p32
+    post_tol = min(1e-3, max(1e-4, plain32_err or 0.0))
+    emit({"phase": "drift_path", "N": 2, "K": K, "S": S, "T": T,
+          "chunk": tr.chunk, "forget": tr.forget, "B": B, "W": W,
+          "card": card,
+          "fit_seconds": fit_s, "samples_per_s": T / fit_s,
+          "track_seconds": track_s, "decode_seconds": decode_s,
+          "decode_host_ll_seconds": host_ll_s,
+          "fit_launches": fit_launches,
+          "onset_errors_tracked": e_tracked,
+          "onset_errors_stationary": e_static,
+          "onsets_true": [int((truth[n] == 1).sum()) for n in range(2)],
+          "seams": B - 1, "seams_repaired": m.seams_repaired,
+          "f64_plain_twin_seconds": twin_s, "agreement_vs_f64": agree,
+          "ll": m.ll, "ll_f64": m64.ll,
+          "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
+                                   float(np.abs(tr.mu[-1]).max())],
+          "kernel16": row16,
+          "kernels17_18": {"T": Tg, "L": Lg, "B": Bg, **rows17},
+          "posterior_launches": post_launches,
+          "conf_qc_seconds": conf_qc_s, "posteriors_seconds": post_s,
+          "posterior_samples_per_s": T / post_s,
+          "f64_plain_piecewise_seconds": p64_s,
+          "max_abs_err_vs_f64_plain_piecewise": post_err,
+          "plain_f32_piecewise_max_abs_err_vs_f64": plain32_err,
+          "tolerance": post_tol,
+          "median_confidence": [float(np.median(c)) for c in conf],
+          "n_spikes": qa["n_spikes"].tolist(),
+          "expected_onsets": p.sum(axis=0).tolist(),
+          "isi_invariant_violations":
+              qa["isi_invariant_violations"].tolist()})
+    check(m.ml_seq.shape == (T,) and np.isfinite(m.ll),
+          "drift_path: output malformed")
+    check(fit_launches["ov2_forward_mb_tracked"] == 1
+          and fit_launches["ov2_backtrace_mb"] == 1,
+          f"drift_path: kernels 16 + 2 launches {fit_launches}")
+    check(fit_launches["em_forward_mb"] >= T // tr.chunk
+          and fit_launches["em_backward_mb"] >= T // tr.chunk,
+          f"drift_path: the tracking did not run kernels 5-6 {fit_launches}")
+    check(agree >= 0.9999, f"drift_path: f32 vs f64 agreement {agree}")
+    check(e_tracked < e_static, f"drift_path: tracked onset errors "
+          f"{e_tracked} not below the stationary decode's {e_static}")
+    check(list(post_launches.values()) == [2, 2],
+          f"drift_path: posterior launches {post_launches}, expected 2 + 2")
+    check(p.shape == (T, 2) and np.isfinite(p).all(),
+          "drift_path: posteriors malformed")
+    check(post_err <= post_tol, f"drift_path: {post_err} from the float64 "
+          f"plain chained piecewise run (> {post_tol})")
+    check(all(np.median(c) > 0.9 for c in conf),
+          "drift_path: median confidence below 0.9")
+    check(all(v == 0 for v in qa["isi_invariant_violations"]),
+          "drift_path: ISI invariant violated")
+    return {"row16": row16, "rows17": rows17, "fit_launches": fit_launches,
+            "post_launches": post_launches, "cli": (tm0, y, m)}
+
+
 def dense_seams(y, temps, L, halfwidth):
     """Back-to-back spikes of the first two neurons, staggered by K//2,
     over [s - halfwidth, s + halfwidth) around every seam s = L, 2L, ...
@@ -1110,7 +1419,7 @@ def dense_seams(y, temps, L, halfwidth):
                 t += K
 
 
-def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
+def cli_path(dev, card, sc, config6_, drift, T_mc=1 << 14, L=8192):
     """The CLI's body on arrays (hmmspikesorter_torch.cli._sort_loaded, all
     of sort_data after the HDF5 loaders), writing the MAT file with
     scipy.io.savemat under build/cli_path/ and reading it back:
@@ -1124,7 +1433,10 @@ def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
           overlaps on (kernels 11 + 4, then the plain chained ovn MC
           posteriors at S=10,621), cut to T_mc samples; labels equal the
           library decode's; the error of the float32 posteriors the CLI
-          computed against a float64 run on the card."""
+          computed against a float64 run on the card;
+      (c) --adaptive --confidence --qc on drift_path's drifting recording
+          (T=2^21; kernels 5-6, 16 + 2 and 17-18); labels equal the
+          library's fit_spiking_model_adaptive decode."""
     import pathlib
 
     import scipy.io
@@ -1196,6 +1508,14 @@ def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
             (vomb.ovn_mc_forward_mb, vomb.ovn_backtrace_mb))
     finally:
         tpost.model_posteriors = real
+    # ---- (c) the drift-adaptive run ---------------------------------------
+    tm_d, y_d, lib_d = drift
+    out_d, wall_d, la_d = run(
+        tm_d, y_d, "adaptive", cli._options(adaptive=True, confidence=True,
+                                            qc=True),
+        (vmb.ov2_forward_mb_tracked, vmb.ov2_backtrace_mb,
+         gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked))
+    ref_d = unroll_mlseq(lib_d.ml_seq, tm_d.state_space.states) + 1
     lib_b = mcm.fit_spiking_model_mc_fast(tm6, yc_b, L=L)
     ref_b = unroll_mlseq(lib_b.ml_seq, tm6.state_space.states) + 1
     torch.cuda.synchronize()
@@ -1217,6 +1537,11 @@ def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
                     "seams_repaired_f64": f64_s.seams_repaired,
                     "agreement_vs_f64": float((out_s["mlseq"]
                                                == ref_s).mean())},
+          "adaptive": {"T": len(y_d), "seconds": wall_d,
+                       "samples_per_s": len(y_d) / wall_d,
+                       "launches": la_d, "keys": sorted(out_d),
+                       "median_confidence": [float(np.median(c))
+                                             for c in out_d["confidence"]]},
           "mc": {"T": T_mc, "N": tm6.n_neurons, "C": tm6.n_channels,
                  "S": tm6.state_space.nstates, "seconds": wall_b,
                  "samples_per_s": T_mc / wall_b, "launches": la_b,
@@ -1227,6 +1552,8 @@ def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
                  "posteriors_f32_max_abs_err_vs_f64": p_err,
                  "expected_onsets": p32.sum(axis=0).tolist()}})
     for name, out, ref, tm_r, T_r in (("sc", out_a, ref_a, tm, len(y)),
+                                      ("adaptive", out_d, ref_d, tm_d,
+                                       len(y_d)),
                                       ("mc", out_b, ref_b, tm6, T_mc)):
         check(set(out) == keys, f"cli_path {name}: keys {sorted(out)}")
         check(out["mlseq"].shape == (tm_r.n_neurons, T_r)
@@ -1237,8 +1564,8 @@ def cli_path(dev, card, sc, config6_, T_mc=1 << 14, L=8192):
         check(conf_ok(out, out["qc"]["n_spikes"])
               and all(v == 0 for v in out["qc"]["isi_invariant_violations"]),
               f"cli_path {name}: confidence or qc malformed")
-    check(all(la_a.values()) and all(la_b.values()),
-          f"cli_path: a kernel did not run: {la_a} {la_b}")
+    check(all(la_a.values()) and all(la_b.values()) and all(la_d.values()),
+          f"cli_path: a kernel did not run: {la_a} {la_b} {la_d}")
     check(lib_s.seams_repaired > 0,
           f"cli_path: no seam was repaired ({lib_s.seams_repaired})")
     check(np.array_equal(out_s["mlseq"], ref_s),
@@ -1345,6 +1672,8 @@ def main():
                                "bound_bytes_ms": bt_bound,
                                "ring_bytes_read": ring_reads,
                                "match": True}})
+    r1 = kernels_ov2_r1(vmb, y_win[:16].contiguous(), lp, temps, sigma,
+                        labels[:16], card)
     del flags, rings, xT, pf, pr, px, labels, plain_labels, y_win
 
     # ---- the repository's N=3 configuration (BASELINE.json config 2) ---
@@ -1813,9 +2142,11 @@ def main():
         "posterior_path_nov", dec_nov,
         (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb), card)
 
+    drift = drift_path(dev, card, temps, lp, sigma)
     mc = mc_phases(dev, card)
     mcp = mc_posterior_phases(dev, card, mc["config6"])
-    cli_path(dev, card, (tm, y, decoded_n2, temps), mc["config6"])
+    cli_path(dev, card, (tm, y, decoded_n2, temps), mc["config6"],
+             drift["cli"])
 
     def gamma_entry(name, source, line, launches, row):
         """One kernel's entry of the kernels line from its row."""
@@ -1909,6 +2240,20 @@ def main():
         gamma_entry("gamma_bwd_mb_mc", "gamma_mc_bwd.cu",
                     "pallas_gamma_mb.py:719",
                     mcp["launches"]["gamma_bwd_mb_mc"], mcp["rows"]["gamma"]),
+        gamma_entry("ov2_forward_mb_tracked", "viterbi_ov2_fwd.cu",
+                    "pallas_viterbi_mb.py:66",
+                    drift["fit_launches"]["ov2_forward_mb_tracked"],
+                    drift["row16"]),
+        gamma_entry("gamma_ov2_fwd_tracked", "gamma_ov2_fwd.cu",
+                    "pallas_gamma_ov2.py:170",
+                    drift["post_launches"]["gamma_ov2_fwd_tracked"],
+                    drift["rows17"]["fwd"]),
+        gamma_entry("gamma_ov2_bwd_tracked", "gamma_ov2_bwd.cu",
+                    "pallas_gamma_ov2.py:237",
+                    drift["post_launches"]["gamma_ov2_bwd_tracked"],
+                    drift["rows17"]["gamma"]),
+        gamma_entry("ov2_forward_cuda", "viterbi_ov2_fwd.cu",
+                    "pallas_viterbi.py:55", r1["launches"], r1),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

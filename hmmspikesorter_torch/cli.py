@@ -24,11 +24,15 @@ the card), `--channels all` (every channel of a 2-D recording decoded
 independently), `--multichannel` (one spike train from all channels
 jointly), `--train` (learn the templates from the recording first;
 `--save-templates` exports them), `--confidence` and `--qc` (per-spike
-posterior confidence and per-unit quality control).
+posterior confidence and per-unit quality control), `--adaptive` with
+`--adapt-chunk` and `--forget` (drift-adaptive: the templates tracked
+through the recording by online EM, each chunk decoded and scored under its
+own; one channel or `--channels all`, train/adaptive.py).
 
 Not ported yet, and raising NotImplementedError: `--transfer events`
-(ROADMAP §1 item 3), `--channels all --engine fast` without `--train`
-(the batched decode, §1 item 4) and `--adaptive` (§1 item 5).
+(ROADMAP §1 item 3), `--channels all --engine fast` without `--train` or
+`--adaptive` (the batched decode, §1 item 4) and `--adaptive
+--multichannel` (§1 item 5, the multichannel half).
 
 `--device cuda` (the default) runs on the GPU and raises without one;
 `--device cpu` runs the plain PyTorch versions on the CPU in float64.
@@ -241,7 +245,8 @@ def _emit_output(output: dict, outputfile: str, dosave: bool) -> dict:
 
 def _options(config=None, *, engine=None, chunksize=None, max_templates=None,
              channels=None, multichannel=None, confidence=None, qc=None,
-             adaptive=None, transfer=None, train: bool = False):
+             adaptive=None, adapt_chunk=None, forget=None, transfer=None,
+             train: bool = False):
     """The decode options of one sort: explicit kwarg > config.decode >
     the reference default, with the combinations the port refuses."""
     from .config import UNSET, _section, pick
@@ -260,20 +265,24 @@ def _options(config=None, *, engine=None, chunksize=None, max_templates=None,
         confidence=bool(arg(confidence, "confidence", False)),
         qc=bool(arg(qc, "qc", False)),
         adaptive=bool(arg(adaptive, "adaptive", False)),
+        adapt_chunk=arg(adapt_chunk, "adapt_chunk", 32768),
+        forget=arg(forget, "forget", 0.3),
         transfer=arg(transfer, "transfer", "dense"))
     if o.multichannel and o.channels == "all":
         raise ValueError("multichannel (joint decode) and channels='all' "
                          "(independent per-channel decode) are mutually "
                          "exclusive")
-    if o.adaptive:
+    if o.adaptive and o.multichannel:
         raise NotImplementedError(
-            "--adaptive needs the drift-adaptive decode (train/adaptive.py), "
-            "ROADMAP §1 item 5 (step 11), not yet ported")
-    if o.transfer == "events" and o.engine == "fast":
+            "--adaptive --multichannel needs the multichannel drift tracking "
+            "(track_drift_mc, fit_spiking_model_adaptive_mc), ROADMAP §1 "
+            "item 5, not yet ported")
+    if o.transfer == "events" and (o.engine == "fast" or o.adaptive):
         raise NotImplementedError(
             "--transfer events needs the events-transfer decode "
             "(core/events.py), ROADMAP §1 item 3, not yet ported")
-    if o.channels == "all" and o.engine == "fast" and not train:
+    if (o.channels == "all" and o.engine == "fast" and not train
+            and not o.adaptive):
         raise NotImplementedError(
             "--channels all --engine fast needs the batched decode "
             "(models/api.fit_spiking_models_fast_batched), ROADMAP §1 item "
@@ -292,6 +301,8 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
               save_templates: str | None = None, rng=None,
               confidence: bool | None = None,
               adaptive: bool | None = None,
+              adapt_chunk: int | None = None,
+              forget: float | None = None,
               qc: bool | None = None, device=None, dtype=None) -> dict:
     """End-to-end batch sort (reference sort_data, hmmsort.jl:36-104) on
     `device` (None: the GPU; "cpu": the plain versions, float64 by
@@ -323,9 +334,18 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
     per-channel cells, each channel decoded by either engine).
 
     confidence / qc add per-spike posterior confidence and per-unit QC.
-    adaptive=True and transfer="events" raise NotImplementedError (ROADMAP
-    §1 items 5 and 3). A config.Config supplies defaults for anything not
-    passed explicitly.
+
+    adaptive=True (beyond reference) replaces the stationary decode with
+    the drift-adaptive one (models/api.fit_spiking_model_adaptive):
+    online-EM template tracking with forgetting `forget` over
+    `adapt_chunk`-sample chunks, each chunk decoded with its own adapted
+    templates; composes with train (track from the learned templates),
+    confidence (each spike scored under its chunk's parameters) and
+    channels="all" (independent per-channel tracks,
+    train/adaptive.track_drift_batched). With multichannel=True it raises
+    NotImplementedError (ROADMAP §1 item 5), as transfer="events" does
+    (item 3). A config.Config supplies defaults for anything not passed
+    explicitly.
     """
     from .utils.device import resolve_device
 
@@ -333,7 +353,8 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
     o = _options(config, engine=engine, chunksize=chunksize,
                  max_templates=max_templates, channels=channels,
                  multichannel=multichannel, confidence=confidence, qc=qc,
-                 adaptive=adaptive, train=train)
+                 adaptive=adaptive, adapt_chunk=adapt_chunk, forget=forget,
+                 train=train)
     load_t = load_template_file_mc if o.multichannel else load_template_file
     tm = None
     if inputfile is not None or not train:
@@ -458,13 +479,33 @@ def _sort_loaded(tm, data, outputfile: str, o, *, dosave: bool = True,
         #                                (integer data skips the NaN scan)
     print("Fitting model...")
     if channels == "all":
-        models = [fit_spiking_model(tm, row, chunksize=o.chunksize,
-                                    progress=progress, **kw) for row in data]
+        if o.adaptive:
+            # independent per-channel drift tracks, each channel decoded
+            # under its own adapted templates
+            from .train.adaptive import decode_tracked, track_drift_batched
+
+            rows64 = np.asarray(data, np.float64)
+            tracks = track_drift_batched(tm, rows64, chunk=o.adapt_chunk,
+                                         forget=o.forget, **kw)
+            models = [decode_tracked(trk, rows64[c], transfer=o.transfer,
+                                     **kw) for c, trk in enumerate(tracks)]
+        else:
+            models = [fit_spiking_model(tm, row, chunksize=o.chunksize,
+                                        progress=progress, **kw)
+                      for row in data]
         mlseq = np.stack([unroll_mlseq(m.ml_seq, tm.state_space.states) + 1
                           for m in models])
         ll = np.array([m.ll for m in models])
     else:
-        if engine == "fast":
+        if o.adaptive:
+            # drift-adaptive: online-EM template tracking, then every chunk
+            # decoded with its own adapted templates (overrides --engine)
+            from .models.api import fit_spiking_model_adaptive
+
+            model = fit_spiking_model_adaptive(
+                tm, np.asarray(data, np.float64), chunk=o.adapt_chunk,
+                forget=o.forget, transfer=o.transfer, **kw)
+        elif engine == "fast":
             model = fit_spiking_model_fast(tm, data, streaming=True,
                                            config=config, **kw)
         else:
@@ -644,9 +685,22 @@ def main(argv=None) -> int:
                    help="add a per-unit quality-control struct to the "
                         "MAT output (key 'qc': spike counts/rates, ISI "
                         "violations, SNR, presence ratio, confidence "
-                        "summary; core/qc.py)")
+                        "summary, drift metrics when --adaptive; "
+                        "core/qc.py)")
     p.add_argument("--adaptive", action="store_true",
-                   help="drift-adaptive decode (not ported yet: raises)")
+                   help="drift-adaptive decode: track the templates "
+                        "through the recording with online EM and decode "
+                        "every chunk with its own adapted templates "
+                        "(electrode-drift robustness; one channel or "
+                        "--channels all; overrides --engine; composes with "
+                        "--train and --confidence; with --multichannel "
+                        "not ported yet: raises)")
+    p.add_argument("--adapt-chunk", type=int, default=None,
+                   help="adaptive tracking chunk = decode window in "
+                        "samples (default 32768)")
+    p.add_argument("--forget", type=float, default=None,
+                   help="adaptive forgetting factor in (0, 1]: memory "
+                        "horizon ~ chunk/forget samples (default 0.3)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cuda' = the GPU's kernels (raises without a "
                         "GPU); 'cpu' = the plain PyTorch versions, "
@@ -672,7 +726,13 @@ def main(argv=None) -> int:
                                      transfer=args.transfer,
                                      confidence=args.confidence,
                                      qc=args.qc,
-                                     adaptive=args.adaptive))
+                                     adaptive=args.adaptive,
+                                     adapt_chunk=(args.adapt_chunk
+                                                  if args.adapt_chunk
+                                                  is not None else 32768),
+                                     forget=(args.forget
+                                             if args.forget is not None
+                                             else 0.3)))
     sort_data(args.inputfile, args.datafile, args.outputfile, config=cfg,
               train=args.train, n_templates=args.ntemplates, K=args.K,
               nsteps=args.nsteps, train_samples=args.train_samples,

@@ -1,6 +1,6 @@
 """State posteriors and per-spike confidence from forward-backward
-(counterpart of the JAX package's core/posterior.py, stationary models,
-single- and multi-channel).
+(counterpart of the JAX package's core/posterior.py: stationary models,
+single- and multi-channel, and single-channel drift-tracked ones).
 
 The reference computes alpha/beta only inside EM (src/baumwelch.jl:25-98)
 and exposes no posterior; spike-sorting practice wants a per-spike score of
@@ -36,8 +36,10 @@ d (B, n, N, K-1)) — and the rows (B, n, S), in core/state_space's flat
 state order. Forward/backward semantics are the reference's (emission-only
 forward init — the dead-pi quirk, baumwelch.jl:31-36 — and beta[T-1] = 0).
 
-Drift-tracked models need §1 step 11 and raise NotImplementedError in
-`model_posteriors`.
+Drift-tracked models (train/adaptive.py) go through
+``onset_posteriors_tracked``: each window under its own chunk's parameters,
+on the card kernels 17-18 (ops/gamma_ov2.onset_gammas_cuda_ov2_tracked) for
+the N=2 overlap topology; multichannel tracks are not ported yet.
 """
 
 from __future__ import annotations
@@ -763,8 +765,9 @@ def _window_starts(T, L, H, B, W):
 def _windowed_run(y_d, gamma_of, *, T, L, H, B, W, proj_d,
                   batch_windows) -> np.ndarray:
     """Window-batch loop of the windowed posteriors: build the halo windows
-    of y_d (T, ...) (each trailing channel alike), run `gamma_of(windows)
-    -> (nw, W, M)` per batch, copy each window's core rows out."""
+    of y_d (T, ...) (each trailing channel alike), run `gamma_of(windows,
+    lo) -> (nw, W, M)` per batch of windows lo, lo + 1, ..., copy each
+    window's core rows out."""
     from ..parallel.overlap_save import _build_windows
 
     y_win, _ = _build_windows(y_d, T=T, L=L, H=H, B=B, W=W)
@@ -777,7 +780,7 @@ def _windowed_run(y_d, gamma_of, *, T, L, H, B, W, proj_d,
     out = np.empty((T, M), np.float64)
     for i in range(0, B, batch_windows):
         nw = min(batch_windows, B - i)
-        gb = gamma_of(y_win[i:i + nw]).cpu().numpy()
+        gb = gamma_of(y_win[i:i + nw], i).cpu().numpy()
         for k in range(nw):
             b = i + k
             s0 = b * L
@@ -820,7 +823,7 @@ def onset_posteriors_windowed(templates, y, *, L: int = 4096,
                  (templates.lp, templates.mu, templates.sigma))
     return _windowed_run(
         as_float(y, dt, dev),
-        lambda yw: _windowed_gamma(fb, (yw,), args, proj_d),
+        lambda yw, _lo: _windowed_gamma(fb, (yw,), args, proj_d),
         T=T, L=L, H=H, B=B, W=W, proj_d=proj_d, batch_windows=batch_windows)
 
 
@@ -857,8 +860,8 @@ def onset_posteriors_windowed_mc(templates, yc, *, L: int = 4096,
             *_mc_extra_tables(_sc_engine_name(templates), tables, dt, dev))
     return _windowed_run(
         as_float(yc, dt, dev),
-        lambda yw: _windowed_gamma(fb, mc_streams(yw, tables, dtype=dt),
-                                   args, proj_d),
+        lambda yw, _lo: _windowed_gamma(
+            fb, mc_streams(yw, tables, dtype=dt), args, proj_d),
         T=T, L=L, H=H, B=B, W=W, proj_d=proj_d, batch_windows=batch_windows)
 
 
@@ -1148,6 +1151,119 @@ def onset_posteriors_chained_mc(templates, yc, *, L: int = 4096,
 
 
 # --------------------------------------------------------------------------
+# drift-tracked models (train/adaptive.DriftTrack)
+# --------------------------------------------------------------------------
+
+
+def _tracked_fallback(track, y, proj, H, exact_fn) -> np.ndarray:
+    """Per-chunk haloed exact posteriors, the tracked engines' fallback for
+    signals too short to window: each chunk span is evaluated by the exact
+    two-pass on [s-4H, e+4H) under ITS OWN parameters and the core rows
+    kept (the cold-start error at the extension edges decays
+    geometrically; a single-chunk track reduces to the whole-signal exact
+    computation)."""
+    T = len(y)
+    Hx = 4 * H
+    out = None
+    for c, (s, e) in enumerate(track.bounds):
+        lo = max(0, s - Hx)
+        hi = min(T, e + Hx)
+        p = exact_fn(track.model_at(c), y[lo:hi], proj)
+        if out is None:
+            out = np.empty((T, p.shape[1]), np.float64)
+        out[s:e] = p[s - lo:s - lo + (e - s)]
+    return out
+
+
+def _window_owner(B, L, track):
+    """Chunk index owning each posterior window's core, by core start.
+    Exact alignment when track.chunk % L == 0 (the defaults compose: 4096 |
+    32768); otherwise a window core crossing a chunk boundary is scored
+    under the chunk it starts in."""
+    return np.minimum(np.arange(B) * L // track.chunk, track.n_chunks - 1)
+
+
+def _cuda_gamma_ov2_tracked_ok(templates, L, T) -> bool:
+    """Kernels 17-18 take this track: the N=2 overlap topology, K-1 <= 64,
+    L a multiple of the chunk, the checkpoints and the per-window constant
+    pack within the card's budget."""
+    from ..ops import gamma_ov2
+
+    return (templates.allow_overlaps and templates.n_neurons == 2
+            and gamma_ov2.ov2_gamma_kernel_ok(templates.K)
+            and L % gamma_ov2.CH2 == 0
+            and gamma_ov2.ov2_gamma_hbm_ok(T, templates.K, L,
+                                           per_window=True))
+
+
+def onset_posteriors_tracked(track, y, *, L: int = 4096,
+                             H: int | None = None, proj=None,
+                             batch_windows: int | None = None, device=None,
+                             dtype=None) -> np.ndarray:
+    """Onset marginals under a drift track, each window under the parameters
+    of the chunk owning its core (_window_owner), the posterior mirror of
+    decode_tracked's per-window decode.
+
+    On a CUDA device in float32 with the onset projection, an N=2 overlap
+    track runs kernels 17-18 (ops/gamma_ov2.onset_gammas_cuda_ov2_tracked):
+    the EXACT piecewise-parameter forward-backward over disjoint L-windows.
+    Elsewhere the halo-windowed posterior with per-window parameters, the
+    plain engines, as the JAX package runs its XLA there. A signal too short
+    for windowing falls back to per-chunk haloed exact two-passes
+    (_tracked_fallback), still under each chunk's own parameters."""
+    dev, dt = _resolve(device, dtype)
+    y = np.asarray(y)
+    if y.ndim != 1:
+        raise ValueError("onset_posteriors_tracked takes a (T,) trace")
+    T = y.shape[0]
+    if track.bounds[-1][1] != T:
+        raise ValueError("track does not cover this signal "
+                         f"({track.bounds[-1]} vs T={T})")
+    tm_last = track.model_at(track.n_chunks - 1)
+    if H is None:
+        H = max(4 * track.mu.shape[1], 64)
+    L = min(L, track.chunk)
+    W = L + 2 * H
+    B = -(-T // L)
+    if H < 1 or L < 2 * H or B < 2 or T < W:
+        return _tracked_fallback(
+            track, y, proj, H,
+            lambda tm, yy, pr: onset_posteriors(tm, yy, proj=pr, device=dev,
+                                                dtype=dt))
+    _check_window_f32(W, dt)
+    owner = _window_owner(B, L, track)
+    if (proj is None and dev.type == "cuda" and dt == torch.float32
+            and _cuda_gamma_ov2_tracked_ok(tm_last, L, T)):
+        from ..ops.gamma_ov2 import onset_gammas_cuda_ov2_tracked
+
+        return onset_gammas_cuda_ov2_tracked(
+            y, track.lp[owner], track.mu[owner], track.sigma[owner], L=L,
+            device=dev)
+    if proj is None:
+        proj = onset_projection(tm_last.state_space.states)
+    proj_d = as_float(proj, dt, dev)
+    fb = _ring_fb_block_fn(tm_last)
+    params = [tuple(as_float(v[c], dt, dev) for v in
+                    (track.lp, track.mu, track.sigma))
+              for c in range(track.n_chunks)]
+
+    def gamma_of(yw, lo):
+        # the windows of one chunk share its parameters: one batch each
+        own = owner[lo:lo + yw.shape[0]]
+        out = None
+        for c in np.unique(own):
+            idx = torch.as_tensor(np.nonzero(own == c)[0], device=dev)
+            g = _windowed_gamma(fb, (yw[idx],), params[c], proj_d)
+            if out is None:
+                out = g.new_empty((yw.shape[0],) + g.shape[1:])
+            out[idx] = g
+        return out
+
+    return _windowed_run(as_float(y, dt, dev), gamma_of, T=T, L=L, H=H, B=B,
+                         W=W, proj_d=proj_d, batch_windows=batch_windows)
+
+
+# --------------------------------------------------------------------------
 # API
 # --------------------------------------------------------------------------
 
@@ -1161,14 +1277,21 @@ def model_posteriors(model, *, block: int = 8192, windowed: bool = False,
     ones to the sequential exact path; `windowed=True` opts into the
     halo-window approximation. spike_confidence and core/qc consume this.
 
-    Drift-decoded models (carrying `.track`) need the drift-adaptive slice
-    (ROADMAP §1 step 11) and raise NotImplementedError."""
+    A drift-decoded model (it carries `.track`) is scored under its
+    chunks' own parameters (onset_posteriors_tracked, whatever `windowed`
+    says; kernels 17-18 on the card). Multichannel tracks are not ported yet
+    (ROADMAP §1 item 5) and raise NotImplementedError."""
     tm = model.template_model
     y = np.asarray(model.y)
-    if getattr(model, "track", None) is not None:
-        raise NotImplementedError(
-            "posteriors of a drift-decoded model (it carries .track) need "
-            "train/adaptive.py, ROADMAP §1 step 11 (drift-adaptive)")
+    track = getattr(model, "track", None)
+    if track is not None:
+        if y.ndim == 2:
+            raise NotImplementedError(
+                "posteriors of a multichannel drift-decoded model need "
+                "onset_posteriors_tracked_mc, ROADMAP §1 item 5 "
+                "(drift-adaptive, multichannel half), not yet ported")
+        return onset_posteriors_tracked(track, y, device=device,
+                                        dtype=dtype)
     kw = dict(device=device, dtype=dtype)
     if y.ndim == 2:
         if windowed:

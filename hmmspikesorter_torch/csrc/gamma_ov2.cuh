@@ -23,7 +23,8 @@ namespace ov2g {
 
 constexpr int kThreads = 512;
 
-// Constants packed by ops/gamma_ov2._fpack:
+// Constants packed by ops/gamma_ov2._fpack, one row for every window
+// (kernels 9-10) or one per window (kernels 17-18); load takes the row:
 //   [lp0, lp1, lpz, two_lpz, econst, inv_2s2 | means (S)]
 struct Consts {
   int Km1, S, P;

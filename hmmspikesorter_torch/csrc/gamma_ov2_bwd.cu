@@ -2,8 +2,14 @@
 // gamma (kernel 10 of the posterior path).
 //
 // Replaces: hmmspikesorter_tpu/ops/pallas_gamma_ov2.py
-// `_make_ov2_gamma_kernel` (per_lane=False, emit_gamma both ways, launched
-// by `_gamma_ov2_impl`).
+// `_make_ov2_gamma_kernel` (emit_gamma both ways, launched by
+// `_gamma_ov2_impl`): kernel 10 with per_lane=False (fstride 0) and kernel
+// 18 with per_lane=True (window b reads its own row of the constant pack,
+// fstride = 6 + S). Under per-window parameters the one step that crosses
+// windows, beta through the next window's first sample under the NEXT
+// window's parameters, is taken before the launch (tmx,
+// ops/gamma_ov2.terminal_exits), so every CTA still reads only its own
+// row.
 //
 // Per window of L steps, chunks of ch steps from the last to the first:
 //   * emit_gamma: the chunk's states are rematerialised into the shared
@@ -55,11 +61,13 @@ gamma_ov2_backward_kernel(const float* __restrict__ y,
                           const float* __restrict__ tmx,
                           const int32_t* __restrict__ term, int L, int Km1,
                           int ch, const float* __restrict__ fpack,
-                          int emit_gamma, float* __restrict__ gam,
+                          int fstride, int emit_gamma,
+                          float* __restrict__ gam,
                           float* __restrict__ beta0) {
   extern __shared__ float smem[];
+  const float* fp = fpack + static_cast<size_t>(blockIdx.x) * fstride;
   ov2g::Consts c;
-  c.load(fpack, Km1);
+  c.load(fp, Km1);
   const int S = c.S;
   const int K1 = Km1;
   const int NT = ov2g::kThreads;
@@ -81,7 +89,7 @@ gamma_ov2_backward_kernel(const float* __restrict__ y,
   const int tb = term[b];
   const bool chained = has_init[b] != 0;
 
-  for (int i = tid; i < S; i += NT) mean_s[i] = fpack[6 + i];
+  for (int i = tid; i < S; i += NT) mean_s[i] = fp[6 + i];
   __syncthreads();
 
   for (int cc = Wc - 1; cc >= 0; --cc) {
@@ -188,7 +196,8 @@ extern "C" int gamma_ov2_backward(const float* y, const float* cp,
                                   const float* entry, const int32_t* has_init,
                                   const float* tmx, const int32_t* term,
                                   int B, int L, int Km1, int ch,
-                                  const float* fpack, int emit_gamma,
+                                  const float* fpack, int fstride,
+                                  int emit_gamma,
                                   float* gam, float* beta0, void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (Km1 < 1 || Km1 > 64 || ch < 2 || L % ch != 0 ||
@@ -204,7 +213,8 @@ extern "C" int gamma_ov2_backward(const float* y, const float* cp,
   const int smem = emit_gamma ? full : full - ch * S * static_cast<int>(sizeof(float));
   gamma_ov2_backward_kernel<<<B, ov2g::kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      y, cp, entry, has_init, tmx, term, L, Km1, ch, fpack, emit_gamma, gam,
+      y, cp, entry, has_init, tmx, term, L, Km1, ch, fpack, fstride,
+      emit_gamma, gam,
       beta0);
   return static_cast<int>(cudaGetLastError());
 }

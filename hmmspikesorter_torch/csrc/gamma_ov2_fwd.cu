@@ -3,7 +3,11 @@
 // windows with the fused Gaussian emission, from a per-window entry state.
 //
 // Replaces: hmmspikesorter_tpu/ops/pallas_gamma_ov2.py
-// `_make_ov2_fwd_kernel` (per_lane=False, launched by `_gamma_ov2_impl`).
+// `_make_ov2_fwd_kernel`, launched by `_gamma_ov2_impl`: kernel 9 with
+// per_lane=False (one constant pack for every window, fstride 0) and
+// kernel 17 with per_lane=True (the drift-tracked posteriors: window b
+// reads its own (6 + S) row of the pack, fstride = 6 + S). The CTA loads
+// its row once; nothing else differs.
 //
 // Per window of L steps: where has_init is 1, step 0 is one ov2g::alpha_step
 // from the entry state (the previous window's terminal, recentred); where it
@@ -36,10 +40,11 @@ gamma_ov2_forward_kernel(const float* __restrict__ y,
                          const float* __restrict__ entry,
                          const int32_t* __restrict__ has_init, int L,
                          int Km1, int ch, const float* __restrict__ fpack,
-                         float* __restrict__ cp) {
+                         int fstride, float* __restrict__ cp) {
   extern __shared__ float smem[];
+  const float* fp = fpack + static_cast<size_t>(blockIdx.x) * fstride;
   ov2g::Consts c;
-  c.load(fpack, Km1);
+  c.load(fp, Km1);
   const int S = c.S;
   float* mean_s = smem;
   float* cur = smem + S;
@@ -52,7 +57,7 @@ gamma_ov2_forward_kernel(const float* __restrict__ y,
   const bool chained = has_init[b] != 0;
 
   for (int i = tid; i < S; i += ov2g::kThreads) {
-    mean_s[i] = fpack[6 + i];
+    mean_s[i] = fp[6 + i];
     if (chained) cur[i] = entry[static_cast<size_t>(b) * S + i];
   }
   __syncthreads();
@@ -80,7 +85,7 @@ gamma_ov2_forward_kernel(const float* __restrict__ y,
 extern "C" int gamma_ov2_forward(const float* y, const float* entry,
                                  const int32_t* has_init, int B, int L,
                                  int Km1, int ch, const float* fpack,
-                                 float* cp, void* stream) {
+                                 int fstride, float* cp, void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (Km1 < 1 || Km1 > 64 || ch < 1 || L % ch != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -92,6 +97,6 @@ extern "C" int gamma_ov2_forward(const float* y, const float* entry,
   if (err != cudaSuccess) return static_cast<int>(err);
   gamma_ov2_forward_kernel<<<B, ov2g::kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      y, entry, has_init, L, Km1, ch, fpack, cp);
+      y, entry, has_init, L, Km1, ch, fpack, fstride, cp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,19 @@
 //
 // Replaces: hmmspikesorter_tpu/ops/pallas_viterbi_mb.py `_make_kernel`
 // (launched by `_forward_native`), plus the termination argmax that the
-// JAX wrapper `ov2_decode_pallas_mb` takes outside its kernel.
+// JAX wrapper `ov2_decode_pallas_mb` takes outside its kernel. Three
+// launches of this one kernel stand for three TPU kernels:
+//   kernel 1   shared model: constants and means read at stride 0;
+//   kernel 16  `_make_kernel(per_lane=True)`, the drift-tracked decode:
+//              window b reads its own constant row and means row
+//              (cstride = 6, mstride = S);
+//   kernel 19  hmmspikesorter_tpu/ops/pallas_viterbi.py `_make_kernel`
+//              (the round-1 forward, one window per grid program, which
+//              is this kernel's grid): a shared model, and the final state
+//              scores written to vT (B, S) for ops/viterbi_ov2.py to unpack
+//              into that kernel's layout.
+// Each CTA loads its constants once; the step loop is the same for all
+// three.
 //
 // State (S = 1 + 2(K-1) + (K-1)^2 scores, flat order = the state index):
 //   [0] silent | [1, K) neuron 0 ring | [K, 2K-1) neuron 1 ring |
@@ -43,8 +55,19 @@ namespace {
 
 constexpr int kThreads = 512;
 
+// One constant row, packed by ops/viterbi_mb.Ov2Consts.pack:
+//   [lp0, lp1, lpz, two_lpz, econst, inv_2s2]
 struct Consts {
   float lp0, lp1, lpz, two_lpz, econst, inv_2s2;
+
+  __device__ void load(const float* row) {
+    lp0 = row[0];
+    lp1 = row[1];
+    lpz = row[2];
+    two_lpz = row[3];
+    econst = row[4];
+    inv_2s2 = row[5];
+  }
 };
 
 __device__ __forceinline__ float emit(float y, float m, const Consts& c) {
@@ -59,9 +82,10 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 __global__ void __launch_bounds__(kThreads)
 ov2_forward_kernel(const float* __restrict__ y,
                    const uint8_t* __restrict__ sil, int W, int Km1,
-                   const float* __restrict__ means, Consts c,
+                   const float* __restrict__ cpack, int cstride,
+                   const float* __restrict__ means, int mstride,
                    uint8_t* __restrict__ flags, uint8_t* __restrict__ rings,
-                   int32_t* __restrict__ xT) {
+                   int32_t* __restrict__ xT, float* __restrict__ vT) {
   extern __shared__ float smem[];
   __shared__ float red_v[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
@@ -76,8 +100,11 @@ ov2_forward_kernel(const float* __restrict__ y,
   const float* yb = y + static_cast<size_t>(b) * W;
   uint8_t* fb = flags + static_cast<size_t>(b) * W;
   uint8_t* rb = rings + static_cast<size_t>(b) * W * Km1;
+  const float* mb = means + static_cast<size_t>(b) * mstride;
+  Consts c;
+  c.load(cpack + static_cast<size_t>(b) * cstride);
 
-  for (int i = tid; i < S; i += blockDim.x) mean_s[i] = means[i];
+  for (int i = tid; i < S; i += blockDim.x) mean_s[i] = mb[i];
   __syncthreads();
 
   // t = 0: emission-only init; flagged windows get the forced silent start
@@ -160,6 +187,11 @@ ov2_forward_kernel(const float* __restrict__ y,
     nxt = tmp;
   }
 
+  if (vT != nullptr) {
+    float* vb = vT + static_cast<size_t>(b) * S;
+    for (int i = tid; i < S; i += blockDim.x) vb[i] = cur[i];
+  }
+
   // termination: first max over the flat state, lowest index on ties
   float bv = -INFINITY;
   int bi = S;
@@ -198,20 +230,23 @@ ov2_forward_kernel(const float* __restrict__ y,
 
 }  // namespace
 
+// cpack: the constant rows, read at b * cstride; means: the state means,
+// read at b * mstride (stride 0: one model for every window); vT: null, or
+// (B, S) for the final state scores.
 extern "C" int ov2_forward_mb(const float* y, const uint8_t* sil, int B,
-                              int W, int Km1, const float* means, float lp0,
-                              float lp1, float lpz, float two_lpz,
-                              float econst, float inv_2s2, uint8_t* flags,
-                              uint8_t* rings, int32_t* xT, void* stream) {
+                              int W, int Km1, const float* cpack,
+                              int cstride, const float* means, int mstride,
+                              uint8_t* flags, uint8_t* rings, int32_t* xT,
+                              float* vT, void* stream) {
   if (B <= 0 || W <= 0) return 0;
+  if (Km1 < 1 || Km1 > 64) return static_cast<int>(cudaErrorInvalidValue);
   const int S = 1 + 2 * Km1 + Km1 * Km1;
   const int smem = 3 * S * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       ov2_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Consts c{lp0, lp1, lpz, two_lpz, econst, inv_2s2};
   ov2_forward_kernel<<<B, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      y, sil, W, Km1, means, c, flags, rings, xT);
+      y, sil, W, Km1, cpack, cstride, means, mstride, flags, rings, xT, vT);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,11 @@ half): the reference's StatsBase verbs for a known template model
   -> train/em.train_model); `refit_template_model` — warm-start EM
   (fit!, fit.jl:49-52); `fit` — train then decode (fit.jl:1-4). On a CUDA
   device the E-step runs kernels 5-6 (ops/fb_mb.py).
-* `predict` — reconstruction (fit.jl:54-56), `bic` (fit.jl:68-72),
-  `loglikelihood` (types.jl:32).
+* `fit_spiking_model_adaptive` — the drift-adaptive decode (online-EM
+  template tracking, then each chunk under its own templates,
+  train/adaptive.py; kernels 16 + 2 on the card).
+* `predict` — reconstruction (fit.jl:54-56; per chunk for a tracked
+  decode), `bic` (fit.jl:68-72), `loglikelihood` (types.jl:32).
 
 Entry points run on `cuda` unless `device="cpu"` is passed; the working
 dtype is float32 on cuda and float64 on the CPU unless `dtype` is given.
@@ -343,12 +346,58 @@ def fit(y, n_neurons: int = 3, K: int = 60, nsteps: int = 10, *,
     return fit_spiking_model(templates, y, device=device, dtype=dtype)
 
 
+def fit_spiking_model_adaptive(templates: HMMTemplateModel, y, *,
+                               chunk: int = 32768, forget: float = 0.3,
+                               inner_steps: int = 1, H: int | None = None,
+                               repair: bool = True,
+                               fb_mode: str | None = None,
+                               transfer: str = "dense", device=None,
+                               dtype=None) -> HMMSpikingModel:
+    """Drift-adaptive decode: track the templates through the recording
+    with online EM (train/adaptive.track_drift), then decode every chunk
+    with ITS OWN adapted templates (train/adaptive.decode_tracked; on the
+    card the N=2 overlap topology runs kernels 16 + 2).
+
+    Use when waveforms drift over the recording (electrode micro-motion):
+    a stationary decode double-counts or misses drifted spikes; the tracked
+    decode follows them. The returned model carries the fast path's extras
+    plus `track`, the per-chunk parameter trajectory (its `lls` are a drift
+    monitor). With no template left it returns the stationary paths'
+    all-silent null model."""
+    from ..train.adaptive import decode_tracked, track_drift
+
+    if templates.n_neurons == 0:
+        # training can prune every template; keep the stationary paths'
+        # degenerate-null contract (valid all-silent model, finite ll)
+        model = _all_silent_model(templates, np.asarray(y, np.float64))
+        model.spike_onsets = []
+        return model
+    dev, dt = _resolve(device, dtype)
+    tr = track_drift(templates, y, chunk=chunk, forget=forget,
+                     inner_steps=inner_steps, fb_mode=fb_mode, device=dev,
+                     dtype=dt)
+    return decode_tracked(tr, y, H=H, repair=repair, transfer=transfer,
+                          device=dev, dtype=dt)
+
+
 def predict(model: HMMSpikingModel, *, device=None,
             dtype=None) -> np.ndarray:
-    """Reconstructed (denoised) signal (reference fit.jl:54-56)."""
+    """Reconstructed (denoised) signal (reference fit.jl:54-56). A
+    drift-decoded model (it carries `.track`) reconstructs each chunk span
+    with ITS OWN tracked templates: the last chunk's set alone would
+    mis-amplitude early spikes under drift."""
     dev, dt = _resolve(device, dtype)
     tm = model.template_model
-    return reconstruct_signal(model.ml_seq, tm.state_space.states,
+    states = tm.state_space.states
+    track = getattr(model, "track", None)
+    if track is not None and not track.is_mc:
+        out = np.empty(len(model.ml_seq))
+        for c, (s, e) in enumerate(track.bounds):
+            out[s:e] = reconstruct_signal(
+                model.ml_seq[s:e], states,
+                as_float(track.mu[c], dt, dev)).cpu().numpy()
+        return out
+    return reconstruct_signal(model.ml_seq, states,
                               as_float(tm.mu, dt, dev)).cpu().numpy()
 
 

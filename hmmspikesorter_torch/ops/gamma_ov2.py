@@ -1,8 +1,8 @@
 """Exact onset posteriors on the N=2 pairwise-overlap space — the production
-confidence topology (S = 3600 at K=60): the two CUDA kernels of the chained
+confidence topology (S = 3600 at K=60): the CUDA kernels of the chained
 two-pass, their wrappers, launch counters, plain PyTorch versions and the
-chained two-pass (the counterpart of the JAX package's ops/pallas_gamma_ov2.py,
-shared parameters).
+chained two-pass (the counterpart of the JAX package's
+ops/pallas_gamma_ov2.py).
 
 Kernel 9, `gamma_ov2_fwd` (csrc/gamma_ov2_fwd.cu), replaces the Pallas
 forward `_make_ov2_fwd_kernel` of hmmspikesorter_tpu/ops/pallas_gamma_ov2.py:
@@ -18,6 +18,12 @@ onset rows exp(alpha + beta - z_t): the onset of neuron 0 is its single
 ring's slot 0 PLUS the pair grid's k1 = 0 row, neuron 1 symmetrically; z_t
 is the logsumexp over all S states. It also writes each window's
 first-position beta. emit_gamma=False is the chaining sweep (beta only).
+
+Kernels 17 and 18, `gamma_ov2_fwd_tracked` and `gamma_ov2_bwd_tracked` (the
+same sources), replace the same two with per_lane=True: each window under
+the parameters of the chunk that owns it (the drift-tracked posteriors,
+core/posterior.onset_posteriors_tracked); the boundary step's terminal beta
+runs under the next window's parameters (terminal_exits).
 
 Layout: [silent | ring 0 | ring 1 | pair grid k1-major], core/state_space's
 N=2 overlap order. Windows are disjoint: window b covers [bL, bL+L) of the
@@ -49,8 +55,8 @@ from ..core.posterior import _ov2_fb_block, _recenter, _shift_down, _shift_up
 from ..utils.device import default_dtype, resolve_device
 from .fb_mb import SMEM_LIMIT, _lae, _tree_sum
 from .gamma_mb import _check_geometry, chain_inputs, device_budget
-from .viterbi_mb import KP, Ov2Consts, _I, _P, _check_cuda, _lib, _stream, \
-    ov2_consts
+from .viterbi_mb import KP, Ov2Consts, _I, _P, _check_cuda, _col, _lib, \
+    _stream, ov2_consts
 
 # Steps per checkpoint chunk. Kernel 10 keeps (CH2 + 3) S floats in shared
 # memory (remat slab, two beta buffers, means): at K=60, S=3600, CH2=4 is
@@ -73,30 +79,34 @@ def ov2_gamma_kernel_ok(K: int) -> bool:
     return 2 <= K and K - 1 <= KP and ov2_smem_bytes(K - 1) <= SMEM_LIMIT
 
 
-def ov2_gamma_hbm_bytes(T: int, K: int, L: int = 4096) -> int:
+def ov2_gamma_hbm_bytes(T: int, K: int, L: int = 4096,
+                        per_window: bool = False) -> int:
     """Device memory of one chained call: the state checkpoints of one
     forward pass dominate ((T/CH2) S floats: 7.5 GB at T=2^21, K=60), plus
     the posteriors, the windows and the per-window entry/exit/terminal
-    states."""
+    states; per_window (kernels 17-18) adds the (B, 6 + S) constant pack."""
     S = 1 + 2 * (K - 1) + (K - 1) ** 2
     B = -(-T // L)
-    return 4 * (B * (L // CH2) * S + B * L * 2 + 2 * B * L + 8 * B * S)
+    pack = B * (6 + S) if per_window else 0
+    return 4 * (B * (L // CH2) * S + B * L * 2 + 2 * B * L + 8 * B * S
+                + pack)
 
 
 def ov2_gamma_hbm_ok(T: int, K: int, L: int = 4096,
-                     budget: int | None = None) -> bool:
+                     budget: int | None = None,
+                     per_window: bool = False) -> bool:
     """The checkpoints fit the card's budget (ops/gamma_mb.device_budget:
     half its memory, 40 GB on an 80 GB H100, up to T of about 2^23 at
     K=60); past it the plain chained engines take over."""
     if budget is None:
         budget = device_budget()
-    return ov2_gamma_hbm_bytes(T, K, L) <= budget
+    return ov2_gamma_hbm_bytes(T, K, L, per_window) <= budget
 
 
 def _fpack(c: Ov2Consts):
-    """[lp0, lp1, lpz, two_lpz, econst, inv_2s2 | means (S)]."""
-    return torch.cat([torch.stack([c.lp0, c.lp1, c.lpz, c.two_lpz, c.econst,
-                                   c.inv_2s2]), c.means]).contiguous()
+    """[lp0, lp1, lpz, two_lpz, econst, inv_2s2 | means (S)]: (6 + S,) for
+    a shared model, (B, 6 + S) for one model per window."""
+    return torch.cat([c.pack(), c.means], dim=-1).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -115,7 +125,7 @@ def _lse4(a, b, c, d):
 def _emission(y_t, c: Ov2Consts):
     """(B, S) emission log-probs of the samples y_t (B,)."""
     d = y_t[:, None] - c.means
-    return c.econst - d * d * c.inv_2s2
+    return _col(c.econst) - d * d * _col(c.inv_2s2)
 
 
 def _parts(v, K1):
@@ -135,11 +145,12 @@ def _alpha_step(a, em, c: Ov2Consts):
     ns.copy_(_lse4(vs + c.two_lpz, end0 + c.lpz, end1 + c.lpz, vp[:, -1, -1]))
     n0[:, 0] = _lae((vs + c.lp0) + c.lpz, end1 + c.lp0)
     n1[:, 0] = _lae((vs + c.lp1) + c.lpz, end0 + c.lp1)
-    n0[:, 1:] = _lae(v0[:, :-1] + c.lpz, vp[:, :-1, -1])
-    n1[:, 1:] = _lae(v1[:, :-1] + c.lpz, vp[:, -1, :-1])
+    lpz, lp0, lp1 = _col(c.lpz), _col(c.lp0), _col(c.lp1)
+    n0[:, 1:] = _lae(v0[:, :-1] + lpz, vp[:, :-1, -1])
+    n1[:, 1:] = _lae(v1[:, :-1] + lpz, vp[:, -1, :-1])
     npp[:, 0, 0] = (vs + c.lp0) + c.lp1
-    npp[:, 0, 1:] = v1[:, :-1] + c.lp0
-    npp[:, 1:, 0] = v0[:, :-1] + c.lp1
+    npp[:, 0, 1:] = v1[:, :-1] + lp0
+    npp[:, 1:, 0] = v0[:, :-1] + lp1
     npp[:, 1:, 1:] = vp[:, :-1, :-1]
     return new + em
 
@@ -153,9 +164,10 @@ def _beta_step(be, c: Ov2Consts):
     ns, n0, n1, npp = _parts(new, K1)
     ns.copy_(_lse4(BS + c.two_lpz, (B0[:, 0] + c.lp0) + c.lpz,
                    (B1[:, 0] + c.lp1) + c.lpz, (BP[:, 0, 0] + c.lp0) + c.lp1))
-    n0[:, :-1] = _lae(B0[:, 1:] + c.lpz, BP[:, 1:, 0] + c.lp1)
+    lpz, lp0, lp1 = _col(c.lpz), _col(c.lp0), _col(c.lp1)
+    n0[:, :-1] = _lae(B0[:, 1:] + lpz, BP[:, 1:, 0] + lp1)
     n0[:, -1] = _lae(BS + c.lpz, B1[:, 0] + c.lp1)
-    n1[:, :-1] = _lae(B1[:, 1:] + c.lpz, BP[:, 0, 1:] + c.lp0)
+    n1[:, :-1] = _lae(B1[:, 1:] + lpz, BP[:, 0, 1:] + lp0)
     n1[:, -1] = _lae(BS + c.lpz, B0[:, 0] + c.lp0)
     npp[:, :-1, :-1] = BP[:, 1:, 1:]
     npp[:, :-1, -1] = B0[:, 1:]
@@ -269,28 +281,39 @@ def _check_fits(name, c: Ov2Consts, L, ch):
     _check_geometry(L, ch)
 
 
-def gamma_ov2_fwd(y_win, entry, has_init, c: Ov2Consts, ch: int = CH2):
-    """Kernel 9: (B, L) windows, (B, S) entries, (B,) int32 has_init ->
-    checkpoints (B, L/ch, S). CPU tensors take `gamma_ov2_fwd_plain`."""
-    if y_win.device.type == "cpu":
-        return gamma_ov2_fwd_plain(y_win, entry, has_init, c, ch)
+def _fwd_launch(name, y_win, entry, has_init, c: Ov2Consts, ch):
+    """Launches csrc/gamma_ov2_fwd.cu: the constant pack at stride 0 for a
+    shared model, one (6 + S) row per window for a per-window one."""
     B, L = y_win.shape
-    _check_fits("gamma_ov2_fwd", c, L, ch)
+    _check_fits(name, c, L, ch)
     fpack = _fpack(c)
-    _check_cuda("gamma_ov2_fwd", y_win=(y_win, torch.float32),
+    _check_cuda(name, y_win=(y_win, torch.float32),
                 entry=(entry, torch.float32), has_init=(has_init, torch.int32),
                 fpack=(fpack, torch.float32))
-    if entry.shape != (B, c.S) or has_init.shape != (B,):
-        raise ValueError("gamma_ov2_fwd: shape mismatch")
+    if (entry.shape != (B, c.S) or has_init.shape != (B,)
+            or fpack.shape != ((B,) if c.per_window else ()) + (6 + c.S,)):
+        raise ValueError(f"{name}: shape mismatch")
     cp = torch.empty((B, L // ch, c.S), dtype=torch.float32,
                      device=y_win.device)
     fn = _lib("gamma_ov2_fwd", "gamma_ov2_forward",
-              [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P])
     err = fn(y_win.data_ptr(), entry.data_ptr(), has_init.data_ptr(), B, L,
-             c.Km1, ch, fpack.data_ptr(), cp.data_ptr(),
-             _stream(y_win.device))
+             c.Km1, ch, fpack.data_ptr(), 6 + c.S if c.per_window else 0,
+             cp.data_ptr(), _stream(y_win.device))
     if err != 0:
-        raise RuntimeError(f"gamma_ov2_fwd: CUDA error {err} at launch")
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    return cp
+
+
+def gamma_ov2_fwd(y_win, entry, has_init, c: Ov2Consts, ch: int = CH2):
+    """Kernel 9: (B, L) windows, (B, S) entries, (B,) int32 has_init ->
+    checkpoints (B, L/ch, S). Per-window constants go to kernel 17
+    (`gamma_ov2_fwd_tracked`). CPU tensors take `gamma_ov2_fwd_plain`."""
+    if y_win.device.type == "cpu":
+        return gamma_ov2_fwd_plain(y_win, entry, has_init, c, ch)
+    if c.per_window:
+        return gamma_ov2_fwd_tracked(y_win, entry, has_init, c, ch)
+    cp = _fwd_launch("gamma_ov2_fwd", y_win, entry, has_init, c, ch)
     gamma_ov2_fwd.launches += 1
     return cp
 
@@ -298,44 +321,96 @@ def gamma_ov2_fwd(y_win, entry, has_init, c: Ov2Consts, ch: int = CH2):
 gamma_ov2_fwd.launches = 0
 
 
-def gamma_ov2_bwd(y_win, cp, entry, has_init, tmx, term, c: Ov2Consts,
-                  emit_gamma: bool, ch: int = CH2):
-    """Kernel 10: -> (gam (B, L, 2) or None, beta0 (B, S)). CPU tensors take
-    `gamma_ov2_bwd_plain`."""
+def gamma_ov2_fwd_tracked(y_win, entry, has_init, c: Ov2Consts,
+                          ch: int = CH2):
+    """Kernel 17 (the JAX `_make_ov2_fwd_kernel(per_lane=True)`): kernel 9
+    with each window under its own constants. CPU tensors take
+    `gamma_ov2_fwd_plain`."""
     if y_win.device.type == "cpu":
-        return gamma_ov2_bwd_plain(y_win, cp, entry, has_init, tmx, term, c,
-                                   emit_gamma, ch)
+        return gamma_ov2_fwd_plain(y_win, entry, has_init, c, ch)
+    if not c.per_window:
+        raise ValueError("gamma_ov2_fwd_tracked takes per-window constants")
+    cp = _fwd_launch("gamma_ov2_fwd_tracked", y_win, entry, has_init, c, ch)
+    gamma_ov2_fwd_tracked.launches += 1
+    return cp
+
+
+gamma_ov2_fwd_tracked.launches = 0
+
+
+def _bwd_launch(name, y_win, cp, entry, has_init, tmx, term, c: Ov2Consts,
+                emit_gamma: bool, ch):
+    """Launches csrc/gamma_ov2_bwd.cu, the constant pack as in
+    _fwd_launch."""
     B, L = y_win.shape
-    _check_fits("gamma_ov2_bwd", c, L, ch)
+    _check_fits(name, c, L, ch)
     if ch < 2:
-        raise ValueError("gamma_ov2_bwd: the chunk must be at least 2")
+        raise ValueError(f"{name}: the chunk must be at least 2")
     fpack = _fpack(c)
     f32, i32 = torch.float32, torch.int32
-    _check_cuda("gamma_ov2_bwd", y_win=(y_win, f32), cp=(cp, f32),
-                entry=(entry, f32), has_init=(has_init, i32), tmx=(tmx, f32),
-                term=(term, i32), fpack=(fpack, f32))
+    _check_cuda(name, y_win=(y_win, f32), cp=(cp, f32), entry=(entry, f32),
+                has_init=(has_init, i32), tmx=(tmx, f32), term=(term, i32),
+                fpack=(fpack, f32))
     if (cp.shape != (B, L // ch, c.S) or entry.shape != (B, c.S)
             or tmx.shape != (B, c.S) or has_init.shape != (B,)
-            or term.shape != (B,)):
-        raise ValueError("gamma_ov2_bwd: shape mismatch")
+            or term.shape != (B,)
+            or fpack.shape != ((B,) if c.per_window else ()) + (6 + c.S,)):
+        raise ValueError(f"{name}: shape mismatch")
     dev = y_win.device
     gam = (torch.empty((B, L, 2), dtype=f32, device=dev) if emit_gamma
            else None)
     beta0 = torch.empty((B, c.S), dtype=f32, device=dev)
     fn = _lib("gamma_ov2_bwd", "gamma_ov2_backward",
-              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P])
+              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+               _P])
     err = fn(y_win.data_ptr(), cp.data_ptr(), entry.data_ptr(),
              has_init.data_ptr(), tmx.data_ptr(), term.data_ptr(), B, L,
-             c.Km1, ch, fpack.data_ptr(), int(bool(emit_gamma)),
-             gam.data_ptr() if emit_gamma else None, beta0.data_ptr(),
-             _stream(dev))
+             c.Km1, ch, fpack.data_ptr(), 6 + c.S if c.per_window else 0,
+             int(bool(emit_gamma)), gam.data_ptr() if emit_gamma else None,
+             beta0.data_ptr(), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"gamma_ov2_bwd: CUDA error {err} at launch")
-    gamma_ov2_bwd.launches += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return gam, beta0
 
 
+def gamma_ov2_bwd(y_win, cp, entry, has_init, tmx, term, c: Ov2Consts,
+                  emit_gamma: bool, ch: int = CH2):
+    """Kernel 10: -> (gam (B, L, 2) or None, beta0 (B, S)). Per-window
+    constants go to kernel 18 (`gamma_ov2_bwd_tracked`). CPU tensors take
+    `gamma_ov2_bwd_plain`."""
+    if y_win.device.type == "cpu":
+        return gamma_ov2_bwd_plain(y_win, cp, entry, has_init, tmx, term, c,
+                                   emit_gamma, ch)
+    if c.per_window:
+        return gamma_ov2_bwd_tracked(y_win, cp, entry, has_init, tmx, term,
+                                     c, emit_gamma, ch)
+    out = _bwd_launch("gamma_ov2_bwd", y_win, cp, entry, has_init, tmx,
+                      term, c, emit_gamma, ch)
+    gamma_ov2_bwd.launches += 1
+    return out
+
+
 gamma_ov2_bwd.launches = 0
+
+
+def gamma_ov2_bwd_tracked(y_win, cp, entry, has_init, tmx, term,
+                          c: Ov2Consts, emit_gamma: bool, ch: int = CH2):
+    """Kernel 18 (the JAX `_make_ov2_gamma_kernel(per_lane=True)`): kernel
+    10 with each window under its own constants; the terminal betas tmx
+    come from `terminal_exits` under the next window's. CPU tensors take
+    `gamma_ov2_bwd_plain`."""
+    if y_win.device.type == "cpu":
+        return gamma_ov2_bwd_plain(y_win, cp, entry, has_init, tmx, term, c,
+                                   emit_gamma, ch)
+    if not c.per_window:
+        raise ValueError("gamma_ov2_bwd_tracked takes per-window constants")
+    out = _bwd_launch("gamma_ov2_bwd_tracked", y_win, cp, entry, has_init,
+                      tmx, term, c, emit_gamma, ch)
+    gamma_ov2_bwd_tracked.launches += 1
+    return out
+
+
+gamma_ov2_bwd_tracked.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -347,21 +422,48 @@ def terminal_exits(ex, ybnd, lastw, lp, mu, sigma):
     """Exit states (beta at the next window's first position) -> beta AT
     each window's terminal position: one batched reverse step through the
     boundary sample with the port's plain N=2 engine
-    (core/posterior._ov2_fb_block, as the JAX package's `_gamma_ov2_impl` runs its XLA twin);
-    zeros on the true last window (beta[T-1] = 0 exactly)."""
-    tf, _ = _ov2_fb_block(ex, ybnd[:, None], lp, mu, sigma, first=False,
-                          reverse=True, rows=False)
+    (core/posterior._ov2_fb_block, as the JAX package's `_gamma_ov2_impl`
+    runs its XLA twin); zeros on the true last window (beta[T-1] = 0
+    exactly).
+
+    Per-window parameters (lp (B, 2), mu (B, K, 2), sigma (B,), kernels
+    17-18): the boundary sample belongs to the NEXT window, so window b's
+    step runs under window b+1's parameters and the last window repeats
+    its own (the JAX `terminal_exits`' lp_x = [lp[1:], lp[-1:]]). Windows
+    whose next parameters are equal take one batched step together, so a
+    constant track reproduces the shared step bit for bit."""
+    if lp.ndim == 1:
+        tf, _ = _ov2_fb_block(ex, ybnd[:, None], lp, mu, sigma, first=False,
+                              reverse=True, rows=False)
+    else:
+        nxt = torch.cat([torch.arange(1, lp.shape[0], device=lp.device),
+                         torch.tensor([lp.shape[0] - 1], device=lp.device)])
+        rows = torch.cat([lp, mu.flatten(1), sigma[:, None]], dim=1)[nxt]
+        uniq, group = torch.unique(rows, dim=0, return_inverse=True)
+        tf = torch.empty_like(ex)
+        K = mu.shape[1]
+        for g in range(uniq.shape[0]):
+            idx = torch.nonzero(group == g)[:, 0]
+            r = uniq[g]
+            tf[idx], _ = _ov2_fb_block(
+                ex[idx], ybnd[idx, None], r[:2], r[2:2 + 2 * K].view(K, 2),
+                r[-1], first=False, reverse=True, rows=False)
     return torch.where((lastw != 0)[:, None], torch.zeros_like(tf),
                        tf).contiguous()
 
 
 def gamma_ov2_chain(y_win, ybnd, term, lastw, chained, c: Ov2Consts, lp, mu,
-                    sigma, refine: int = 1, ch: int = CH2):
-    """The chained two-pass through kernels 9-10 (their plain versions on
-    the CPU): (B, L, 2) onset posteriors. With refine=1 it launches kernel
-    9 twice (cold sweep, final forward) and kernel 10 twice (chaining sweep,
-    gamma pass); the recentring, the shifts and terminal_exits between
-    launches are torch code, as the JAX package runs them in XLA."""
+                    sigma, refine: int = 1, ch: int = CH2,
+                    plain: bool = False):
+    """The chained two-pass through kernels 9-10 — or 17-18 for per-window
+    c, lp (B, 2), mu (B, K, 2), sigma (B,) — (their plain versions on the
+    CPU, or everywhere with plain=True): (B, L, 2) onset posteriors. With
+    refine=1 it launches the forward twice (cold sweep, final forward) and
+    the backward twice (chaining sweep, gamma pass); the recentring, the
+    shifts and terminal_exits between launches are torch code, as the JAX
+    package runs them in XLA."""
+    fwd_k = gamma_ov2_fwd_plain if plain else gamma_ov2_fwd
+    bwd_k = gamma_ov2_bwd_plain if plain else gamma_ov2_bwd
     B = y_win.shape[0]
     zero = torch.zeros((B, c.S), dtype=y_win.dtype, device=y_win.device)
     no_init = torch.zeros_like(chained)
@@ -369,23 +471,20 @@ def gamma_ov2_chain(y_win, ybnd, term, lastw, chained, c: Ov2Consts, lp, mu,
     def entries(cp):
         return _shift_down(_recenter(cp[:, -1]))
 
-    entry = entries(gamma_ov2_fwd(y_win, zero, no_init, c, ch))
+    entry = entries(fwd_k(y_win, zero, no_init, c, ch))
     for _ in range(max(0, refine - 1)):
-        entry = entries(gamma_ov2_fwd(y_win, entry, chained, c, ch))
-    cp = gamma_ov2_fwd(y_win, entry, chained, c, ch)          # final forward
+        entry = entries(fwd_k(y_win, entry, chained, c, ch))
+    cp = fwd_k(y_win, entry, chained, c, ch)                  # final forward
 
     def tmx(ex):
         return terminal_exits(ex, ybnd, lastw, lp, mu, sigma)
 
-    _, b0 = gamma_ov2_bwd(y_win, cp, entry, chained, tmx(zero), term, c,
-                          False, ch)
+    _, b0 = bwd_k(y_win, cp, entry, chained, tmx(zero), term, c, False, ch)
     ex = _shift_up(_recenter(b0))
     for _ in range(max(0, refine - 1)):
-        _, b0 = gamma_ov2_bwd(y_win, cp, entry, chained, tmx(ex), term, c,
-                              False, ch)
+        _, b0 = bwd_k(y_win, cp, entry, chained, tmx(ex), term, c, False, ch)
         ex = _shift_up(_recenter(b0))
-    gam, _ = gamma_ov2_bwd(y_win, cp, entry, chained, tmx(ex), term, c, True,
-                           ch)
+    gam, _ = bwd_k(y_win, cp, entry, chained, tmx(ex), term, c, True, ch)
     return gam
 
 
@@ -413,4 +512,40 @@ def onset_gammas_cuda_ov2(y, lp, mu, sigma, *, L: int = 4096,
         device=dev, dtype=dt) for v in (lp, mu, sigma))
     gam = gamma_ov2_chain(*chain_inputs(y, T, L, dt, dev), c, lp_d, mu_d,
                           sg_d, refine=refine)
+    return gam.reshape(-1, 2)[:T].cpu().numpy().astype(np.float64)
+
+
+def onset_gammas_cuda_ov2_tracked(y, lp_all, mu_all, sg_all, *, L: int = 4096,
+                                  refine: int = 1, device=None, dtype=None,
+                                  plain: bool = False) -> np.ndarray:
+    """(T, 2) EXACT onset posteriors under PER-WINDOW parameters (the port
+    of `onset_gammas_pallas_ov2_tracked`, the drift-tracked confidence
+    path) through kernels 17-18: window b = y[bL:(b+1)L] is evaluated under
+    (lp_all[b], mu_all[b], sg_all[b]) and the chained handoffs realise the
+    exact piecewise-parameter forward-backward, the boundary step under the
+    next window's parameters (terminal_exits). float32 on the card; on the
+    CPU the plain versions, float64 by default; plain=True runs the plain
+    versions on the card too (the reference of the chip check). Requires
+    N == 2, K-1 <= 64, L a multiple of CH2 and one parameter row per window,
+    B = ceil(T/L) >= 2."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev) if dtype is None else dtype
+    y = np.asarray(y)
+    T = y.shape[0]
+    lp_all, mu_all, sg_all = (np.asarray(v, np.float64)
+                              for v in (lp_all, mu_all, sg_all))
+    B, K, N = mu_all.shape
+    if N != 2:
+        raise ValueError("the ov2 gamma kernels require exactly 2 templates")
+    if not ov2_gamma_kernel_ok(K):
+        raise ValueError(f"the ov2 gamma kernels support K <= {KP + 1}")
+    _check_geometry(L, CH2)
+    if B != -(-T // L) or B < 2:
+        raise ValueError(f"need one parameter row per window (B={B} vs "
+                         f"ceil(T/L)={-(-T // L)}), at least two")
+    c = ov2_consts(lp_all, mu_all, sg_all, dtype=dt, device=dev)
+    lp_d, mu_d, sg_d = (torch.as_tensor(v).to(device=dev, dtype=dt)
+                        for v in (lp_all, mu_all, sg_all))
+    gam = gamma_ov2_chain(*chain_inputs(y, T, L, dt, dev), c, lp_d, mu_d,
+                          sg_d, refine=refine, plain=plain)
     return gam.reshape(-1, 2)[:T].cpu().numpy().astype(np.float64)

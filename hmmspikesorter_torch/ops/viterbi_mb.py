@@ -7,10 +7,13 @@ forward `_make_kernel` of hmmspikesorter_tpu/ops/pallas_viterbi_mb.py
 (launched by `_forward_native`): fused Gaussian emission + max-plus
 forward, emission-only init with a per-window forced silent start, strict
 first-max tie-breaks, and the termination argmax inside the kernel.
-Kernel 2, `ov2_backtrace_mb` (csrc/viterbi_ov2_bt.cu), replaces
-`_make_backtrace_kernel` (launched by `_backtrace_mb_pallas`): the
-per-window pointer chase. The .cu files say what bounds each kernel on the
-card and what its design does about it.
+Kernel 16, `ov2_forward_mb_tracked` (the same source), replaces
+`_make_kernel(per_lane=True)`: each window decodes under its own model
+(the drift-tracked decode, train/adaptive.py), its constants and means read
+from its own row. Kernel 2, `ov2_backtrace_mb` (csrc/viterbi_ov2_bt.cu),
+replaces `_make_backtrace_kernel` (launched by `_backtrace_mb_pallas`): the
+per-window pointer chase, which needs no model. The .cu files say what
+bounds each kernel on the card and what its design does about it.
 
 Each kernel and its plain version produce the same packed outputs, so each
 can be checked on its own:
@@ -44,9 +47,11 @@ KP = 64          # largest K-1 the kernels take (the JAX kernel's padded ring)
 @dataclasses.dataclass(frozen=True)
 class Ov2Consts:
     """Scalar constants and flat state means of one N=2 overlap model, in
-    the working dtype. Computed once, here, and handed unchanged to the
-    kernel and to the plain version (transcendentals differ by an ulp
-    between libraries; the two must see the same values)."""
+    the working dtype — or of B models, one per window (the drift-tracked
+    decode): then every scalar is a (B,) tensor and the means are (B, S).
+    Computed once, here, and handed unchanged to the kernel and to the
+    plain version (transcendentals differ by an ulp between libraries; the
+    two must see the same values)."""
 
     Km1: int
     lp0: torch.Tensor
@@ -55,34 +60,55 @@ class Ov2Consts:
     two_lpz: torch.Tensor
     econst: torch.Tensor          # -HALF_LOG_2PI - log(sigma)
     inv_2s2: torch.Tensor         # 1 / (2 sigma^2)
-    means: torch.Tensor           # (S,) state means in flat state order
+    means: torch.Tensor           # (S,) or (B, S) state means, flat order
 
     @property
     def S(self) -> int:
         return 1 + 2 * self.Km1 + self.Km1 * self.Km1
 
+    @property
+    def per_window(self) -> bool:
+        return self.means.ndim == 2
+
+    def pack(self):
+        """(6,) or (B, 6) [lp0, lp1, lpz, two_lpz, econst, inv_2s2], the
+        kernels' constant rows."""
+        return torch.stack([self.lp0, self.lp1, self.lpz, self.two_lpz,
+                            self.econst, self.inv_2s2], dim=-1).contiguous()
+
+
+def _col(x):
+    """A per-window (B,) constant as a (B, 1) column against (B, n) rows; a
+    shared 0-d constant as it is."""
+    return x[:, None] if x.ndim == 1 else x
+
 
 def ov2_consts(lp, mu, sigma, *, dtype, device) -> Ov2Consts:
-    """lp: (2,) onset log-probs; mu: (K, 2) templates; sigma: noise std.
-    Same expressions, in the same dtype, as ring_viterbi_ov2 in the JAX
-    package (and `_forward_native`'s scalar constants)."""
+    """lp: (2,) onset log-probs; mu: (K, 2) templates; sigma: noise std —
+    or lp (B, 2), mu (B, K, 2), sigma (B,): one model per window. Same
+    expressions, in the same dtype, as ring_viterbi_ov2 in the JAX package
+    (and `_forward_native`'s scalar and per-lane constants, lpz row by
+    row)."""
     lp = as_float(lp, dtype, device)
-    if lp.ndim != 1:
-        raise NotImplementedError(
-            "per-window parameters need the per_lane variant of kernel 1 "
-            "(ROADMAP §1 step 11, drift-adaptive)")
     mu = as_float(mu, dtype, device)
-    if mu.ndim != 2 or mu.shape[1] != 2:
-        raise ValueError("the ov2 engines require (K, 2) templates")
-    Km1 = mu.shape[0] - 1
     sigma = as_float(sigma, dtype, device)
-    lpz = torch.log1p(-torch.exp(torch.sum(lp)))
+    if mu.shape[-1] != 2 or mu.ndim != lp.ndim + 1 or mu.ndim not in (2, 3):
+        raise ValueError("the ov2 engines require (K, 2) templates, or "
+                         "(B, K, 2) with (B, 2) lp and (B,) sigma")
+    if mu.ndim == 3 and (lp.shape != (mu.shape[0], 2)
+                         or sigma.shape != (mu.shape[0],)):
+        raise ValueError("per-window ov2 parameters need lp (B, 2), mu "
+                         "(B, K, 2) and sigma (B,)")
+    Km1 = mu.shape[-2] - 1
+    lpz = torch.log1p(-torch.exp(torch.sum(lp, dim=-1)))
+    a0, a1 = mu[..., 0, 0], mu[..., 0, 1]
+    b0, b1 = mu[..., 1:, 0], mu[..., 1:, 1]
     means = torch.cat([
-        (mu[0, 0] + mu[0, 1])[None],
-        mu[1:, 0] + mu[0, 1],
-        mu[1:, 1] + mu[0, 0],
-        (mu[1:, 0][:, None] + mu[1:, 1][None, :]).reshape(-1)])
-    return Ov2Consts(Km1=Km1, lp0=lp[0], lp1=lp[1], lpz=lpz,
+        (a0 + a1)[..., None],
+        b0 + a1[..., None],
+        b1 + a0[..., None],
+        (b0[..., :, None] + b1[..., None, :]).flatten(-2)], dim=-1)
+    return Ov2Consts(Km1=Km1, lp0=lp[..., 0], lp1=lp[..., 1], lpz=lpz,
                      two_lpz=2 * lpz,
                      econst=-HALF_LOG_2PI - torch.log(sigma),
                      inv_2s2=1.0 / (2.0 * sigma * sigma),
@@ -102,7 +128,7 @@ def labels_dtype(S: int) -> torch.dtype:
 def _ov2_emission(y_t, c: Ov2Consts):
     """(B, S) emission log-probs of samples y_t (B,)."""
     d = y_t[:, None] - c.means
-    return c.econst - d * d * c.inv_2s2
+    return _col(c.econst) - d * d * _col(c.inv_2s2)
 
 
 def _ov2_init(y0, sil, c: Ov2Consts):
@@ -150,11 +176,12 @@ def _ov2_transition(v, c, flags_t=None, rings_t=None):
     new[:, 1] = torch.maximum(on0a, on0b)
     new[:, 1 + K1] = torch.maximum(on1a, on1b)
     # ring slots k >= 1: [same ring + lpz | pair cell whose other exits]
-    a0 = v0[:, :-1] + c.lpz
+    lpz_c = _col(c.lpz)
+    a0 = v0[:, :-1] + lpz_c
     h0 = vp[:, :-1, -1]
     b0r = h0 > a0
     new[:, 2:1 + K1] = torch.where(b0r, h0, a0)
-    a1 = v1[:, :-1] + c.lpz
+    a1 = v1[:, :-1] + lpz_c
     h1 = vp[:, -1, :-1]
     b1r = h1 > a1
     new[:, 2 + K1:P] = torch.where(b1r, h1, a1)
@@ -162,8 +189,8 @@ def _ov2_transition(v, c, flags_t=None, rings_t=None):
     # diagonal shift, read from the old state only
     newp = new[:, P:].view(B, K1, K1)
     newp[:, 0, 0] = vs + c.lp0 + c.lp1
-    newp[:, 0, 1:] = v1[:, :-1] + c.lp0
-    newp[:, 1:, 0] = v0[:, :-1] + c.lp1
+    newp[:, 0, 1:] = v1[:, :-1] + _col(c.lp0)
+    newp[:, 1:, 0] = v0[:, :-1] + _col(c.lp1)
     newp[:, 1:, 1:] = vp[:, :-1, :-1]
     if flags_t is not None:
         bp = torch.where(
@@ -177,8 +204,16 @@ def _ov2_transition(v, c, flags_t=None, rings_t=None):
 
 
 def ov2_forward_mb_plain(y_win, sil, c: Ov2Consts):
-    """Plain version of kernel 1: (B, W) windows, (B,) bool silent-start
-    rows -> (flags, rings, xT), packed as the kernel packs them."""
+    """Plain version of kernels 1 and 16: (B, W) windows, (B,) bool
+    silent-start rows -> (flags, rings, xT), packed as the kernel packs
+    them; c shared or per window."""
+    flags, rings, v = ov2_forward_state_plain(y_win, sil, c)
+    return flags, rings, torch.argmax(v, dim=1).to(torch.int32)
+
+
+def ov2_forward_state_plain(y_win, sil, c: Ov2Consts):
+    """The plain forward with the final (B, S) state scores in place of
+    their argmax (what kernel 19 writes to vT)."""
     B, W = y_win.shape
     dev = y_win.device
     y = y_win.to(c.means.dtype)
@@ -187,7 +222,7 @@ def ov2_forward_mb_plain(y_win, sil, c: Ov2Consts):
     v = _ov2_init(y[:, 0], sil.to(torch.bool), c)
     for t in range(1, W):
         v = _ov2_step(v, y[:, t], c, flags[:, t], rings[:, t])
-    return flags, rings, torch.argmax(v, dim=1).to(torch.int32)
+    return flags, rings, v
 
 
 def ov2_backtrace_mb_plain(flags, rings, xT, Km1: int):
@@ -266,37 +301,67 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def ov2_forward_mb(y_win, sil, c: Ov2Consts):
-    """Kernel 1: (B, W) windows, (B,) bool silent-start rows ->
-    (flags, rings, xT). CPU tensors take `ov2_forward_mb_plain`."""
-    if y_win.device.type == "cpu":
-        return ov2_forward_mb_plain(y_win, sil, c)
+def _forward_launch(name, y_win, sil, c: Ov2Consts, vT=None):
+    """Launches csrc/viterbi_ov2_fwd.cu on (B, W) windows: constants and
+    means at stride 0 for a shared model, one row per window for a
+    per-window one; the final state scores into vT (B, S) when given."""
     B, W = y_win.shape
     if c.Km1 > KP:
-        raise ValueError(f"ov2_forward_mb supports K-1 <= {KP}")
+        raise ValueError(f"{name} supports K-1 <= {KP}")
     sil8 = sil.to(torch.uint8).contiguous()
-    _check_cuda("ov2_forward_mb", y_win=(y_win, torch.float32),
-                sil=(sil8, torch.uint8), means=(c.means, torch.float32))
-    if sil8.shape != (B,) or c.means.shape != (c.S,):
-        raise ValueError("ov2_forward_mb: shape mismatch")
+    cpack = c.pack()
+    _check_cuda(name, y_win=(y_win, torch.float32), sil=(sil8, torch.uint8),
+                cpack=(cpack, torch.float32), means=(c.means, torch.float32))
+    rows = (B,) if c.per_window else ()
+    if (sil8.shape != (B,) or c.means.shape != rows + (c.S,)
+            or cpack.shape != rows + (6,)):
+        raise ValueError(f"{name}: shape mismatch")
     dev = y_win.device
     flags = torch.empty((B, W), dtype=torch.uint8, device=dev)
     rings = torch.empty((B, W, c.Km1), dtype=torch.uint8, device=dev)
     xT = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _lib("viterbi_ov2_fwd", "ov2_forward_mb",
-              [_P, _P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _F, _P, _P, _P,
-               _P])
+              [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P])
     err = fn(y_win.data_ptr(), sil8.data_ptr(), B, W, c.Km1,
-             c.means.data_ptr(), c.lp0.item(), c.lp1.item(), c.lpz.item(),
-             c.two_lpz.item(), c.econst.item(), c.inv_2s2.item(),
-             flags.data_ptr(), rings.data_ptr(), xT.data_ptr(), _stream(dev))
+             cpack.data_ptr(), 6 if c.per_window else 0, c.means.data_ptr(),
+             c.S if c.per_window else 0, flags.data_ptr(), rings.data_ptr(),
+             xT.data_ptr(), None if vT is None else vT.data_ptr(),
+             _stream(dev))
     if err != 0:
-        raise RuntimeError(f"ov2_forward_mb: CUDA error {err} at launch")
-    ov2_forward_mb.launches += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return flags, rings, xT
 
 
+def ov2_forward_mb(y_win, sil, c: Ov2Consts):
+    """Kernel 1: (B, W) windows, (B,) bool silent-start rows ->
+    (flags, rings, xT). Per-window constants go to kernel 16
+    (`ov2_forward_mb_tracked`). CPU tensors take `ov2_forward_mb_plain`."""
+    if y_win.device.type == "cpu":
+        return ov2_forward_mb_plain(y_win, sil, c)
+    if c.per_window:
+        return ov2_forward_mb_tracked(y_win, sil, c)
+    out = _forward_launch("ov2_forward_mb", y_win, sil, c)
+    ov2_forward_mb.launches += 1
+    return out
+
+
 ov2_forward_mb.launches = 0
+
+
+def ov2_forward_mb_tracked(y_win, sil, c: Ov2Consts):
+    """Kernel 16 (the JAX `_make_kernel(per_lane=True)`): kernel 1 with each
+    window under its own constants, c from per-window parameters. CPU
+    tensors take `ov2_forward_mb_plain`."""
+    if y_win.device.type == "cpu":
+        return ov2_forward_mb_plain(y_win, sil, c)
+    if not c.per_window:
+        raise ValueError("ov2_forward_mb_tracked takes per-window constants")
+    out = _forward_launch("ov2_forward_mb_tracked", y_win, sil, c)
+    ov2_forward_mb_tracked.launches += 1
+    return out
+
+
+ov2_forward_mb_tracked.launches = 0
 
 
 def ov2_backtrace_mb(flags, rings, xT, Km1: int):
@@ -327,8 +392,8 @@ ov2_backtrace_mb.launches = 0
 
 
 def ov2_decode_mb(y_win, sil, c: Ov2Consts):
-    """(B, W) windows -> (B, W) labels through kernels 1 and 2 (the port
-    of `ov2_decode_pallas_mb`)."""
+    """(B, W) windows -> (B, W) labels through kernels 1 (or 16, for
+    per-window constants) and 2: the port of `ov2_decode_pallas_mb`."""
     flags, rings, xT = ov2_forward_mb(y_win, sil, c)
     return ov2_backtrace_mb(flags, rings, xT, c.Km1)
 

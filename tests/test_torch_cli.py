@@ -257,7 +257,7 @@ def test_main_on_the_cpu_writes_the_mat_file(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--transfer", "events", "--engine", "fast"], "item 3"),
     (["--channels", "all", "--engine", "fast"], "item 4"),
-    (["--adaptive"], "item 5"),
+    (["--adaptive", "--multichannel"], "item 5"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     tfile, dfile, *_ = _write_inputs(tmp_path)

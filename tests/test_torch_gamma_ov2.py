@@ -130,3 +130,155 @@ def test_plain_versions_match_jax_kernels_float32():
                                           0.3, L=64, device="cpu",
                                           dtype=torch.float32)
     assert np.abs(got - ref).max() < 1e-5
+
+
+# --------------------------------------------------------------------------
+# per-window parameters: kernels 17-18 (the drift-tracked posteriors)
+# --------------------------------------------------------------------------
+
+
+def _piecewise_reference(y, lp_all, mu_all, sg_all, L, own_step=False):
+    """float64 exact onset posteriors of the piecewise-parameter model, built
+    here from the state space's in-edge table alone: the model of window
+    b = t // L is in force for every step INTO sample t (its transition and
+    its emission), window 0's for the emission-only init at t = 0, and
+    beta[T-1] = 0. So the beta step from t+1 to t runs under the model of
+    the window owning t+1 — at a window's last sample, the NEXT window's.
+    (The JAX package's own test of the per-lane kernel checks only finite
+    values in [0, 1].) own_step=True charges the beta step to the window
+    owning t instead: the convention the kernels must NOT follow."""
+    from hmmspikesorter_tpu.core.state_space import build_state_space
+
+    T = len(y)
+    K = mu_all.shape[1]
+    ss = build_state_space(2, K, True)
+    st = np.asarray(ss.states)                       # (2, S)
+    S = st.shape[1]
+    tabs = [tuple(np.asarray(a) for a in ss.in_table(lp)) for lp in lp_all]
+    means = [mu[st[0], 0] + mu[st[1], 1] for mu in mu_all]
+
+    def em(t, b=None):
+        b = t // L if b is None else b
+        d = y[t] - means[b]
+        return (-0.5 * np.log(2 * np.pi) - np.log(sg_all[b])
+                - d * d / (2.0 * sg_all[b] ** 2))
+
+    def lse(v, axis):
+        m = np.max(v, axis=axis, keepdims=True)
+        m = np.where(np.isfinite(m), m, 0.0)
+        return np.squeeze(m, axis) + np.log(np.sum(np.exp(v - m), axis=axis))
+
+    alpha = np.empty((T, S))
+    alpha[0] = em(0)
+    for t in range(1, T):
+        idx, w = tabs[t // L]
+        alpha[t] = lse(alpha[t - 1][idx] + w, 1) + em(t)
+    beta = np.zeros((T, S))
+    for t in range(T - 2, -1, -1):
+        b = t // L if own_step else (t + 1) // L
+        idx, w = tabs[b]
+        v = w + (em(t + 1, b) + beta[t + 1])[:, None]   # (S, D) by target
+        out = np.full(S, -np.inf)
+        np.logaddexp.at(out, idx.ravel(), v.ravel())
+        beta[t] = out
+    g = alpha + beta
+    g = np.exp(g - lse(g, 1)[:, None])
+    return np.stack([g[:, st[n] == 1].sum(axis=1) for n in range(2)], axis=1)
+
+
+def _drifting_track(K, B, seed, sigma=0.3):
+    rng = np.random.default_rng(seed)
+    base = np.stack([create_spike_template(K, 3.0, 0.8, 0.2),
+                     create_spike_template(K, 4.0, 0.3, 0.2)], axis=1)
+    mu = np.stack([base * g for g in np.linspace(1.0, 1.6, B)])
+    lp = np.log(np.array([0.01, 0.006]) * rng.uniform(0.6, 1.4, (B, 2)))
+    return lp, mu, sigma * rng.uniform(0.85, 1.15, B)
+
+
+@pytest.mark.parametrize("K,T,L", [(6, 256, 64), (6, 233, 64),
+                                   (5, 300, 96), (2, 200, 64)])
+def test_per_window_chain_matches_piecewise_reference(K, T, L):
+    """The plain versions of kernels 17-18 (the chained two-pass with one
+    model per window, float64 on the CPU) within 1e-10 of the piecewise
+    exact forward-backward built above: drifting templates, rates and
+    noise; a ragged tail; a terminal mid-chunk; K=2."""
+    B = -(-T // L)
+    lp, mu, sg = _drifting_track(K, B, seed=K + T, sigma=1.2)
+    y = np.concatenate([create_signal(L, sg[b], np.exp(lp[b]), mu[b],
+                                      rng=np.random.default_rng(b))[0]
+                        for b in range(B)])[:T]
+    for p in range(L, T - K, L):      # a spike across every window boundary
+        y[p - K // 2:p - K // 2 + K - 1] += mu[p // L - 1, 1:, 0]
+    got = gamma_ov2.onset_gammas_cuda_ov2_tracked(y, lp, mu, sg, L=L,
+                                                  device="cpu")
+    ref = _piecewise_reference(y, lp, mu, sg, L)
+    assert got.shape == (T, 2) and got.dtype == np.float64
+    assert np.abs(got - ref).max() < 1e-10
+    assert ref.sum() > 1.0                           # onsets were scored
+    # the boundary step belongs to the next window: charging it to the
+    # window's own parameters is a different result at this noise level
+    wrong = _piecewise_reference(y, lp, mu, sg, L, own_step=True)
+    assert np.abs(wrong - ref).max() > 1e-6
+
+
+def test_per_window_constant_rows_equal_shared_chain():
+    """With every window under the same model, the plain versions of
+    kernels 17-18 give the checkpoints, first-position betas and posteriors
+    of kernels 9-10's plain chain bit for bit (the per-window terminal step
+    included); and the wrappers route per-window constants on the CPU to
+    the plain versions without counting a launch."""
+    from hmmspikesorter_torch.ops.gamma_mb import chain_inputs
+
+    K, T, L = 9, 377, 64
+    y, temps, pp, _ = _case(K, T)
+    B = -(-T // L)
+    lp = np.log(pp)
+    ins = chain_inputs(y, T, L, torch.float64, "cpu")
+    c1 = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float64, device="cpu")
+    lpB, muB, sgB = np.tile(lp, (B, 1)), np.stack([temps] * B), np.full(B, .3)
+    cB = vmb.ov2_consts(lpB, muB, sgB, dtype=torch.float64, device="cpu")
+    args1 = (torch.as_tensor(lp), torch.as_tensor(temps),
+             torch.tensor(0.3, dtype=torch.float64))
+    argsB = tuple(torch.as_tensor(v) for v in (lpB, muB, sgB))
+    n = (gamma_ov2.gamma_ov2_fwd_tracked.launches,
+         gamma_ov2.gamma_ov2_bwd_tracked.launches)
+    shared = gamma_ov2.gamma_ov2_chain(*ins, c1, *args1)
+    per = gamma_ov2.gamma_ov2_chain(*ins, cB, *argsB)
+    assert torch.equal(shared, per)
+    y_win, ybnd, term, lastw, chained = ins
+    ex = torch.randn(B, c1.S, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(0))
+    assert torch.equal(gamma_ov2.terminal_exits(ex, ybnd, lastw, *args1),
+                       gamma_ov2.terminal_exits(ex, ybnd, lastw, *argsB))
+    zero = torch.zeros((B, c1.S), dtype=torch.float64)
+    cp1 = gamma_ov2.gamma_ov2_fwd_plain(y_win, zero, chained, c1)
+    cpB = gamma_ov2.gamma_ov2_fwd_tracked(y_win, zero, chained, cB)
+    assert torch.equal(cp1, cpB)
+    g1 = gamma_ov2.gamma_ov2_bwd_plain(y_win, cp1, zero, chained, ex, term,
+                                       c1, True)
+    gB = gamma_ov2.gamma_ov2_bwd(y_win, cp1, zero, chained, ex, term, cB,
+                                 True)
+    assert all(torch.equal(a, b) for a, b in zip(g1, gB))
+    assert n == (gamma_ov2.gamma_ov2_fwd_tracked.launches,
+                 gamma_ov2.gamma_ov2_bwd_tracked.launches)
+
+
+def test_per_window_guards():
+    """onset_gammas_cuda_ov2_tracked's guards, as the JAX
+    onset_gammas_pallas_ov2_tracked's: one parameter row per window and at
+    least two windows, N=2, L a multiple of the chunk."""
+    lp, mu, sg = _drifting_track(6, 4, seed=1)
+    y = np.zeros(256)
+    run = gamma_ov2.onset_gammas_cuda_ov2_tracked
+    with pytest.raises(ValueError, match="one parameter row"):
+        run(y, lp[:3], mu[:3], sg[:3], L=64, device="cpu")
+    with pytest.raises(ValueError, match="one parameter row"):
+        run(y[:64], lp[:1], mu[:1], sg[:1], L=64, device="cpu")
+    with pytest.raises(ValueError):
+        run(y, lp, np.concatenate([mu, mu[..., :1]], axis=2), sg, L=64,
+            device="cpu")
+    with pytest.raises(ValueError):
+        run(y[:255], lp, mu, sg, L=66, device="cpu")
+    assert (gamma_ov2.ov2_gamma_hbm_bytes(1 << 21, 60, 4096, per_window=True)
+            - gamma_ov2.ov2_gamma_hbm_bytes(1 << 21, 60, 4096)
+            == 4 * 512 * (6 + 3600))

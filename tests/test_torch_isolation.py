@@ -106,6 +106,14 @@ def test_cli_slice_modules_are_covered(mod):
     test_posterior_slice_modules_are_covered(mod)
 
 
+@pytest.mark.parametrize("mod", ["train.adaptive", "ops.viterbi_ov2"])
+def test_drift_slice_modules_are_covered(mod):
+    """The drift-adaptive slice's modules (and kernel 19's) are among the
+    files the source scan reads and import on their own with torch, numpy
+    and scipy only."""
+    test_posterior_slice_modules_are_covered(mod)
+
+
 def test_cli_imports_h5py_only_in_a_loader(tmp_path):
     """Importing hmmspikesorter_torch.cli loads no h5py (the GPU host has
     none); a loader imports it when it runs."""

@@ -1,11 +1,12 @@
-"""The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2),
+"""The CUDA kernels of hmmspikesorter_torch/ops/viterbi_mb.py (N=2, and
+kernel 16 with one model per window), ops/viterbi_ov2.py (kernel 19),
 ops/viterbi_ovn_mb.py (general N, and kernel 11 of the multichannel
 decode), ops/fb_mb.py (the EM E-step, and kernels 12-13 of the
 multichannel one), ops/gamma_mb.py and ops/gamma_ov2.py (the chained onset
-posteriors) against their plain PyTorch versions on the card: packed
-outputs, labels, checkpoints, per-step logsumexps, EM statistics,
-posteriors and betas exactly equal; and the multichannel channel
-projection in full float32.
+posteriors, and kernels 17-18 with one model per window) against their
+plain PyTorch versions on the card: packed outputs, labels, checkpoints,
+per-step logsumexps, EM statistics, posteriors and betas exactly equal;
+and the multichannel channel projection in full float32.
 
 Needs an NVIDIA GPU with nvcc; every test skips without one. This file
 imports neither jax nor the JAX package, so it runs on a machine without
@@ -426,6 +427,165 @@ def test_gamma_kernels_refuse_what_they_cannot_take(cuda):
                               chained, big, 16)
     with pytest.raises(ValueError, match="multiple"):
         gamma_ov2.onset_gammas_cuda_ov2(y[0], lp, temps, 0.3, L=66)
+
+
+# --- drift-tracked: kernel 16 (kernel 1 with per-window constants), kernels
+# 17-18 (kernels 9-10 with per-window constants) and kernel 19 (the round-1
+# forward in the JAX layout)
+
+
+def _tracked_params(K, B, seed):
+    """Per-window (lp (B, 2), mu (B, K, 2), sigma (B,)): a growing gain,
+    jittered rates and noise."""
+    rng = np.random.default_rng(seed)
+    base = np.stack([create_spike_template(K, 3.0, 0.8, 0.2),
+                     create_spike_template(K, 4.0, 0.3, 0.2)], axis=1)
+    mu = np.stack([base * g for g in np.linspace(1.0, 1.7, B)])
+    lp = np.log(np.array([0.01, 0.006]) * rng.uniform(0.6, 1.4, (B, 2)))
+    return lp, mu, 0.3 * rng.uniform(0.85, 1.15, B)
+
+
+@pytest.mark.parametrize("K,B,W,silent", [
+    (2, 3, 17, "first"),
+    (12, 5, 128, "alternate"),
+    (60, 9, 700, "first"),
+    (65, 4, 257, "none"),
+])
+def test_tracked_forward_kernel_equals_plain(cuda, K, B, W, silent):
+    """Kernel 16: each window under its own model, bit for bit against the
+    plain version; kernel 2 on its choices; the launch counted on kernel
+    16's wrapper, not kernel 1's; constant rows give kernel 1's output."""
+    y, _, _ = _problem(K, B, W, seed=K + 2 * B)
+    lp, mu, sg = _tracked_params(K, B, seed=K)
+    y = y * np.linspace(1.0, 1.7, B)[:, None]
+    c = vmb.ov2_consts(lp, mu, sg, dtype=torch.float32, device=cuda)
+    y_t = torch.as_tensor(y, dtype=torch.float32, device=cuda)
+    sil = {"first": torch.arange(B, device=cuda) == 0,
+           "none": torch.zeros(B, dtype=torch.bool, device=cuda),
+           "alternate": torch.arange(B, device=cuda) % 2 == 0}[silent]
+    n16, n1 = vmb.ov2_forward_mb_tracked.launches, vmb.ov2_forward_mb.launches
+    got = vmb.ov2_forward_mb(y_t, sil, c)
+    ref = vmb.ov2_forward_mb_plain(y_t, sil, c)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(vmb.ov2_backtrace_mb(*ref, c.Km1),
+                       vmb.ov2_backtrace_mb_plain(*ref, c.Km1))
+    assert vmb.ov2_forward_mb_tracked.launches == n16 + 1
+    assert vmb.ov2_forward_mb.launches == n1
+    c1 = vmb.ov2_consts(lp[0], mu[0], sg[0], dtype=torch.float32,
+                        device=cuda)
+    cB = vmb.ov2_consts(np.tile(lp[0], (B, 1)), np.stack([mu[0]] * B),
+                        np.full(B, sg[0]), dtype=torch.float32, device=cuda)
+    for a, b in zip(vmb.ov2_forward_mb_tracked(y_t, sil, cB),
+                    vmb.ov2_forward_mb(y_t, sil, c1)):
+        assert torch.equal(a, b)
+
+
+def test_tracked_decode_runs_kernel_16(cuda):
+    """decode_tracked on the card in float32 launches kernels 16 and 2 once
+    each and gives the plain versions' labels (the float32 decode through
+    the plain engines on the card)."""
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    K, chunk, B = 20, 2048, 4
+    lp, mu, sg = _tracked_params(K, B, seed=3)
+    rng = np.random.default_rng(4)
+    y = np.concatenate([create_signal_fast(chunk, sg[b], np.exp(lp[b]),
+                                           mu[b], rng=rng)[0]
+                        for b in range(B)])[:B * chunk - 300]
+    tr = tad.DriftTrack(lp=lp, mu=mu, sigma=sg, lls=np.zeros(B),
+                        bounds=[(s, min(s + chunk, len(y)))
+                                for s in range(0, len(y), chunk)],
+                        chunk=chunk, forget=0.5, allow_overlaps=True)
+    wr = (vmb.ov2_forward_mb_tracked, vmb.ov2_backtrace_mb)
+    before = [w.launches for w in wr]
+    m = tad.decode_tracked(tr, y)
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+    x_plain, _ = tad._tracked_overlap_save(
+        y, lp, mu, sg, L=chunk, H=max(4 * K, 64), overlaps=True,
+        device=cuda, dtype=torch.float64)
+    assert (m.ml_seq == x_plain.cpu().numpy()).mean() >= 0.999
+    assert np.isfinite(m.ll) and m.spike_onsets is not None
+
+
+@pytest.mark.parametrize("K", [2, 9, 12, 60, 65])
+def test_gamma_ov2_tracked_kernels_equal_plain(cuda, K):
+    """Kernels 17-18 on a ragged tail with chained and cold windows, random
+    entry/terminal states and one model per window: bit for bit; launches
+    counted on their own wrappers."""
+    L = 64
+    y, _, _ = _problem(K, 1, 3 * L + 37, seed=K)
+    B = 4
+    lp, mu, sg = _tracked_params(K, B, seed=K + 1)
+    c = vmb.ov2_consts(lp, mu, sg, dtype=torch.float32, device=cuda)
+    y_win, _, term, _, chained, entry, tmx = _gamma_inputs(
+        y[0], L, c.S, cuda, seed=K)
+    wr = (gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked,
+          gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd)
+    before = [w.launches for w in wr]
+    cp = gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c)
+    pcp = gamma_ov2.gamma_ov2_fwd_plain(y_win, entry, chained, c)
+    torch.cuda.synchronize()
+    assert torch.equal(cp, pcp)
+    for emit in (False, True):
+        got = gamma_ov2.gamma_ov2_bwd(y_win, pcp, entry, chained, tmx, term,
+                                      c, emit)
+        ref = gamma_ov2.gamma_ov2_bwd_plain(y_win, pcp, entry, chained, tmx,
+                                            term, c, emit)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        if emit:
+            assert torch.equal(got[0], ref[0])
+            assert torch.isfinite(got[0]).all()
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 2, 0, 0]
+
+
+@pytest.mark.parametrize("T,L", [(777, 128), (1024, 256)])
+def test_tracked_posteriors_run_kernels_17_18(cuda, T, L):
+    """onset_gammas_cuda_ov2_tracked on the card launches kernels 17-18
+    2 + 2 times and equals the same chain through the plain versions on
+    the card bit for bit (terminal_exits shared)."""
+    K = 12
+    B = -(-T // L)
+    lp, mu, sg = _tracked_params(K, B, seed=T)
+    y = np.concatenate([create_signal_fast(L, sg[b], np.exp(lp[b]), mu[b],
+                                           rng=np.random.default_rng(b))[0]
+                        for b in range(B)])[:T]
+    wr = (gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked)
+    before = [w.launches for w in wr]
+    p = gamma_ov2.onset_gammas_cuda_ov2_tracked(y, lp, mu, sg, L=L)
+    assert [w.launches - n for w, n in zip(wr, before)] == [2, 2]
+    ref = gamma_ov2.onset_gammas_cuda_ov2_tracked(y, lp, mu, sg, L=L,
+                                                  plain=True)
+    np.testing.assert_array_equal(p, ref)
+    ref64 = gamma_ov2.onset_gammas_cuda_ov2_tracked(y, lp, mu, sg, L=L,
+                                                    device="cpu")
+    assert np.abs(p - ref64).max() < 1e-4
+
+
+@pytest.mark.parametrize("K,B,W", [(2, 3, 17), (12, 4, 128), (60, 3, 500),
+                                   (65, 2, 257)])
+def test_round1_kernel_equals_plain(cuda, K, B, W):
+    """Kernel 19: the JAX round-1 layout (choices, final scores, pads) bit
+    for bit against its plain version; its decode equals kernels 1 + 2's
+    and the plain decode's."""
+    from hmmspikesorter_torch.ops import viterbi_ov2 as vo
+
+    y, temps, lp = _problem(K, B, W, seed=K + W)
+    y_t = torch.as_tensor(y, dtype=torch.float32, device=cuda)
+    n19 = vo.ov2_forward_cuda.launches
+    got = vo.ov2_forward_cuda(y_t, lp, temps, 0.3)
+    ref = vo.ov2_forward_plain(y_t, lp, temps, 0.3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert vo.ov2_forward_cuda.launches == n19 + 1
+    labels = vo.ov2_decode_cuda(y_t, lp, temps, 0.3)
+    c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+    sil = torch.arange(B, device=cuda) == 0
+    assert torch.equal(labels, vmb.ov2_decode_mb(y_t, sil, c))
+    assert torch.equal(labels, vo.ov2_decode_plain(y_t, lp, temps, 0.3))
 
 
 # --- multi-channel: kernel 11 (general-N forward from streams), kernels

@@ -202,7 +202,8 @@ def test_extract_units_with_confidence_matches_jax(tmp_path):
 def test_multichannel_and_tracked_models_raise():
     """A stationary (T, C) model gets its finite (T, N) posterior grid (the
     MC engines; their parity is test_torch_posterior_mc.py's); a
-    drift-tracked one still raises, and a (T, C) signal is no trace."""
+    multichannel drift-tracked one still raises (a single-channel one is
+    test_torch_adaptive.py's), and a (T, C) signal is no trace."""
     from hmmspikesorter_torch.models.multichannel import HMMTemplateModelMC
 
     _, tmod = _decoded(3000)
@@ -214,8 +215,8 @@ def test_multichannel_and_tracked_models_raise():
                          np.stack([tmod.y, tmod.y], axis=1))
     p = tp.model_posteriors(mc, **CPU)
     assert p.shape == (3000, 2) and np.isfinite(p).all()
-    tmod.track = object()
-    with pytest.raises(NotImplementedError, match="step 11"):
-        tp.spike_confidence(tmod, **CPU)
+    mc.track = object()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tp.spike_confidence(mc, **CPU)
     with pytest.raises(ValueError):
         tp.onset_posteriors(tmod.template_model, mc.y, **CPU)

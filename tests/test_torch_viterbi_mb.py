@@ -150,6 +150,80 @@ def test_block_engine_gates_on_cpu():
 
 
 def test_per_window_parameters_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="step 11"):
+    """Per-window parameters are kernel 16's (the drift-tracked decode);
+    ov2_consts takes them with one row per window and refuses mixed
+    shapes."""
+    with pytest.raises(ValueError, match="B, K, 2"):
         vmb.ov2_consts(np.log(np.full((3, 2), 0.01)), templates(12), 0.3,
                        dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="per-window"):
+        vmb.ov2_consts(np.log(np.full((3, 2), 0.01)),
+                       np.stack([templates(12)] * 3), np.full(2, 0.3),
+                       dtype=torch.float32, device="cpu")
+    c = vmb.ov2_consts(np.log(np.full((3, 2), 0.01)),
+                       np.stack([templates(12)] * 3), np.full(3, 0.3),
+                       dtype=torch.float32, device="cpu")
+    assert c.per_window and c.means.shape == (3, c.S)
+    assert c.pack().shape == (3, 6)
+
+
+def _drifting_params(K, B, seed):
+    """Per-window (lp (B, 2), mu (B, K, 2), sigma (B,)): the templates
+    scaled by a per-window gain, the rates and noise jittered."""
+    rng = np.random.default_rng(seed)
+    gain = np.linspace(1.0, 1.8, B)
+    mu = np.stack([templates(K) * g for g in gain])
+    lp = np.log(np.array([0.02, 0.012]) * rng.uniform(0.7, 1.3, (B, 2)))
+    return lp, mu, 0.3 * rng.uniform(0.9, 1.1, B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_per_window_plain_matches_vmapped_jax(dtype):
+    """The plain version of kernel 16 (per-window constants) gives the
+    labels of the JAX package's vmapped ring_viterbi_ov2 under the same
+    per-window parameters (tests/test_pallas_mb.py's reference for the
+    per-lane kernel), bit for bit."""
+    K, B = 14, 5
+    y_win, _, _ = _windows(K, B, seed=11)
+    lp, mu, sg = _drifting_params(K, B, seed=2)
+    y_win = y_win * np.linspace(1.0, 1.8, B)[:, None]
+    sil = np.arange(B) == 0
+    c = vmb.ov2_consts(lp, mu, sg, dtype=dtype, device="cpu")
+    labels = vmb.ov2_decode_mb_plain(torch.as_tensor(y_win).to(dtype),
+                                     torch.as_tensor(sil), c)
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    one = jax.vmap(lambda yy, s0, l_, m_, s_: ring_viterbi_ov2(
+        yy, l_, m_, s_, silent_start=s0, with_ll=False)[0])
+    ref = np.asarray(one(jnp.asarray(y_win, jd), jnp.asarray(sil),
+                         jnp.asarray(lp, jd), jnp.asarray(mu, jd),
+                         jnp.asarray(sg, jd)))
+    np.testing.assert_array_equal(labels.numpy(), ref)
+    assert (labels.numpy() >= 1 + 2 * (K - 1)).any()     # pair states seen
+
+
+def test_per_window_constant_rows_equal_shared():
+    """Kernel 16's plain version with every row the same model is kernel
+    1's plain version bit for bit: the packed choices, xT and the labels;
+    and the wrappers route per-window constants on the CPU to the plain
+    version without counting a launch."""
+    K, B = 12, 4
+    y_win, temps, lp = _windows(K, B, seed=5)
+    sil = torch.as_tensor(np.arange(B) == 0)
+    y = torch.as_tensor(y_win, dtype=torch.float32)
+    c1 = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device="cpu")
+    cB = vmb.ov2_consts(np.tile(lp, (B, 1)), np.stack([temps] * B),
+                        np.full(B, 0.3), dtype=torch.float32, device="cpu")
+    assert torch.equal(cB.pack(), c1.pack()[None].expand(B, 6))
+    assert torch.equal(cB.means, c1.means[None].expand(B, -1))
+    shared = vmb.ov2_forward_mb_plain(y, sil, c1)
+    n16 = vmb.ov2_forward_mb_tracked.launches
+    n1 = vmb.ov2_forward_mb.launches
+    for got in (vmb.ov2_forward_mb_plain(y, sil, cB),
+                vmb.ov2_forward_mb(y, sil, cB),
+                vmb.ov2_forward_mb_tracked(y, sil, cB)):
+        for a, b in zip(got, shared):
+            assert torch.equal(a, b)
+    assert torch.equal(vmb.ov2_decode_mb(y, sil, cB),
+                       vmb.ov2_decode_mb_plain(y, sil, c1))
+    assert vmb.ov2_forward_mb_tracked.launches == n16
+    assert vmb.ov2_forward_mb.launches == n1
