@@ -13,12 +13,18 @@ Phases, each printing one JSON line:
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
                rings, xT exactly equal), kernel 2 vs ov2_backtrace_mb_plain
-               (labels exactly equal); CUDA-event times and the card's bound
+               (labels exactly equal); CUDA-event times and the card's bound;
+               for kernel 1 (and kernels 16 and 19 below) the block shape
+               ops/viterbi_mb.ov2_launch_plan chose (threads, windows and
+               CTAs an SM is to hold, dynamic shared memory), the CTAs the
+               card holds on an SM at once and the time of a window step;
+               for kernels 1 and 16 their time at each block shape
   kernels_ov2_r1  kernel 19 (the round-1 N=2 forward in the JAX
                ov2_forward_pallas layout: kernel 1's source with its final
                state written out) on 16 of those windows: every output
                exactly equal to its plain version's; its labels equal
-               kernels 1 + 2's and the plain decode's
+               kernels 1 + 2's and the plain decode's; the kernel timed
+               alone, and the whole wrapper (constants, launch, layout)
   kernels_ovn  kernels 3-4 vs ovn_forward_mb_plain / ovn_backtrace_mb_plain
                (flags, rings, rowcol, xT and labels exactly equal) at the
                N=3 main path's shapes (B=128 windows of W=8704, K=60) and
@@ -389,6 +395,26 @@ def bound_of(row):
     """(bound_ms, bound_by) of one kernel row."""
     ops, byt = row["bound_ops_ms"], row["bound_bytes_ms"]
     return max(ops, byt), ("operations" if ops >= byt else "bytes")
+
+
+def ov2_design(vmb, B, W, Km1, dev, ms, launch=None):
+    """The block shape csrc/viterbi_ov2_fwd.cu ran with for B windows of W
+    (ops/viterbi_mb.ov2_launch_plan on this card), the CTAs of it that the
+    card holds on an SM at once and the time of one window step; with
+    `launch(shape)`, the kernel's time at each block shape it has."""
+    plan = vmb.ov2_plan_for(B, Km1, dev)
+    out = {"threads": plan.threads, "windows_per_cta": plan.windows_per_cta,
+           "ctas_per_sm_asked": plan.ctas_per_sm,
+           "resident_ctas_per_sm": vmb.ov2_occupancy(plan, Km1),
+           "dynamic_smem_bytes": plan.smem_bytes,
+           "irregular_warps": plan.irregular_warps,
+           "cells_per_thread": plan.cells_per_thread,
+           "sm_count": vmb.sm_count(dev), "us_per_step": ms * 1e3 / W}
+    if launch is not None:
+        out["ms_by_shape"] = {f"{t}x{n}": cuda_ms(lambda: launch((t, n)),
+                                                  reps=3)[0]
+                              for t, n in vmb.SHAPES}
+    return out
 
 
 def f32_ll_rtol(L, H):
@@ -1127,9 +1153,20 @@ def kernels_ov2_r1(vmb, y16, lp, temps, sigma, labels12, card):
     B, W = y16.shape
     Km1 = temps.shape[0] - 1
     S = 1 + 2 * Km1 + Km1 * Km1
+    # the kernel alone, as kernel 1 is timed: the wrapper's host-side
+    # constants (pageable copies) and its torch layout pass leave the card
+    # idle between launches, and their time follows the host's load
+    dev = y16.device
+    c = vmb.ov2_consts(lp, temps, sigma, dtype=torch.float32, device=dev)
+    sil = torch.arange(B, device=dev) == 0
+    vT = torch.empty((B, S), dtype=torch.float32, device=dev)
+    kern = lambda: vmb._forward_launch(                        # noqa: E731
+        "ov2_forward_cuda", y16, sil, c, vT=vT)
+    kern()
+    ms, _ = cuda_ms(kern, reps=5)
     run = lambda: vo.ov2_forward_cuda(y16, lp, temps, sigma)  # noqa: E731
     run()
-    ms, outs = cuda_ms(run, reps=5)
+    wrapper_ms, outs = cuda_ms(run, reps=5)
     plain_ms, pouts = cuda_ms(
         lambda: vo.ov2_forward_plain(y16, lp, temps, sigma), reps=1)
     err = max_abs_err(list(zip(outs, pouts)))
@@ -1148,10 +1185,12 @@ def kernels_ov2_r1(vmb, y16, lp, temps, sigma, labels12, card):
           "kernel 19's labels differ from the plain decode's")
     byt = (y16.numel() * 4 + 6 * 4 + S * 4 + B * W * (1 + Km1) + B * 4
            + B * S * 4)
-    row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+    row = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "max_abs_err": err,
            "bound_ops_ms": fwd_ops(B, W, Km1) / FP32_OPS_PER_S * 1e3,
            "bound_bytes_ms": byt / HBM_BYTES_PER_S * 1e3,
-           "launches": launches}
+           "launches": launches,
+           **ov2_design(vmb, B, W, Km1, dev, ms)}
     row["bound_ms"], row["bound_by"] = bound_of(row)
     emit({"phase": "kernels_ov2_r1", "B": B, "W": W, "K": Km1 + 1,
           "dtype": "float32", "card": card, "ov2_forward_cuda": row,
@@ -1287,7 +1326,11 @@ def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
     row16 = {"ms": k16_ms, "plain_ms": p16_ms, "plain_windows": P16,
              "max_abs_err": k16_err,
              "bound_ops_ms": fwd_ops(B, W, K - 1) / FP32_OPS_PER_S * 1e3,
-             "bound_bytes_ms": k16_bytes / HBM_BYTES_PER_S * 1e3}
+             "bound_bytes_ms": k16_bytes / HBM_BYTES_PER_S * 1e3,
+             **ov2_design(vmb, B, W, K - 1, dev, k16_ms,
+                          lambda shape: vmb._forward_launch(
+                              "ov2_forward_mb_tracked", y_win, sil, c16,
+                              shape=shape))}
     row16["bound_ms"], row16["bound_by"] = bound_of(row16)
     del y_win, f16, r16, pf, pr
 
@@ -1667,7 +1710,12 @@ def main():
           "ov2_forward_mb": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                              "bound_ops_ms": fwd_bound_ops,
                              "bound_bytes_ms": fwd_bound_bytes,
-                             "match": True},
+                             "match": True,
+                             **ov2_design(
+                                 vmb, B, W, Km1, dev, fwd_ms,
+                                 lambda shape: vmb._forward_launch(
+                                     "ov2_forward_mb", y_win, sil, c,
+                                     shape=shape))},
           "ov2_backtrace_mb": {"ms": bt_ms, "plain_ms": bt_plain_ms,
                                "bound_bytes_ms": bt_bound,
                                "ring_bytes_read": ring_reads,

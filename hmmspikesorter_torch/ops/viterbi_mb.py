@@ -13,7 +13,9 @@ Kernel 16, `ov2_forward_mb_tracked` (the same source), replaces
 from its own row. Kernel 2, `ov2_backtrace_mb` (csrc/viterbi_ov2_bt.cu),
 replaces `_make_backtrace_kernel` (launched by `_backtrace_mb_pallas`): the
 per-window pointer chase, which needs no model. The .cu files say what
-bounds each kernel on the card and what its design does about it.
+bounds each kernel on the card and what its design does about it; the
+forward's block shape and cell map, fixed per launch, are chosen here
+(`ov2_launch_plan`, `ov2_cell_map`) so that the CPU tests can hold them.
 
 Each kernel and its plain version produce the same packed outputs, so each
 can be checked on its own:
@@ -42,6 +44,91 @@ from ..utils.logmath import HALF_LOG_2PI
 from . import _build
 
 KP = 64          # largest K-1 the kernels take (the JAX kernel's padded ring)
+CH = 32          # kernel 1's steps per sample chunk and per choice flush
+
+
+@dataclasses.dataclass(frozen=True)
+class Ov2Plan:
+    """The block shape of csrc/viterbi_ov2_fwd.cu for one launch: one
+    window per CTA, `irregular_warps` warps on the silent state, the onsets,
+    the ring slots and pair row/column 0 (thread k takes item k), every
+    other thread on `cells_per_thread` interior pair cells; `ctas_per_sm`
+    CTAs are to share an SM (2 caps the registers at 64 a thread)."""
+
+    threads: int
+    ctas_per_sm: int
+    windows_per_cta: int
+    smem_bytes: int
+    irregular_warps: int
+    cells_per_thread: int
+
+
+def ov2_smem_bytes(Km1: int) -> int:
+    """Dynamic shared memory of the kernel (its `Layout`): cur and nxt, two
+    sample chunks, two flag and two ring buffers with 16 bytes of
+    co-alignment room, each rounded to 16 bytes."""
+    S = 1 + 2 * Km1 + Km1 * Km1
+    r16 = lambda n: -(-n // 16) * 16            # noqa: E731
+    return 2 * (r16(4 * S) + 4 * CH + r16(16 + CH) + r16(16 + CH * Km1))
+
+
+SHAPES = ((512, 1), (512, 2))     # (threads, ctas_per_sm)
+
+
+def ov2_launch_plan(B: int, Km1: int, sm_count: int,
+                    shape: tuple[int, int] | None = None) -> Ov2Plan:
+    """Kernel 1's block shape from the grid: one CTA of 512 threads on an
+    SM while every window has an SM of its own (kernels 16 and 19 at their
+    shapes), two sharing an SM once windows outnumber SMs (kernel 1: 256
+    windows on 132 SMs); `shape` forces one of SHAPES."""
+    if not 1 <= Km1 <= KP:
+        raise ValueError(f"ov2 forward supports 1 <= K-1 <= {KP}")
+    if shape is None:
+        shape = (512, 1) if B <= sm_count else (512, 2)
+    if shape not in SHAPES:
+        raise ValueError(f"ov2 forward block shapes are {SHAPES}")
+    threads, ctas = shape
+    irr = -(-Km1 // 32)
+    n_int = (Km1 - 1) ** 2
+    cpt = max(1, -(-n_int // (threads - 32 * irr)))
+    return Ov2Plan(threads=threads, ctas_per_sm=ctas, windows_per_cta=1,
+                   smem_bytes=ov2_smem_bytes(Km1), irregular_warps=irr,
+                   cells_per_thread=cpt)
+
+
+def ov2_cell_map(plan: Ov2Plan, Km1: int):
+    """The kernel's cell map, thread by thread: a list over the CTA's
+    threads of [(state index, [source indices])] that the thread writes
+    every step. Thread 0: silent, both onsets, the double onset; thread
+    k in [1, K-1): ring slot k of both neurons and the pair cells
+    (0, k), (k, 0); interior thread u: the cells j = u + r * (threads -
+    32 * irregular_warps) of the (K-2)^2 interior, each from i - K.
+    (A thread with fewer cells repeats its first: left out here.)"""
+    P = 1 + 2 * Km1
+    end0, end1, pend = Km1, 2 * Km1, P + Km1 * Km1 - 1
+    n_irr = 32 * plan.irregular_warps
+    ni = plan.threads - n_irr
+    side = Km1 - 1
+    out = []
+    for tid in range(plan.threads):
+        cells = []
+        if tid < n_irr:
+            k = tid
+            if k == 0:
+                cells = [(0, [0, end0, end1, pend]), (1, [0, end1]),
+                         (1 + Km1, [0, end0]), (P, [0])]
+            elif k < Km1:
+                cells = [(1 + k, [k, P + (k - 1) * Km1 + Km1 - 1]),
+                         (1 + Km1 + k, [Km1 + k, P + (Km1 - 1) * Km1 + k - 1]),
+                         (P + k, [Km1 + k]), (P + k * Km1, [k])]
+        else:
+            for r in range(plan.cells_per_thread):
+                j = tid - n_irr + r * ni
+                if j < side * side:
+                    i = P + (1 + j // side) * Km1 + 1 + j % side
+                    cells.append((i, [i - Km1 - 1]))
+        out.append(cells)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,10 +388,41 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _forward_launch(name, y_win, sil, c: Ov2Consts, vT=None):
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count (cudaDevAttrMultiProcessorCount)."""
+    i = torch.device(device).index or 0
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(
+            i).multi_processor_count
+    return _SM_COUNT[i]
+
+
+def ov2_plan_for(B: int, Km1: int, device, shape=None) -> Ov2Plan:
+    """`ov2_launch_plan` on the card holding the windows."""
+    return ov2_launch_plan(B, Km1, sm_count(device), shape)
+
+
+def ov2_occupancy(plan: Ov2Plan, Km1: int) -> int:
+    """CTAs of this block shape resident on one SM at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = _lib("viterbi_ov2_fwd", "ov2_forward_occupancy",
+              [_I, _I, _I, _I, _I, _P])
+    blocks = ctypes.c_int(0)
+    err = fn(Km1, plan.threads, plan.ctas_per_sm, plan.cells_per_thread,
+             plan.smem_bytes, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ov2_forward_occupancy: CUDA error {err}")
+    return blocks.value
+
+
+def _forward_launch(name, y_win, sil, c: Ov2Consts, vT=None, shape=None):
     """Launches csrc/viterbi_ov2_fwd.cu on (B, W) windows: constants and
     means at stride 0 for a shared model, one row per window for a
-    per-window one; the final state scores into vT (B, S) when given."""
+    per-window one; the final state scores into vT (B, S) when given; the
+    block shape from `ov2_plan_for` (`shape` forces one of SHAPES)."""
     B, W = y_win.shape
     if c.Km1 > KP:
         raise ValueError(f"{name} supports K-1 <= {KP}")
@@ -317,16 +435,19 @@ def _forward_launch(name, y_win, sil, c: Ov2Consts, vT=None):
             or cpack.shape != rows + (6,)):
         raise ValueError(f"{name}: shape mismatch")
     dev = y_win.device
+    plan = ov2_plan_for(B, c.Km1, dev, shape)
     flags = torch.empty((B, W), dtype=torch.uint8, device=dev)
     rings = torch.empty((B, W, c.Km1), dtype=torch.uint8, device=dev)
     xT = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _lib("viterbi_ov2_fwd", "ov2_forward_mb",
-              [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P])
+              [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+               _I, _I, _P])
     err = fn(y_win.data_ptr(), sil8.data_ptr(), B, W, c.Km1,
              cpack.data_ptr(), 6 if c.per_window else 0, c.means.data_ptr(),
              c.S if c.per_window else 0, flags.data_ptr(), rings.data_ptr(),
              xT.data_ptr(), None if vT is None else vT.data_ptr(),
-             _stream(dev))
+             plan.threads, plan.ctas_per_sm, plan.cells_per_thread,
+             plan.smem_bytes, _stream(dev))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return flags, rings, xT

@@ -51,12 +51,23 @@ def _problem(K, B, W, seed, pp=(0.01, 0.006)):
     return y, temps, np.log(np.asarray(pp))
 
 
+# B up to the SM count runs one CTA an SM, above it two (each case also runs
+# every block shape); W off the 32-step chunk at the ragged last
+# chunk, on it, and shorter than one chunk; K-1 at the edges of one and two
+# irregular warps
 @pytest.mark.parametrize("K,B,W,silent", [
     (2, 3, 17, "first"),      # one ring slot, one pair cell
+    (2, 2, 1, "all"),         # the init alone
+    (3, 4, 33, "none"),       # K-1 = 2: a single interior cell
     (12, 5, 128, "first"),
     (20, 7, 300, "none"),
+    (33, 3, 64, "alternate"),  # K-1 = 32: one irregular warp, full
+    (34, 3, 95, "first"),     # K-1 = 33: two irregular warps
+    (35, 2, 66, "none"),
     (60, 9, 700, "alternate"),
+    (60, 140, 45, "first"),   # more windows than SMs
     (65, 4, 257, "all"),      # K-1 = 64, the largest the kernels take
+    (65, 133, 32, "none"),
 ])
 def test_kernels_equal_plain(cuda, K, B, W, silent):
     y, temps, lp = _problem(K, B, W, seed=K + B)
@@ -80,6 +91,16 @@ def test_kernels_equal_plain(cuda, K, B, W, silent):
     assert torch.equal(labels, plain)
     assert vmb.ov2_forward_mb.launches == n_fwd + 1
     assert vmb.ov2_backtrace_mb.launches == n_bt + 1
+    plan = vmb.ov2_plan_for(B, c.Km1, cuda)
+    assert plan.ctas_per_sm == (1 if B <= vmb.sm_count(cuda) else 2)
+    for shape in vmb.SHAPES:
+        other = vmb._forward_launch("ov2_forward_mb", y_t, sil, c,
+                                    shape=shape)
+        torch.cuda.synchronize()
+        for a, b in zip(other, (pf, pr, px)):
+            assert torch.equal(a, b)
+        plan = vmb.ov2_plan_for(B, c.Km1, cuda, shape)
+        assert vmb.ov2_occupancy(plan, c.Km1) >= plan.ctas_per_sm
 
 
 def _ovn_problem(N, K, B, W, seed):
@@ -447,8 +468,10 @@ def _tracked_params(K, B, seed):
 
 @pytest.mark.parametrize("K,B,W,silent", [
     (2, 3, 17, "first"),
+    (3, 4, 33, "alternate"),
     (12, 5, 128, "alternate"),
     (60, 9, 700, "first"),
+    (60, 140, 40, "alternate"),   # more windows than SMs: two CTAs an SM
     (65, 4, 257, "none"),
 ])
 def test_tracked_forward_kernel_equals_plain(cuda, K, B, W, silent):
@@ -564,9 +587,11 @@ def test_tracked_posteriors_run_kernels_17_18(cuda, T, L):
     assert np.abs(p - ref64).max() < 1e-4
 
 
-@pytest.mark.parametrize("K,B,W", [(2, 3, 17), (12, 4, 128), (60, 3, 500),
-                                   (65, 2, 257)])
-def test_round1_kernel_equals_plain(cuda, K, B, W):
+@pytest.mark.parametrize("K,B,W,s0", [(2, 3, 17, True), (3, 4, 33, False),
+                                      (12, 4, 128, True), (60, 3, 500, False),
+                                      (60, 140, 31, True),
+                                      (65, 2, 257, True)])
+def test_round1_kernel_equals_plain(cuda, K, B, W, s0):
     """Kernel 19: the JAX round-1 layout (choices, final scores, pads) bit
     for bit against its plain version; its decode equals kernels 1 + 2's
     and the plain decode's."""
@@ -575,17 +600,18 @@ def test_round1_kernel_equals_plain(cuda, K, B, W):
     y, temps, lp = _problem(K, B, W, seed=K + W)
     y_t = torch.as_tensor(y, dtype=torch.float32, device=cuda)
     n19 = vo.ov2_forward_cuda.launches
-    got = vo.ov2_forward_cuda(y_t, lp, temps, 0.3)
-    ref = vo.ov2_forward_plain(y_t, lp, temps, 0.3)
+    got = vo.ov2_forward_cuda(y_t, lp, temps, 0.3, silent_start0=s0)
+    ref = vo.ov2_forward_plain(y_t, lp, temps, 0.3, silent_start0=s0)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert vo.ov2_forward_cuda.launches == n19 + 1
-    labels = vo.ov2_decode_cuda(y_t, lp, temps, 0.3)
+    labels = vo.ov2_decode_cuda(y_t, lp, temps, 0.3, silent_start0=s0)
     c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
-    sil = torch.arange(B, device=cuda) == 0
+    sil = (torch.arange(B, device=cuda) == 0) & s0
     assert torch.equal(labels, vmb.ov2_decode_mb(y_t, sil, c))
-    assert torch.equal(labels, vo.ov2_decode_plain(y_t, lp, temps, 0.3))
+    assert torch.equal(labels, vo.ov2_decode_plain(y_t, lp, temps, 0.3,
+                                                   silent_start0=s0))
 
 
 # --- multi-channel: kernel 11 (general-N forward from streams), kernels

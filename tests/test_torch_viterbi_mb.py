@@ -227,3 +227,81 @@ def test_per_window_constant_rows_equal_shared():
                        vmb.ov2_decode_mb_plain(y, sil, c1))
     assert vmb.ov2_forward_mb_tracked.launches == n16
     assert vmb.ov2_forward_mb.launches == n1
+
+
+def _pair_coords(i, Km1):
+    """(a, q) of pair state i: k1 = a + 1, k2 = q + 1."""
+    p = i - (1 + 2 * Km1)
+    return p // Km1, p % Km1
+
+
+@pytest.mark.parametrize("shape", [(512, 1), (512, 2)])
+@pytest.mark.parametrize("K", [2, 3, 33, 34, 35, 60, 65])
+def test_cell_map_owns_every_state_once(K, shape):
+    """Kernel 1's cell map: every state index is written by exactly one
+    thread each step; every interior pair cell (a >= 1, q >= 1) reads
+    i - K, the cell (a - 1, q - 1); the irregular items read what the plain
+    transition reads."""
+    Km1 = K - 1
+    S = 1 + 2 * Km1 + Km1 * Km1
+    P = 1 + 2 * Km1
+    plan = vmb.ov2_launch_plan(1, Km1, 132, shape)
+    owned = [i for cells in vmb.ov2_cell_map(plan, Km1) for i, _ in cells]
+    assert sorted(owned) == list(range(S))
+    n_irr = 32 * plan.irregular_warps
+    for tid, cells in enumerate(vmb.ov2_cell_map(plan, Km1)):
+        for i, src in cells:
+            if i >= P:
+                a, q = _pair_coords(i, Km1)
+                if a >= 1 and q >= 1:
+                    assert tid >= n_irr and src == [i - Km1 - 1]
+                    assert _pair_coords(src[0], Km1) == (a - 1, q - 1)
+                    continue
+                assert tid < n_irr
+                # injections: (0, q) from v1[q-1], (a, 0) from v0[a-1]
+                assert src == ([0] if a == q == 0 else
+                               [Km1 + q] if a == 0 else [a])
+            elif i == 0:
+                assert src == [0, Km1, 2 * Km1, S - 1]
+            else:
+                assert tid < n_irr
+                n, k = divmod(i - 1, Km1)
+                if k == 0:                      # onset: silent, other's end
+                    assert src == [0, (2 - n) * Km1]
+                else:                           # ring: same ring, pair exit
+                    exit_ = (P + (k - 1) * Km1 + Km1 - 1 if n == 0
+                             else P + (Km1 - 1) * Km1 + k - 1)
+                    assert src == [1 + n * Km1 + k - 1, exit_]
+    # thread 0 takes the silent item, thread k ring slot k; interior
+    # threads at most cells_per_thread cells
+    cmap = vmb.ov2_cell_map(plan, Km1)
+    assert [i for i, _ in cmap[0]] == [0, 1, 1 + Km1, P]
+    assert all(cmap[k][0][0] == 1 + k for k in range(1, Km1))
+    assert all(len(c) <= plan.cells_per_thread for c in cmap[n_irr:])
+
+
+@pytest.mark.parametrize("B,ctas", [(1, 1), (64, 1), (132, 1), (133, 2),
+                                    (256, 2)])
+def test_launch_plan_from_grid(B, ctas):
+    """One CTA of 512 threads per window: alone on its SM while every
+    window has an SM of its own, two to an SM once windows outnumber SMs;
+    at every K <= 65 the cells per thread are the fewest that cover the
+    interior, within the kernel's instantiations (at most 9), and the
+    shared memory of the CTAs on an SM fits the 227 KB a block can use."""
+    for Km1 in range(1, vmb.KP + 1):
+        plan = vmb.ov2_launch_plan(B, Km1, 132)
+        assert (plan.threads, plan.ctas_per_sm) == (512, ctas)
+        assert plan.windows_per_cta == 1
+        assert plan.irregular_warps == -(-Km1 // 32)
+        ni = plan.threads - 32 * plan.irregular_warps
+        n_int = (Km1 - 1) ** 2
+        assert plan.cells_per_thread * ni >= n_int
+        assert plan.cells_per_thread == 1 or (
+            (plan.cells_per_thread - 1) * ni < n_int)
+        assert plan.cells_per_thread <= 9
+        assert plan.smem_bytes % 16 == 0
+        assert plan.ctas_per_sm * plan.smem_bytes <= 232448
+    with pytest.raises(ValueError):
+        vmb.ov2_launch_plan(B, vmb.KP + 1, 132)
+    with pytest.raises(ValueError):
+        vmb.ov2_launch_plan(B, 59, 132, (1024, 1))
