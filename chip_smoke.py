@@ -45,9 +45,12 @@ Phases, each printing one JSON line:
                em_backward_mb_plain at both training shapes (B=256 windows
                of W=2528, K=60): N=2 on the first 2^19 samples of the
                bench.py signal with its templates, N=7 with
-               init_templates(60, 7, std(y), default_rng(1)); checkpoints
-               and la exactly equal, the summed statistics within 1e-5
-               relative; times and bounds
+               init_templates(60, 7, std(y), default_rng(1)); and at the
+               drift tracking's shape (N=2, B=16 windows of W=2528, one
+               32768-sample chunk); checkpoints and la exactly equal, the
+               summed statistics within 1e-5 relative; times and bounds,
+               the block shape ops/fb_mb.em_launch_plan chose and the time
+               of a window step
   reference_em one EM step through kernels 5-6 (float32) vs
                em_step(fb_mode="gather") in float64 on the card (N=2,
                K=16, T=6000, L=1024, H=64), at tests/test_pallas_fb.py's
@@ -372,7 +375,22 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
     r_bytes = fwd_bytes - (la.numel() - 2 * B) * 4
     b_f32, b_sfu = em_bwd_ops(B, W, c.N, c.S, emit=emit_ops,
                               moments=moments)
+    design = {}
+    if not mc:
+        plan = fb_mb.em_plan_for(B, c.N, c.Km1 + 1, y_win.device)
+        design = {"design": {
+            "ctas": B,
+            "forward": {"states_per_thread": plan.fwd_spt,
+                        "threads": plan.fwd_threads},
+            "backward": {"states_per_thread": plan.spt,
+                         "threads": plan.cta_threads,
+                         "remat_and_walk_split": plan.split},
+            "dynamic_smem_bytes": {"forward": plan.fwd_smem_bytes,
+                                   "backward": plan.bwd_smem_bytes},
+            "us_per_window_step": {"forward": fwd_ms * 1e3 / W,
+                                   "backward": bwd_ms * 1e3 / W}}}
     return {"N": c.N, "K": c.Km1 + 1, "S": c.S, "B": B, "W": W, "ch": ch,
+            **design,
             "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                         "f32_ops": f_f32, "sfu_ops": f_sfu,
                         "bound_ops_ms": ops_ms(f_f32, f_sfu),
@@ -1931,9 +1949,20 @@ def main():
     ce7 = fb_mb.em_consts(lp7, mu7, sig7, dtype=torch.float32, device=dev)
     em2 = em_kernels(fb_mb, ye_win, bounds_e, ce2, fwd_reps=10, bwd_reps=10)
     em7 = em_kernels(fb_mb, ye_win, bounds_e, ce7, fwd_reps=5, bwd_reps=5)
-    del ye_win
+    # the drift tracking's shape: one 32768-sample chunk, 16 windows
+    Bd = 16
+    _, edge_d, lo_d, hi_d, xh_d = fb_mb._em_window_geom(Bd * Le, Le, He, Bd,
+                                                        We)
+    bounds_d = torch.as_tensor(np.stack([lo_d, hi_d, xh_d], 1),
+                               dtype=torch.int32, device=dev).contiguous()
+    yd_win = fb_mb._em_window_1d(
+        torch.as_tensor(ye[:Bd * Le], dtype=torch.float32, device=dev),
+        T=Bd * Le, L=Le, H=He, B=Bd, W=We, edge=edge_d).contiguous()
+    em2d = em_kernels(fb_mb, yd_win, bounds_d, ce2, fwd_reps=10,
+                      bwd_reps=10)
+    del ye_win, yd_win
     emit({"phase": "kernels_em", "dtype": "float32", "card": card,
-          "L": Le, "H": He, "n2": em2, "n7": em7})
+          "L": Le, "H": He, "n2": em2, "n7": em7, "n2_drift": em2d})
 
     # ---- one kernel EM step vs the float64 gather engine -----------------
     Ks, Ts = 16, 6000

@@ -57,9 +57,9 @@ import torch
 
 from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
-from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream
+from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream, sm_count
 
-MAX_THREADS = 1024          # one thread per state, one CTA per window
+MAX_THREADS = 1024          # S at most (kernels 12-13: a thread a state)
 SMEM_LIMIT = 232448         # shared memory one CTA may opt into on an H100
 SLAB_BYTES = 65536          # kernel 6's remat slab is sized to about this
 
@@ -75,22 +75,132 @@ def em_chunk(S: int) -> int:
     return ch
 
 
-def em_smem_bytes(N: int, K: int) -> int:
-    """Dynamic shared memory of kernel 6 (the larger of the two): the
-    remat slab, the checkpoint row, two beta+emission buffers and the
-    reduction scratch, 4 bytes each."""
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def em_fwd_smem_bytes(N: int, K: int, ch: int | None = None) -> int:
+    """Dynamic shared memory of kernel 5 (csrc/em_fwd.cu): the onset
+    log-probs and the ring ends' means, then the window's alpha slab
+    (ch x S), a double buffer of the chunk's samples and two rows of the
+    head states' logsumexps; 4 bytes each, each part rounded to 16 bytes
+    (csrc/em_win.cuh)."""
     S = 1 + N * (K - 1)
-    return 4 * ((em_chunk(S) + 3) * S + 64)
+    ch = em_chunk(S) if ch is None else ch
+    return 4 * (2 * _r4(N) + _r4(ch * S + 2 * ch) + 2 * _r4(N + 1))
+
+
+def em_smem_bytes(N: int, K: int, ch: int | None = None,
+                  split: bool = False) -> int:
+    """Dynamic shared memory of kernel 6 (csrc/em_bwd.cu; the larger of the
+    two): the onset log-probs and the ring ends' and onsets' means, then
+    the window's alpha and beta slabs (ch x S each; three and two where its
+    roles are split, else one each), two beta + emission rows, the
+    checkpoint row, four buffers of a chunk's ch + 1 samples, the chunk's
+    ch logsumexps (two buffers where split) and four rows of the head
+    states'."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    slabs, gs = (5, 2) if split else (2, 1)
+    return 4 * (3 * _r4(N) + _r4(slabs * ch * S + 3 * S + 4 * (ch + 1)
+                                 + gs * ch) + 4 * _r4(N + 1))
 
 
 def em_kernel_ok(N: int, K: int) -> bool:
-    """Whether kernels 5-6 take this topology: one thread per state
-    (S = 1 + N(K-1) <= 1024) and kernel 6's shared memory within one CTA.
-    Admits every topology the JAX kernels admit (K-1 <= 64, N <= 8: at
-    most S = 513) and more, e.g. N=15 at K=65."""
+    """Whether kernels 5-6 take this topology: a window's threads (one per
+    state at most, S = 1 + N(K-1) <= 1024) within one CTA and kernel 6's
+    shared memory within one CTA. Admits every topology the JAX kernels
+    admit (K-1 <= 64, N <= 8: at most S = 513) and more, e.g. N=15 at K=65
+    (S = 961, 135 KB)."""
     S = 1 + N * (K - 1)
     return (N >= 1 and K >= 2 and S <= MAX_THREADS
             and em_smem_bytes(N, K) <= SMEM_LIMIT)
+
+
+EM_SPT = (1, 2)             # states a thread of kernels 5-6 may own
+EM_CTA_THREADS = 512        # their CTA's threads, at most (128 registers)
+SMEM_SM = 233472            # shared memory of an H100 SM, 1 KB of it per CTA
+
+
+@dataclasses.dataclass(frozen=True)
+class EmPlan:
+    """Block shape of kernels 5-6, one window a CTA. Kernel 5: each of its
+    `fwd_threads` threads owns `fwd_spt` states. Kernel 6: `spt` states a
+    thread, and with `split` the CTA is two sets of `threads` threads, one
+    rematerialising a chunk's alphas while the other walks beta through the
+    chunk after it, else one set doing both in turn."""
+
+    fwd_spt: int
+    spt: int
+    split: bool
+    fwd_threads: int
+    threads: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+
+    @property
+    def cta_threads(self) -> int:
+        """Kernel 6's threads of one CTA (one window)."""
+        return self.threads * (2 if self.split else 1)
+
+
+def em_window_threads(S: int, spt: int) -> int:
+    """Threads of one window whose threads own `spt` states each (whole
+    warps)."""
+    return 32 * -(-S // (32 * spt))
+
+
+def em_shape_ok(N: int, K: int, shape, ch: int | None = None) -> bool:
+    """Whether kernels 5-6 take the block shape (spt, split) at this
+    topology: spt in EM_SPT, the CTA within EM_CTA_THREADS (the kernels'
+    launch bound, which gives a thread 128 registers) and kernel 6's
+    shared memory within one CTA."""
+    spt, split = shape
+    if not em_kernel_ok(N, K) or spt not in EM_SPT:
+        return False
+    nt = em_window_threads(1 + N * (K - 1), spt)
+    return ((2 if split else 1) * nt <= EM_CTA_THREADS
+            and em_smem_bytes(N, K, ch, bool(split)) <= SMEM_LIMIT)
+
+
+def em_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
+                   ch: int | None = None) -> EmPlan:
+    """Kernels 5-6's block shape for B windows on a card of `sm_count`
+    SMs: one window a CTA (a window's step is the latency of its chain, so
+    it gets its own barriers and as many schedulers as its warps), one
+    thread a state where the window's threads fit, else two, and kernel 6
+    split in two sets of threads where both fit. Threads fit within
+    EM_CTA_THREADS while every window has an SM of its own, and within half
+    of it once windows share SMs, so that two CTAs of up to 128 registers a
+    thread (and their shared memory) are resident on one. `shape` = (spt,
+    split) forces one that em_shape_ok admits on both kernels."""
+    S = 1 + N * (K - 1)
+    if shape is None:
+        fit = EM_CTA_THREADS if B <= sm_count else EM_CTA_THREADS // 2
+        smem = SMEM_LIMIT if B <= sm_count else SMEM_SM // 2 - 1024
+        fwd_spt = 1 if em_window_threads(S, 1) <= fit else 2
+        spt, split = next(
+            ((p, q) for p, q in ((1, True), (2, True), (1, False))
+             if em_window_threads(S, p) * (2 if q else 1) <= fit
+             and em_smem_bytes(N, K, ch, q) <= smem),
+            (2, False))
+    else:
+        if not em_shape_ok(N, K, shape, ch):
+            raise ValueError(f"kernels 5-6 do not take the block shape "
+                             f"{shape} at N={N}, K={K}")
+        spt, split = shape
+        fwd_spt = spt
+    return EmPlan(fwd_spt=fwd_spt, spt=spt, split=bool(split),
+                  fwd_threads=em_window_threads(S, fwd_spt),
+                  threads=em_window_threads(S, spt),
+                  fwd_smem_bytes=em_fwd_smem_bytes(N, K, ch),
+                  bwd_smem_bytes=em_smem_bytes(N, K, ch, bool(split)))
+
+
+def em_plan_for(B: int, N: int, K: int, device, shape=None,
+                ch: int | None = None) -> EmPlan:
+    """`em_launch_plan` on the card holding the windows."""
+    return em_launch_plan(B, N, K, sm_count(device), shape, ch)
 
 
 def em_mc_smem_bytes(N: int, K: int, C: int) -> int:
@@ -437,11 +547,14 @@ def _check_fits(name, c: EmConsts, W, ch):
             f"{c.S} > {MAX_THREADS} threads or {em_smem_bytes(c.N, c.Km1 + 1)}"
             f" bytes of shared memory > {SMEM_LIMIT})")
     _check_chunk(W, ch)
+    if ch < 2:
+        raise ValueError(f"{name}: the kernel's checkpoint chunk must be at "
+                         f"least 2 steps, got {ch}")
 
 
-def em_forward_mb(y_win, c: EmConsts, ch: int):
+def em_forward_mb(y_win, c: EmConsts, ch: int, shape=None):
     """Kernel 5: (B, W) windows -> (cp, la). CPU tensors take
-    `em_forward_mb_plain`."""
+    `em_forward_mb_plain`. `shape` forces a block shape (em_launch_plan)."""
     if y_win.device.type == "cpu":
         return em_forward_mb_plain(y_win, c, ch)
     B, W = y_win.shape
@@ -449,12 +562,13 @@ def em_forward_mb(y_win, c: EmConsts, ch: int):
     _check_cuda("em_forward_mb", y_win=(y_win, torch.float32),
                 fpack=(c.fpack, torch.float32))
     dev = y_win.device
+    plan = em_plan_for(B, c.N, c.Km1 + 1, dev, shape, ch)
     cp = torch.empty((B, W // ch, c.S), dtype=torch.float32, device=dev)
     la = torch.empty((B, W), dtype=torch.float32, device=dev)
     fn = _lib("em_fwd", "em_forward_mb",
-              [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P])
-    err = fn(y_win.data_ptr(), B, W, c.N, c.Km1, ch, c.fpack.data_ptr(),
-             cp.data_ptr(), la.data_ptr(), _stream(dev))
+              [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    err = fn(y_win.data_ptr(), B, W, c.N, c.Km1, ch, plan.fwd_spt,
+             c.fpack.data_ptr(), cp.data_ptr(), la.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"em_forward_mb: CUDA error {err} at launch")
     em_forward_mb.launches += 1
@@ -464,10 +578,11 @@ def em_forward_mb(y_win, c: EmConsts, ch: int):
 em_forward_mb.launches = 0
 
 
-def em_backward_mb(y_win, cp, bounds, c: EmConsts, ch: int):
+def em_backward_mb(y_win, cp, bounds, c: EmConsts, ch: int, shape=None):
     """Kernel 6: windows, checkpoints and (B, 3) int32 bounds ->
     per-window (G1, Gy, Gy2, X, Xd, beta0). CPU tensors take
-    `em_backward_mb_plain`."""
+    `em_backward_mb_plain`. `shape` forces a block shape
+    (em_launch_plan)."""
     if y_win.device.type == "cpu":
         return em_backward_mb_plain(y_win, cp, bounds, c, ch)
     B, W = y_win.shape
@@ -478,17 +593,18 @@ def em_backward_mb(y_win, cp, bounds, c: EmConsts, ch: int):
     if cp.shape != (B, W // ch, c.S) or bounds.shape != (B, 3):
         raise ValueError("em_backward_mb: shape mismatch")
     dev = y_win.device
+    plan = em_plan_for(B, c.N, c.Km1 + 1, dev, shape, ch)
     G1, Gy, Gy2, beta0 = (torch.empty((B, c.S), dtype=torch.float32,
                                       device=dev) for _ in range(4))
     X = torch.empty((B, c.N), dtype=torch.float32, device=dev)
     Xd = torch.empty((B,), dtype=torch.float32, device=dev)
     fn = _lib("em_bwd", "em_backward_mb",
-              [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-               _P])
+              [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+               _P, _P, _P])
     err = fn(y_win.data_ptr(), cp.data_ptr(), bounds.data_ptr(), B, W, c.N,
-             c.Km1, ch, c.fpack.data_ptr(), G1.data_ptr(), Gy.data_ptr(),
-             Gy2.data_ptr(), X.data_ptr(), Xd.data_ptr(), beta0.data_ptr(),
-             _stream(dev))
+             c.Km1, ch, plan.spt, int(plan.split), c.fpack.data_ptr(),
+             G1.data_ptr(), Gy.data_ptr(), Gy2.data_ptr(), X.data_ptr(),
+             Xd.data_ptr(), beta0.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"em_backward_mb: CUDA error {err} at launch")
     em_backward_mb.launches += 1

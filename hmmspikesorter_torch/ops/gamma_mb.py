@@ -53,7 +53,7 @@ from ..core.posterior import _recenter, _shift_down, _shift_up
 from ..utils.device import as_float, default_dtype, resolve_device
 from .fb_mb import (MAX_THREADS, SMEM_LIMIT, EmConsts, _alpha_step,
                     _beta_step, _block_lse, _emission, em_chunk, em_consts,
-                    em_consts_mc, em_smem_bytes)
+                    em_consts_mc)
 from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream
 
 HBM_FRACTION = 0.5      # of the card's memory, for the checkpoints (gate)
@@ -67,13 +67,21 @@ def gamma_chunk(N: int, K: int) -> int:
     return em_chunk(1 + N * (K - 1))
 
 
+def gamma_smem_bytes(N: int, K: int) -> int:
+    """Dynamic shared memory of kernel 8 (the larger of kernels 7-8): the
+    remat slab, the checkpoint row, two beta+emission buffers and the
+    reduction scratch, 4 bytes each."""
+    S = 1 + N * (K - 1)
+    return 4 * ((em_chunk(S) + 3) * S + 64)
+
+
 def gamma_kernel_ok(N: int, K: int) -> bool:
     """Kernels 7-8 take this topology: one thread per state (S <= 1024)
-    and kernel 8's shared memory (the same as kernel 6's) within one CTA.
-    Admits every topology the JAX kernels admit (N <= 8, K-1 <= 64)."""
+    and kernel 8's shared memory within one CTA. Admits every topology
+    the JAX kernels admit (N <= 8, K-1 <= 64)."""
     S = 1 + N * (K - 1)
     return (N >= 1 and K >= 2 and S <= MAX_THREADS
-            and em_smem_bytes(N, K) <= SMEM_LIMIT)
+            and gamma_smem_bytes(N, K) <= SMEM_LIMIT)
 
 
 def gamma_hbm_bytes(T: int, N: int, K: int, L: int = 4096) -> int:
@@ -262,7 +270,7 @@ def _check_fits(name, c: EmConsts, L, ch):
         raise ValueError(
             f"{name}: N={c.N}, K={c.Km1 + 1} does not fit the kernel (S = "
             f"{c.S} > {MAX_THREADS} threads or "
-            f"{em_smem_bytes(c.N, c.Km1 + 1)} bytes of shared memory > "
+            f"{gamma_smem_bytes(c.N, c.Km1 + 1)} bytes of shared memory > "
             f"{SMEM_LIMIT})")
     _check_geometry(L, ch)
 

@@ -177,6 +177,46 @@ def test_kernel_gate_and_chunk():
             device="cpu"), 32)
 
 
+def test_em_launch_plan_fits_every_admitted_topology():
+    """Every topology em_kernel_ok admits, at any B, gets from
+    em_launch_plan a block shape that fits one SM: whole warps owning all
+    S states, the CTA within the kernels' launch bound of 512 threads,
+    kernel 6's shared memory (the larger) within one CTA; once windows
+    share SMs, two CTAs' threads on one; every shape em_shape_ok admits
+    fits alike, and the plan refuses the rest."""
+    shapes = [(spt, split) for spt in (0, 1, 2, 3, 4) for split in (0, 1)]
+    n_topo = 0
+    for K in (2, 3, 12, 33, 60, 65, 129, 513, 1024):
+        for N in (1, 2, 3, 4, 7, 8, 15, 16, 31, 64, 1023):
+            if not fb_mb.em_kernel_ok(N, K):
+                assert 1 + N * (K - 1) > fb_mb.MAX_THREADS
+                continue
+            n_topo += 1
+            S = 1 + N * (K - 1)
+            for B in (1, 16, 131, 132, 133, 256, 4096):
+                for shape in [None] + shapes:
+                    if shape is not None and not fb_mb.em_shape_ok(N, K,
+                                                                   shape):
+                        with pytest.raises(ValueError, match="block shape"):
+                            fb_mb.em_launch_plan(B, N, K, 132, shape)
+                        continue
+                    p = fb_mb.em_launch_plan(B, N, K, 132, shape)
+                    for spt, nt in ((p.fwd_spt, p.fwd_threads),
+                                    (p.spt, p.threads)):
+                        assert nt % 32 == 0 and spt in fb_mb.EM_SPT
+                        assert nt * spt >= S > (nt - 32) * spt
+                    assert p.fwd_threads <= 512 and p.cta_threads <= 512
+                    assert (p.fwd_smem_bytes <= p.bwd_smem_bytes
+                            <= fb_mb.SMEM_LIMIT)
+                    if shape is None and B > 132 and S <= 512:
+                        # two CTAs of 128-register threads on an SM, and
+                        # a split no wider in shared memory
+                        assert p.cta_threads <= 256
+                        assert (not p.split or 2 * (p.bwd_smem_bytes + 1024)
+                                <= fb_mb.SMEM_SM)
+    assert n_topo >= 60
+
+
 def test_consts_pack():
     y, temps, lp = _problem(3, 100, seed=2)
     c = fb_mb.em_consts(lp, temps, 0.3, dtype=torch.float64, device="cpu")

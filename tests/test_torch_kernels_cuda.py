@@ -256,6 +256,91 @@ def test_em_kernels_equal_plain(cuda, N, K):
         float(T), device=cuda), rtol=1e-5, atol=0)
 
 
+# (states a thread, kernel 6 split in remat and walk)
+EM_SHAPES = ((1, 0), (2, 0), (1, 1), (2, 1))
+
+
+def _em_windows(N, K, L, H, T, seed, cuda):
+    """Halo windows of an _em_problem signal, their bounds, constants and
+    checkpoint chunk."""
+    y, lp, mu = _em_problem(N, K, T, seed=seed)
+    c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
+    B, W = -(-T // L), L + 2 * H
+    _, edge, lo, hi, xh = fb_mb._em_window_geom(T, L, H, B, W)
+    yw = fb_mb._em_window_1d(torch.as_tensor(y, dtype=torch.float32,
+                                             device=cuda),
+                             T=T, L=L, H=H, B=B, W=W, edge=edge).contiguous()
+    bounds = torch.as_tensor(np.stack([lo, hi, xh], 1), dtype=torch.int32,
+                             device=cuda).contiguous()
+    return yw, bounds, c, fb_mb.em_chunk(c.S)
+
+
+def _em_every_shape(yw, bounds, c, ch, shapes=EM_SHAPES):
+    """Kernels 5-6 at the default block shape and at every shape of
+    `shapes` they take here, each output bit for bit the plain
+    versions'. Returns the shapes run."""
+    pcp, pla = fb_mb.em_forward_mb_plain(yw, c, ch)
+    ref = fb_mb.em_backward_mb_plain(yw, pcp, bounds, c, ch)
+    ran = [None] + [s for s in shapes
+                    if fb_mb.em_shape_ok(c.N, c.Km1 + 1, s, ch)]
+    for shape in ran:
+        cp, la = fb_mb.em_forward_mb(yw, c, ch, shape=shape)
+        got = fb_mb.em_backward_mb(yw, pcp, bounds, c, ch, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(cp, pcp) and torch.equal(la, pla), shape
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), shape
+    return ran
+
+
+@pytest.mark.parametrize("N,K", [(1, 2), (2, 12), (2, 60), (3, 60), (7, 60),
+                                 (8, 65), (40, 2)])
+def test_em_kernels_every_shape_equal_plain(cuda, N, K):
+    """Every block shape kernels 5-6 take (states a thread, kernel 6's
+    roles split) on B = 7 windows: the outputs do not depend on the shape.
+    N=40 at K=2 has more heads (41) than a warp has threads, and no
+    helper."""
+    yw, bounds, c, ch = _em_windows(N, K, 64, 16, 6 * 64 + 9, 7 * N + K,
+                                    cuda)
+    assert yw.shape[0] == 7
+    ran = _em_every_shape(yw, bounds, c, ch)
+    assert len(ran) >= 2
+
+
+def test_em_kernels_at_the_drift_shape_equal_plain(cuda):
+    """The drift tracking's E-step: 16 windows of W = 2528 (N=2, K=60, one
+    32768-sample chunk at L=2048, H=240), 79 checkpoint chunks a window;
+    every block shape."""
+    L, H = tem.cuda_em_geometry(60, 2048)
+    assert L + 2 * H == 2528
+    yw, bounds, c, ch = _em_windows(2, 60, L, H, 16 * L, 5, cuda)
+    assert yw.shape == (16, 2528)
+    _em_every_shape(yw, bounds, c, ch)
+
+
+@pytest.mark.parametrize("N,K", [(2, 12), (3, 60)])
+def test_em_kernels_on_one_chunk_equal_plain(cuda, N, K):
+    """W = ch: a window of a single checkpoint chunk (the carries across
+    chunk boundaries never used, the terminal beta in the first chunk
+    walked)."""
+    yw, bounds, c, ch = _em_windows(N, K, 16, 8, 5 * 16, 3, cuda)
+    assert yw.shape[1] == ch == 32
+    _em_every_shape(yw, bounds, c, ch)
+
+
+def test_em_shared_memory_is_the_kernels(cuda):
+    """The wrappers' shared-memory sizes (the gate) are what the kernels
+    ask for at launch."""
+    fwd = fb_mb._lib("em_fwd", "em_forward_smem", [fb_mb._I] * 3)
+    bwd = fb_mb._lib("em_bwd", "em_backward_smem", [fb_mb._I] * 4)
+    for N, K in ((1, 2), (2, 60), (7, 60), (8, 65), (15, 65)):
+        for ch in (fb_mb.em_chunk(1 + N * (K - 1)), 2):
+            assert fwd(N, K - 1, ch) == fb_mb.em_fwd_smem_bytes(N, K, ch)
+            for split in (0, 1):
+                assert bwd(N, K - 1, ch, split) == fb_mb.em_smem_bytes(
+                    N, K, ch, bool(split))
+
+
 def test_em_kernels_with_dead_templates_equal_plain(cuda):
     """Onset log-probs of -inf (templates whose onset statistics underflowed
     in float32): kernels 5-6 stay finite and bit-equal to the plain
@@ -305,6 +390,10 @@ def test_em_kernels_refuse_what_they_cannot_take(cuda):
         fb_mb.overlap_em_stats(torch.zeros(1 << 14, device=cuda),
                                np.full(16, -8.0), np.zeros((65, 16)), 0.3,
                                L=2048, H=272)
+    with pytest.raises(ValueError, match="block shape"):
+        fb_mb.em_forward_mb(yw.float(), c, 32, shape=(4, 0))
+    with pytest.raises(ValueError, match="at least 2"):
+        fb_mb.em_forward_mb(yw.float(), c, 1)
     with pytest.raises(TypeError):      # float64 reaches the kernel, raises
         fb_mb.em_backward_mb(yw, torch.zeros((2, 3, 23), dtype=torch.float64,
                                              device=cuda),
