@@ -75,7 +75,11 @@ Phases, each printing one JSON line:
                (non-overlap, N=2 and N=7 with the kernels_em templates) on
                all 128; checkpoints, first-position betas and posteriors
                exactly equal; times and bounds of the forward, the chaining
-               sweep and the gamma pass
+               sweep and the gamma pass; for kernels 9-10 the block shapes
+               gamma_ov2_launch_plan chose, the CTAs resident on an SM, the
+               time of a window step; kernels 9-10 again at 512 windows of
+               4096 (posterior_path's shape, two CTAs an SM), exactly equal
+               on the first 32, timed the same way
   posterior_bench  bench.py's posterior problem (bench.py:216-241):
                core/posterior.onset_posteriors_chained on the N=2 overlap
                model, T=2^19, float32, after one warm-up (kernels 9-10);
@@ -101,8 +105,10 @@ Phases, each printing one JSON line:
                tracked below the stationary); labels >= 0.9999 equal to the
                float64 plain twin; kernel 16 vs its plain version on 4
                windows at full width (W=33,248) and kernels 17-18 vs theirs
-               at T=2^19, L=4096 (32 windows): exactly equal; then
-               model_posteriors (kernels 17-18, 2 + 2), confidence and
+               on 32 windows at T=2^19 and at model_posteriors' 512
+               windows of 4096, exactly equal, timed with their block
+               shapes;
+               then model_posteriors (kernels 17-18, 2 + 2), confidence and
                unit_qc: within 1e-4 of the float64 plain chained piecewise
                run (or of the plain float32 chain's own error where larger,
                at most 1e-3), median confidence above 0.9
@@ -1104,13 +1110,55 @@ def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
     return out
 
 
-def posterior_path(phase, model, pair, card):
+def ov2g_design(gamma_ov2, B, L, Km1, dev, ms):
+    """The block shapes kernels 9-10 (17-18) ran with for B windows of L
+    (ops/gamma_ov2.gamma_ov2_launch_plan on this card), the CTAs of each
+    resident on an SM at once and the time of one window step of each part
+    (ms: {part: ms})."""
+    plan = gamma_ov2.gamma_ov2_plan_for(B, Km1, dev)
+    return {"fwd_threads": gamma_ov2.NT,
+            "gamma_threads": plan.gamma_threads, "gamma_split": plan.split,
+            "ctas_per_sm_asked": plan.ctas_per_sm,
+            "resident_ctas_per_sm": gamma_ov2.gamma_ov2_occupancy(plan, Km1),
+            "irregular_warps": plan.irregular_warps,
+            "cells_per_thread": plan.cells_per_thread,
+            "fwd_smem_bytes": plan.fwd_smem_bytes,
+            "gamma_smem_bytes": plan.gamma_smem_bytes,
+            "sm_count": torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+            "us_per_window_step": {part: v * 1e3 / L
+                                   for part, v in ms.items()}}
+
+
+def ov2g_rows(gamma_ov2, parts, B, L, Km1, P, dev, S=None):
+    """The rows of kernels 9-10 (17-18 with S: the per-window constant
+    pack's bytes in the bound) from gamma_kernels' parts at B windows of L,
+    P of them held against the plain versions, with the design they ran
+    with."""
+    rows = {}
+    for part, v in parts.items():
+        row = gamma_row(f"ov2_{part}", *v, B, L, 2, Km1, gamma_ov2.CH2, P)
+        rows[part] = row if S is None else with_pack_bytes(row, B, S)
+    rows["design"] = ov2g_design(gamma_ov2, B, L, Km1, dev,
+                                 {part: v[0] for part, v in parts.items()})
+    return {"B": B, "L": L, **rows}
+
+
+def ov2g_path_ms(rows):
+    """Kernel time of one chained N=2 overlap posterior call from its
+    rows: the forward twice (cold sweep, final), the chaining sweep and
+    the gamma pass once."""
+    return 2 * rows["fwd"]["ms"] + rows["chain"]["ms"] + rows["gamma"]["ms"]
+
+
+def posterior_path(phase, model, pair, card, kernel_ms=None):
     """The --confidence --qc composition on a decoded model, with the
     launch counts of the kernel `pair` set to 0 just before and read just
     after: model_posteriors, confidence_from_posteriors,
     core/qc.unit_qc(posteriors=p), qc_arrays. Gates: 2 + 2 launches, median
-    confidence above 0.9, isi_invariant_violations 0. Returns the launch
-    counts."""
+    confidence above 0.9, isi_invariant_violations 0. kernel_ms: the pair's
+    kernel time of one model_posteriors, timed apart at its windows, set
+    beside the posteriors' wall. Returns the launch counts."""
     from hmmspikesorter_torch.core import events as tevents
     from hmmspikesorter_torch.core import posterior as tpost
     from hmmspikesorter_torch.core import qc as tqc
@@ -1140,6 +1188,9 @@ def posterior_path(phase, model, pair, card):
           "seconds": wall,
           "samples_per_s": len(model.ml_seq) / wall,
           "posteriors_seconds": post_only,
+          "kernels_ms": kernel_ms,
+          "kernels_share_of_posteriors":
+              None if kernel_ms is None else kernel_ms / 1e3 / post_only,
           "launches": launches,
           "median_confidence": [float(np.median(cf)) for cf in conf],
           "n_spikes": qa["n_spikes"].tolist(),
@@ -1259,10 +1310,10 @@ def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
     a stationary fit_spiking_model_fast decode against the truth; the f32
     labels against decode_tracked through the plain versions in float64;
     kernel 16 against its plain version on P16 windows at full width;
-    kernels 17-18 against theirs at T=Tg, L=Lg (P17 windows); then the
-    --confidence --qc composition (model_posteriors through kernels 17-18,
-    confidence_from_posteriors, unit_qc) and its posteriors against the
-    float64 plain chained piecewise run on the card. Returns the kernel
+    kernels 17-18 against theirs on P17 windows at T=Tg and T, L=Lg; then
+    the --confidence --qc composition (model_posteriors through kernels
+    17-18, confidence_from_posteriors, unit_qc) and its posteriors against
+    the float64 plain chained piecewise run on the card. Returns the kernel
     rows, the launches and (model template, signal, decoded model) for
     cli_path."""
     from hmmspikesorter_torch.core import events as tevents
@@ -1352,30 +1403,35 @@ def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
     row16["bound_ms"], row16["bound_by"] = bound_of(row16)
     del y_win, f16, r16, pf, pr
 
-    # ---- kernels 17-18 vs their plain versions at T=2^19, L=4096 --------
-    yg, ybnd, term, lastw, chained = gamma_mb.chain_inputs(y[:Tg], Tg, Lg,
-                                                           f32, dev)
-    Bg = yg.shape[0]
-    own = tpost._window_owner(Bg, Lg, tr)
-    pw = (tr.lp[own], tr.mu[own], tr.sigma[own])
-    c17 = vmb.ov2_consts(*pw, dtype=f32, device=dev)
-    c17p = vmb.ov2_consts(*(v[:P17] for v in pw), dtype=f32, device=dev)
-    pw_d = tuple(torch.as_tensor(v, dtype=f32, device=dev) for v in pw)
-    parts = gamma_kernels(
-        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_tracked(yw, en, hi, c17),
-        lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
-            gamma_ov2.gamma_ov2_bwd_tracked(yw, cp, en, hi, tx, tm_, c17, e),
-        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi, c17p),
-        lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
-            gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tm_, c17p, e),
-        yg, ybnd, term, lastw, chained,
-        lambda ex: gamma_ov2.terminal_exits(ex, ybnd, lastw, *pw_d),
-        c17, S, P17, reps=3)
-    rows17 = {part: with_pack_bytes(gamma_row(
-        {"fwd": "ov2_fwd", "chain": "ov2_chain", "gamma": "ov2_gamma"}[part],
-        *v, Bg, Lg, 2, K - 1, gamma_ov2.CH2, P17), Bg, S)
-        for part, v in parts.items()}
-    del yg
+    # ---- kernels 17-18 vs their plain versions on the first P17 windows:
+    # at T=2^19 (128 windows of 4096, the gamma pass split) and at
+    # model_posteriors' T=2^21 (512 windows, two CTAs an SM) ------------
+    rows17 = {}
+    for key, Tk in (("t19", Tg), ("w512", T)):
+        yk, ybk, tmk, lwk, chk = gamma_mb.chain_inputs(y[:Tk], Tk, Lg, f32,
+                                                       dev)
+        own = tpost._window_owner(yk.shape[0], Lg, tr)
+        pw = (tr.lp[own], tr.mu[own], tr.sigma[own])
+        ck = vmb.ov2_consts(*pw, dtype=f32, device=dev)
+        ckp = vmb.ov2_consts(*(v[:P17] for v in pw), dtype=f32, device=dev)
+        pw_d = tuple(torch.as_tensor(v, dtype=f32, device=dev) for v in pw)
+        parts = gamma_kernels(
+            lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_tracked(yw, en, hi,
+                                                               ck),
+            lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
+                gamma_ov2.gamma_ov2_bwd_tracked(yw, cp, en, hi, tx, tm_, ck,
+                                                e),
+            lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi,
+                                                             ckp),
+            lambda yw, cp, en, hi, tx, tm_, _yb, _lw, e:
+                gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tm_, ckp,
+                                              e),
+            yk, ybk, tmk, lwk, chk,
+            lambda ex: gamma_ov2.terminal_exits(ex, ybk, lwk, *pw_d),
+            ck, S, P17, reps=3)
+        rows17[key] = ov2g_rows(gamma_ov2, parts, yk.shape[0], Lg, K - 1,
+                                P17, dev, S)
+        del yk, ck, parts
 
     # ---- --confidence --qc on the tracked decode (kernels 17-18) --------
     wr_post = (gamma_ov2.gamma_ov2_fwd_tracked,
@@ -1426,7 +1482,13 @@ def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
           "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
                                    float(np.abs(tr.mu[-1]).max())],
           "kernel16": row16,
-          "kernels17_18": {"T": Tg, "L": Lg, "B": Bg, **rows17},
+          "kernels17_18": {"T": Tg, **rows17["t19"]},
+          "kernels17_18_512": rows17["w512"],
+          # model_posteriors launches the forward twice, the backward once
+          # each way
+          "kernels17_18_ms_per_posteriors": ov2g_path_ms(rows17["w512"]),
+          "kernels17_18_share_of_posteriors":
+              ov2g_path_ms(rows17["w512"]) / 1e3 / post_s,
           "posterior_launches": post_launches,
           "conf_qc_seconds": conf_qc_s, "posteriors_seconds": post_s,
           "posterior_samples_per_s": T / post_s,
@@ -2123,21 +2185,27 @@ def main():
     c9 = vmb.ov2_consts(lp, temps, sigma, dtype=f32, device=dev)
     lp_d, mu_d, sg_d = (torch.as_tensor(np.asarray(v, np.float64)).to(
         device=dev, dtype=f32) for v in (lp, temps, sigma))
-    ov2_parts = gamma_kernels(
-        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd(yw, en, hi, c9),
-        lambda yw, cp, en, hi, tx, tr, _yb, _lw, e: gamma_ov2.gamma_ov2_bwd(
-            yw, cp, en, hi, tx, tr, c9, e),
-        lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi, c9),
-        lambda yw, cp, en, hi, tx, tr, _yb, _lw, e:
-            gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tr, c9, e),
-        yg, ybnd, term, lastw, chained,
-        lambda ex: gamma_ov2.terminal_exits(ex, ybnd, lastw, lp_d, mu_d,
-                                            sg_d),
-        c9, c9.S, 32, reps=3)
-    g_rows = {"ov2": {part: gamma_row(
-        {"fwd": "ov2_fwd", "chain": "ov2_chain", "gamma": "ov2_gamma"}[part],
-        *v, Bg, Lg, 2, K - 1, gamma_ov2.CH2, 32)
-        for part, v in ov2_parts.items()}}
+    # kernels 9-10 at these 128 windows (one CTA an SM, the gamma pass
+    # split) and at posterior_path's 512 (T=2^21: two CTAs an SM), each
+    # held against the plain versions on its first 32 windows
+    g_rows = {}
+    for key, (yk, ybk, tmk, lwk, chk) in (
+            ("ov2", (yg, ybnd, term, lastw, chained)),
+            ("ov2_512", gamma_mb.chain_inputs(y, T, Lg, f32, dev))):
+        parts = gamma_kernels(
+            lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd(yw, en, hi, c9),
+            lambda yw, cp, en, hi, tx, tr, _yb, _lw, e:
+                gamma_ov2.gamma_ov2_bwd(yw, cp, en, hi, tx, tr, c9, e),
+            lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd_plain(yw, en, hi, c9),
+            lambda yw, cp, en, hi, tx, tr, _yb, _lw, e:
+                gamma_ov2.gamma_ov2_bwd_plain(yw, cp, en, hi, tx, tr, c9, e),
+            yk, ybk, tmk, lwk, chk,
+            lambda ex: gamma_ov2.terminal_exits(ex, ybk, lwk, lp_d, mu_d,
+                                                sg_d),
+            c9, c9.S, 32, reps=3)
+        g_rows[key] = ov2g_rows(gamma_ov2, parts, yk.shape[0], Lg, K - 1,
+                                32, dev)
+        del parts
     for n_g, (lp_g, mu_g, sg_g) in ((2, (lp, temps, sigma)),
                                     (7, (lp7, mu7, sig7))):
         cg = fb_mb.em_consts(lp_g, mu_g, sg_g, dtype=f32, device=dev)
@@ -2197,6 +2265,8 @@ def main():
           "posterior_count_rel_err": count_rel,
           "expected_onsets": exp_c.tolist(), "decoded_onsets": dec_c.tolist(),
           "max_abs_err_vs_f64_plain_chained": post_err,
+          "kernels9_10_ms": ov2g_path_ms(g_rows["ov2"]),
+          "kernels9_10_share": ov2g_path_ms(g_rows["ov2"]) / 1e3 / post_s,
           "plain_f32_chained_max_abs_err_vs_f64": plain32_err,
           "f64_plain_chained_seconds": p64_s})
     check(p_po.shape == (Tg, N) and np.isfinite(p_po).all(),
@@ -2211,7 +2281,8 @@ def main():
     # decode of the same signal (kernels 7-8), T=2^21 -------------------
     post_launches = posterior_path(
         "posterior_path", decoded_n2,
-        (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd), card)
+        (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd), card,
+        ov2g_path_ms(g_rows["ov2_512"]))
     tm_nov = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
                                   allow_overlaps=False)
     dec_nov = api.fit_spiking_model_fast(tm_nov, y, L=L)
@@ -2293,10 +2364,11 @@ def main():
                     nov_launches["gamma_bwd_mb"], g_rows["nov_n2"]["gamma"]),
         gamma_entry("gamma_ov2_fwd", "gamma_ov2_fwd.cu",
                     "pallas_gamma_ov2.py:170",
-                    post_launches["gamma_ov2_fwd"], g_rows["ov2"]["fwd"]),
+                    post_launches["gamma_ov2_fwd"], g_rows["ov2_512"]["fwd"]),
         gamma_entry("gamma_ov2_bwd", "gamma_ov2_bwd.cu",
                     "pallas_gamma_ov2.py:237",
-                    post_launches["gamma_ov2_bwd"], g_rows["ov2"]["gamma"]),
+                    post_launches["gamma_ov2_bwd"],
+                    g_rows["ov2_512"]["gamma"]),
         gamma_entry("ovn_mc_forward_mb", "viterbi_ovn_mc_fwd.cu",
                     "pallas_viterbi_ovn_mb.py:739",
                     mc["one_launches"]["ovn_mc_forward_mb"], mc["fwd"]),
@@ -2324,11 +2396,11 @@ def main():
         gamma_entry("gamma_ov2_fwd_tracked", "gamma_ov2_fwd.cu",
                     "pallas_gamma_ov2.py:170",
                     drift["post_launches"]["gamma_ov2_fwd_tracked"],
-                    drift["rows17"]["fwd"]),
+                    drift["rows17"]["w512"]["fwd"]),
         gamma_entry("gamma_ov2_bwd_tracked", "gamma_ov2_bwd.cu",
                     "pallas_gamma_ov2.py:237",
                     drift["post_launches"]["gamma_ov2_bwd_tracked"],
-                    drift["rows17"]["gamma"]),
+                    drift["rows17"]["w512"]["gamma"]),
         gamma_entry("ov2_forward_cuda", "viterbi_ov2_fwd.cu",
                     "pallas_viterbi.py:55", r1["launches"], r1),
     ]})

@@ -48,35 +48,191 @@ launches the kernel or raises. Each wrapper counts its launches in its
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..core.posterior import _ov2_fb_block, _recenter, _shift_down, _shift_up
 from ..utils.device import default_dtype, resolve_device
-from .fb_mb import SMEM_LIMIT, _lae, _tree_sum
+from .fb_mb import SMEM_LIMIT, SMEM_SM, _lae, _tree_sum
 from .gamma_mb import _check_geometry, chain_inputs, device_budget
 from .viterbi_mb import KP, Ov2Consts, _I, _P, _check_cuda, _col, _lib, \
-    _stream, ov2_consts
+    _stream, ov2_consts, sm_count
 
-# Steps per checkpoint chunk. Kernel 10 keeps (CH2 + 3) S floats in shared
-# memory (remat slab, two beta buffers, means): at K=60, S=3600, CH2=4 is
-# 101 KB, so two CTAs share an H100 SM's 228 KB; CH2=8 (the JAX package's,
-# sized for the TPU's VMEM) would take 144 KB and leave one. The price is
+# Steps per checkpoint chunk. Kernel 10's one-set gamma pass keeps
+# (CH2 + 3) S floats in shared memory (remat slab, two beta buffers, the
+# checkpoint row) and its reductions: at K=60, S=3600, CH2=4 that is 110
+# KB, so two CTAs share an H100 SM's 228 KB; CH2=8 (the JAX package's,
+# sized for the TPU's VMEM) would take 177 KB and leave one. The price is
 # twice the checkpoints: (T/4) S floats, 7.5 GB at T=2^21.
 CH2 = 4
-NT = 512        # threads per CTA of kernels 9-10 (the z_t reduction order)
+NT = 512        # threads of a set in kernels 9-10 (the z_t reduction order)
+YC = 32         # samples kernel 9 and the chaining sweep stage a block
+MAX_CPT = 12    # interior cells a thread the kernels are built for
+GAMMA_SHAPES = ((1024, 1), (512, 1), (512, 2))   # (threads, CTAs an SM)
 
 
-def ov2_smem_bytes(Km1: int, ch: int = CH2) -> int:
-    """Dynamic shared memory of kernel 10 (the larger of the two)."""
+@dataclasses.dataclass(frozen=True)
+class Ov2gGeometry:
+    """The cell map's geometry at K-1 (csrc/gamma_ov2.cuh `Geo`): warp 0
+    for the silent state, `ring_warps` warps of ring lanes (thread 31 + i
+    owns ring state i), and `ni` interior threads holding `cpt` of the
+    (K-2)^2 interior pair cells each."""
+
+    Km1: int
+    P: int
+    S: int
+    ring_warps: int
+    irr: int
+    ni: int
+    n_int: int
+    cpt: int
+
+
+def ov2g_geometry(Km1: int) -> Ov2gGeometry:
+    """The cell map's geometry at K-1 = Km1."""
+    rw = -(-2 * Km1 // 32)
+    irr = 32 * (1 + rw)
+    n_int = (Km1 - 1) ** 2
+    ni = NT - irr
+    return Ov2gGeometry(Km1=Km1, P=1 + 2 * Km1, S=1 + 2 * Km1 + Km1 * Km1,
+                        ring_warps=rw, irr=irr, ni=ni, n_int=n_int,
+                        cpt=max(1, -(-n_int // ni)))
+
+
+def ov2_smem_bytes(Km1: int, ch: int = CH2, split: bool = False) -> int:
+    """Dynamic shared memory of kernel 10's gamma pass: the remat slab (two
+    with split), two beta buffers, the checkpoint row, four chunks of
+    samples, two chunks' (ch, 16) warp maxima and sums and the (ch, NT)
+    threads' maxima."""
     S = 1 + 2 * Km1 + Km1 * Km1
-    return 4 * ((ch + 3) * S + 2 * (Km1 + 1) + 64)
+    return 4 * (((2 if split else 1) * ch + 3) * S + (68 + NT) * ch)
+
+
+def ov2_fwd_smem_bytes(Km1: int) -> int:
+    """Dynamic shared memory of kernel 9 and of the chaining sweep: the
+    state double-buffered and two blocks of YC samples."""
+    return 4 * (2 * (1 + 2 * Km1 + Km1 * Km1) + 2 * YC)
 
 
 def ov2_gamma_kernel_ok(K: int) -> bool:
     """Kernels 9-10 take K-1 <= 64 (as the JAX kernels do) with kernel 10's
     shared memory within one CTA."""
     return 2 <= K and K - 1 <= KP and ov2_smem_bytes(K - 1) <= SMEM_LIMIT
+
+
+@dataclasses.dataclass(frozen=True)
+class Ov2gPlan:
+    """The block shapes of kernels 9-10 for one batch of windows, one
+    window a CTA and `ctas_per_sm` CTAs to share an SM (2 caps the
+    registers at 64 a thread): kernel 9 and the chaining sweep on 512
+    threads, the gamma pass on `gamma_threads` (1024: the remat and the
+    onset rows on their own 512 threads beside the walk)."""
+
+    ctas_per_sm: int
+    gamma_threads: int
+    irregular_warps: int
+    cells_per_thread: int
+    fwd_smem_bytes: int
+    gamma_smem_bytes: int
+
+    @property
+    def split(self) -> bool:
+        return self.gamma_threads == 2 * NT
+
+
+def gamma_ov2_launch_plan(B: int, Km1: int, sm_count: int,
+                          shape: tuple[int, int] | None = None,
+                          ch: int = CH2) -> Ov2gPlan:
+    """Kernels 9-10's block shapes from the grid: while every window has an
+    SM of its own (posterior_bench's 128 windows on 132 SMs) one CTA an SM
+    and the gamma pass split; once windows outnumber SMs (posterior_path's
+    512) two CTAs of 512 threads share an SM where their shared memory
+    fits, else one. `shape` forces one of GAMMA_SHAPES for the gamma pass
+    (kernel 9 and the chaining sweep take its CTAs an SM)."""
+    if not 1 <= Km1 <= KP:
+        raise ValueError(f"ov2 gamma kernels support 1 <= K-1 <= {KP}")
+    if shape is None:
+        if B <= sm_count:
+            shape = ((1024, 1) if ov2_smem_bytes(Km1, ch, True) <= SMEM_LIMIT
+                     else (512, 1))
+        else:
+            two = 2 * (ov2_smem_bytes(Km1, ch) + 1024) <= SMEM_SM
+            shape = (512, 2) if two else (512, 1)
+    if shape not in GAMMA_SHAPES:
+        raise ValueError(f"ov2 gamma block shapes are {GAMMA_SHAPES}")
+    threads, ctas = shape
+    split = threads == 2 * NT
+    if ov2_smem_bytes(Km1, ch, split) > SMEM_LIMIT:
+        raise ValueError(f"the gamma pass's shape {shape} does not fit K-1="
+                         f"{Km1}, ch={ch} in shared memory")
+    g = ov2g_geometry(Km1)
+    return Ov2gPlan(ctas_per_sm=ctas, gamma_threads=threads,
+                    irregular_warps=1 + g.ring_warps,
+                    cells_per_thread=g.cpt,
+                    fwd_smem_bytes=ov2_fwd_smem_bytes(Km1),
+                    gamma_smem_bytes=ov2_smem_bytes(Km1, ch, split))
+
+
+def gamma_ov2_plan_for(B: int, Km1: int, device, shape=None,
+                       ch: int = CH2) -> Ov2gPlan:
+    """`gamma_ov2_launch_plan` on the card holding the windows."""
+    return gamma_ov2_launch_plan(B, Km1, sm_count(device), shape, ch)
+
+
+def ov2g_cell_map(Km1: int, kind: str):
+    """The kernels' cell map (csrc/gamma_ov2.cuh), thread by thread over a
+    set of NT threads: a list of [(state index, [source indices])] that
+    the thread writes each alpha (kind "alpha") or beta ("beta") step.
+    Thread 0: the silent state (alpha: and the double onset); thread 31 + i
+    (1 <= i <= 2(K-1)): ring state i and its copied pair cell (alpha: the
+    injection (k, 0) or (0, q); beta: the row or column end); interior
+    thread v: cells j = v + r ni, as alpha cell d (a, q >= 1) from d - K,
+    as beta cell d - K from d. (An interior thread with fewer cells
+    repeats its first: left out here.)"""
+    g = ov2g_geometry(Km1)
+    K1, P, S = Km1, g.P, g.S
+    side = K1 - 1
+    out = []
+    for u in range(NT):
+        cells = []
+        if u == 0:
+            cells = ([(0, [0, K1, 2 * K1, S - 1]), (P, [0])]
+                     if kind == "alpha" else [(0, [0, 1, 1 + K1, P])])
+        elif 32 <= u <= 31 + 2 * K1:
+            i = u - 31
+            n1 = i > K1
+            k = i - 1 - K1 if n1 else i - 1
+            if kind == "alpha":
+                if k == 0:
+                    cells = [(i, [0, K1 if n1 else 2 * K1])]
+                else:
+                    sb = (P + (K1 - 1) * K1 + k - 1 if n1
+                          else P + k * K1 - 1)
+                    cells = [(i, [i - 1, sb]),
+                             (P + k if n1 else P + k * K1, [i - 1])]
+            else:
+                last = k == K1 - 1
+                sa = 0 if last else i + 1
+                sb = ((1 if n1 else 1 + K1) if last
+                      else (P + k + 1 if n1 else P + (k + 1) * K1))
+                cells = [(i, [sa, sb])]
+                if not n1:
+                    cells.append((P + i * K1 - 1, [sa]))
+                elif not last:
+                    cells.append((P + (K1 - 1) * K1 + k, [sa]))
+        elif u >= g.irr:
+            for r in range(g.cpt):
+                j = u - g.irr + r * g.ni
+                if j < g.n_int:
+                    a, q = 1 + j // side, 1 + j % side
+                    d = P + a * K1 + q
+                    cells.append((d, [d - K1 - 1]) if kind == "alpha"
+                                 else (d - K1 - 1, [d]))
+        out.append(cells)
+    return out
 
 
 def ov2_gamma_hbm_bytes(T: int, K: int, L: int = 4096,
@@ -281,11 +437,15 @@ def _check_fits(name, c: Ov2Consts, L, ch):
     _check_geometry(L, ch)
 
 
-def _fwd_launch(name, y_win, entry, has_init, c: Ov2Consts, ch):
-    """Launches csrc/gamma_ov2_fwd.cu: the constant pack at stride 0 for a
-    shared model, one (6 + S) row per window for a per-window one."""
+def _fwd_launch(name, y_win, entry, has_init, c: Ov2Consts, ch,
+                shape=None):
+    """Launches csrc/gamma_ov2_fwd.cu at the plan's block shape (`shape`
+    forces one of GAMMA_SHAPES, its CTAs an SM): the constant pack at
+    stride 0 for a shared model, one (6 + S) row per window for a
+    per-window one."""
     B, L = y_win.shape
     _check_fits(name, c, L, ch)
+    plan = gamma_ov2_plan_for(B, c.Km1, y_win.device, shape, ch)
     fpack = _fpack(c)
     _check_cuda(name, y_win=(y_win, torch.float32),
                 entry=(entry, torch.float32), has_init=(has_init, torch.int32),
@@ -296,10 +456,11 @@ def _fwd_launch(name, y_win, entry, has_init, c: Ov2Consts, ch):
     cp = torch.empty((B, L // ch, c.S), dtype=torch.float32,
                      device=y_win.device)
     fn = _lib("gamma_ov2_fwd", "gamma_ov2_forward",
-              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P])
     err = fn(y_win.data_ptr(), entry.data_ptr(), has_init.data_ptr(), B, L,
              c.Km1, ch, fpack.data_ptr(), 6 + c.S if c.per_window else 0,
-             cp.data_ptr(), _stream(y_win.device))
+             cp.data_ptr(), plan.ctas_per_sm, plan.cells_per_thread,
+             plan.fwd_smem_bytes, _stream(y_win.device))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return cp
@@ -339,13 +500,15 @@ gamma_ov2_fwd_tracked.launches = 0
 
 
 def _bwd_launch(name, y_win, cp, entry, has_init, tmx, term, c: Ov2Consts,
-                emit_gamma: bool, ch):
-    """Launches csrc/gamma_ov2_bwd.cu, the constant pack as in
-    _fwd_launch."""
+                emit_gamma: bool, ch, shape=None):
+    """Launches csrc/gamma_ov2_bwd.cu at the plan's block shape (the gamma
+    pass's, or the chaining sweep's 512 threads; `shape` as in
+    _fwd_launch), the constant pack as in _fwd_launch."""
     B, L = y_win.shape
     _check_fits(name, c, L, ch)
     if ch < 2:
         raise ValueError(f"{name}: the chunk must be at least 2")
+    plan = gamma_ov2_plan_for(B, c.Km1, y_win.device, shape, ch)
     fpack = _fpack(c)
     f32, i32 = torch.float32, torch.int32
     _check_cuda(name, y_win=(y_win, f32), cp=(cp, f32), entry=(entry, f32),
@@ -360,14 +523,20 @@ def _bwd_launch(name, y_win, cp, entry, has_init, tmx, term, c: Ov2Consts,
     gam = (torch.empty((B, L, 2), dtype=f32, device=dev) if emit_gamma
            else None)
     beta0 = torch.empty((B, c.S), dtype=f32, device=dev)
+    if emit_gamma:
+        blk = (plan.gamma_threads, plan.ctas_per_sm,
+               plan.gamma_smem_bytes)
+    else:
+        blk = (NT, plan.ctas_per_sm, plan.fwd_smem_bytes)
     fn = _lib("gamma_ov2_bwd", "gamma_ov2_backward",
               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-               _P])
+               _I, _I, _I, _I, _P])
     err = fn(y_win.data_ptr(), cp.data_ptr(), entry.data_ptr(),
              has_init.data_ptr(), tmx.data_ptr(), term.data_ptr(), B, L,
              c.Km1, ch, fpack.data_ptr(), 6 + c.S if c.per_window else 0,
              int(bool(emit_gamma)), gam.data_ptr() if emit_gamma else None,
-             beta0.data_ptr(), _stream(dev))
+             beta0.data_ptr(), blk[0], blk[1], plan.cells_per_thread, blk[2],
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return gam, beta0
@@ -411,6 +580,30 @@ def gamma_ov2_bwd_tracked(y_win, cp, entry, has_init, tmx, term,
 
 
 gamma_ov2_bwd_tracked.launches = 0
+
+
+def gamma_ov2_occupancy(plan: Ov2gPlan, Km1: int, ch: int = CH2) -> dict:
+    """CTAs of each of the plan's kernels resident on one SM at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = {}
+    n = ctypes.c_int(0)
+    f = _lib("gamma_ov2_fwd", "gamma_ov2_forward_occupancy",
+             [_I, _I, _I, _I, _P])
+    if f(Km1, plan.ctas_per_sm, plan.cells_per_thread,
+         plan.fwd_smem_bytes, ctypes.byref(n)) != 0:
+        raise RuntimeError("gamma_ov2_forward_occupancy failed")
+    out["fwd"] = n.value
+    f = _lib("gamma_ov2_bwd", "gamma_ov2_backward_occupancy",
+             [_I, _I, _I, _I, _I, _I, _I, _P])
+    for part, emit, blk in (
+            ("chain", 0, (NT, plan.ctas_per_sm, plan.fwd_smem_bytes)),
+            ("gamma", 1, (plan.gamma_threads, plan.ctas_per_sm,
+                          plan.gamma_smem_bytes))):
+        if f(emit, Km1, ch, blk[0], blk[1], plan.cells_per_thread, blk[2],
+             ctypes.byref(n)) != 0:
+            raise RuntimeError("gamma_ov2_backward_occupancy failed")
+        out[part] = n.value
+    return out
 
 
 # --------------------------------------------------------------------------

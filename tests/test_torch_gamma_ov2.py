@@ -282,3 +282,143 @@ def test_per_window_guards():
     assert (gamma_ov2.ov2_gamma_hbm_bytes(1 << 21, 60, 4096, per_window=True)
             - gamma_ov2.ov2_gamma_hbm_bytes(1 << 21, 60, 4096)
             == 4 * 512 * (6 + 3600))
+
+
+# --------------------------------------------------------------------------
+# kernels 9-10's block shapes and cell map (csrc/gamma_ov2.cuh), in Python
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,shape", [(1, (1024, 1)), (128, (1024, 1)),
+                                     (132, (1024, 1)), (133, (512, 2)),
+                                     (512, (512, 2))])
+def test_launch_plan_from_grid(B, shape):
+    """Split gamma pass (1024 threads, one CTA an SM) while every window has
+    an SM, two CTAs of 512 an SM once windows outnumber SMs where their
+    shared memory fits (one at K-1 = 64); kernel 9 and the chaining sweep
+    take the gamma pass's CTAs an SM. At every K-1 <= 64 the cells per
+    thread are the fewest that cover the interior, within the kernels'
+    instantiations, and the shared memory of the CTAs on an SM fits."""
+    from hmmspikesorter_torch.ops.fb_mb import SMEM_LIMIT, SMEM_SM
+
+    for Km1 in range(1, vmb.KP + 1):
+        plan = gamma_ov2.gamma_ov2_launch_plan(B, Km1, 132)
+        g = gamma_ov2.ov2g_geometry(Km1)
+        want = shape
+        if shape == (512, 2) and 2 * (gamma_ov2.ov2_smem_bytes(Km1)
+                                      + 1024) > SMEM_SM:
+            want = (512, 1)
+        assert (plan.gamma_threads, plan.ctas_per_sm) == want
+        assert plan.split == (want[0] == 1024)
+        assert plan.irregular_warps == 1 + -(-2 * Km1 // 32)
+        assert g.ni == 512 - 32 * plan.irregular_warps
+        assert plan.cells_per_thread * g.ni >= g.n_int
+        assert plan.cells_per_thread == 1 or (
+            (plan.cells_per_thread - 1) * g.ni < g.n_int)
+        assert plan.cells_per_thread <= gamma_ov2.MAX_CPT
+        assert plan.gamma_smem_bytes == gamma_ov2.ov2_smem_bytes(
+            Km1, gamma_ov2.CH2, plan.split) <= SMEM_LIMIT
+        assert plan.ctas_per_sm * (plan.gamma_smem_bytes + 1024) \
+            <= SMEM_SM or Km1 == vmb.KP
+        assert plan.fwd_smem_bytes == 4 * (2 * g.S + 2 * gamma_ov2.YC)
+    assert gamma_ov2.gamma_ov2_launch_plan(B, 64, 132).ctas_per_sm == 1
+    for s in gamma_ov2.GAMMA_SHAPES:
+        forced = gamma_ov2.gamma_ov2_launch_plan(B, 59, 132, s)
+        assert (forced.gamma_threads, forced.ctas_per_sm) == s
+    with pytest.raises(ValueError):
+        gamma_ov2.gamma_ov2_launch_plan(B, vmb.KP + 1, 132)
+    with pytest.raises(ValueError):
+        gamma_ov2.gamma_ov2_launch_plan(B, 59, 132, (1024, 2))
+
+
+@pytest.mark.parametrize("kind", ["alpha", "beta"])
+@pytest.mark.parametrize("K", [2, 3, 9, 12, 33, 34, 60, 65])
+def test_cell_map_owns_every_state_once(K, kind):
+    """Every state is written by exactly one thread each step; thread 0
+    holds the silent state, thread 31 + i ring state i, the ring lanes one
+    logaddexp each (the silent state's logsumexp on warp 0 alone); the
+    interior threads hold at most cells_per_thread pure diagonal shifts."""
+    Km1 = K - 1
+    g = gamma_ov2.ov2g_geometry(Km1)
+    cmap = gamma_ov2.ov2g_cell_map(Km1, kind)
+    owned = [i for cells in cmap for i, _ in cells]
+    assert sorted(owned) == list(range(g.S))
+    assert cmap[0][0][0] == 0 and all(not c for c in cmap[1:32])
+    for i in range(1, 2 * Km1 + 1):
+        cells = cmap[31 + i]
+        assert cells[0][0] == i and len(cells[0][1]) == 2
+        assert all(len(src) == 1 for _, src in cells[1:])
+    for u in range(g.irr, gamma_ov2.NT):
+        assert len(cmap[u]) <= g.cpt
+        for d, src in cmap[u]:
+            assert src == [d - Km1 - 1 if kind == "alpha" else d + Km1 + 1]
+    assert all(not cmap[u] for u in range(32 + 2 * Km1, g.irr))
+
+
+def _step_sources(step, S):
+    """Each output's inputs as the plain step reads them: the nonzero
+    pattern of its Jacobian at a random finite state."""
+    x = torch.randn((1, S), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(S))
+    jac = torch.autograd.functional.jacobian(step, x)[0, :, 0, :]
+    return [sorted(torch.nonzero(jac[i])[:, 0].tolist()) for i in range(S)]
+
+
+@pytest.mark.parametrize("kind", ["alpha", "beta"])
+@pytest.mark.parametrize("K", [2, 3, 5, 9, 12])
+def test_cell_map_sources_match_plain_steps(K, kind):
+    """Every cell of the map reads exactly what _alpha_step / _beta_step
+    read for that state (their Jacobians' patterns)."""
+    y, temps, pp, _ = _case(K, 40)
+    c = vmb.ov2_consts(np.log(pp), temps, 0.3, dtype=torch.float64,
+                       device="cpu")
+    em = gamma_ov2._emission(torch.as_tensor(y[:1]), c)
+    step = ((lambda a: gamma_ov2._alpha_step(a, em, c)) if kind == "alpha"
+            else (lambda b: gamma_ov2._beta_step(b, c)))
+    want = _step_sources(step, c.S)
+    for cells in gamma_ov2.ov2g_cell_map(K - 1, kind):
+        for i, src in cells:
+            assert sorted(set(src)) == want[i], (i, src, want[i])
+
+
+def _bulk_lse(rows, nt=gamma_ov2.NT):
+    """z_t of a chunk's rows (ch, S) as kernel 10 takes them after the walk:
+    per warp of the set the maxima of its threads' states, then thread j's
+    sum of exp(v - max) over the states j, j + nt, ... in increasing order,
+    each warp's shuffle-down tree and the warp sums in warp order."""
+    ch, S = rows.shape
+    out = []
+    for s in range(ch):
+        v = rows[s]
+        m = v.max()
+        part = torch.zeros(nt, dtype=rows.dtype)
+        for j in range(nt):
+            for i in range(j, S, nt):
+                part[j] = part[j] + torch.exp(v[i] - m)
+        out.append(m + torch.log(_tree_sum(part[None])[0]))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bulk_z_in_chunk_order_equals_block_lse(dtype):
+    """z_t taken in bulk for a chunk's steps, in the kernel's order, equals
+    _block_lse_strided step by step bit for bit; and each onset row's terms,
+    indexed directly (slot 0, then pair row a = 0 or column q = 0), are the
+    terms of _onset_rows in its order."""
+    Km1 = 59
+    S = 1 + 2 * Km1 + Km1 * Km1
+    P = 1 + 2 * Km1
+    g = torch.Generator().manual_seed(3)
+    rows = (torch.randn((gamma_ov2.CH2, S), generator=g, dtype=torch.float64)
+            * 5).to(dtype)
+    z = _bulk_lse(rows)
+    assert torch.equal(z, gamma_ov2._block_lse_strided(rows))
+    c = vmb.ov2_consts(np.log([0.01, 0.006]), np.zeros((Km1 + 1, 2)), 0.3,
+                       dtype=dtype, device="cpu")
+    for r1 in (0, 1):
+        idx = [(1 + Km1 if r1 else 1) if x == 0 else
+               (P + (x - 1) * Km1 if r1 else P + x - 1)
+               for x in range(Km1 + 1)]
+        terms = torch.exp(rows[:, idx] - z[:, None])
+        assert torch.equal(gamma_ov2._warp_sum(terms),
+                           gamma_ov2._onset_rows(rows, z, c)[:, r1])

@@ -461,10 +461,46 @@ def test_gamma_kernels_equal_plain(cuda, N, K):
     assert gamma_mb.gamma_bwd_mb.launches == n_b + 2
 
 
+def _ov2_every_shape(y_win, entry, chained, tmx, term, c):
+    """Kernels 9-10 (17-18 with per-window constants) through their
+    wrappers at the plan's block shape, and through the wrappers' launchers
+    forced to each of gamma_ov2.GAMMA_SHAPES, against the plain versions:
+    checkpoints, onset posteriors and first-position betas bit for bit,
+    both kernel-10 variants. Returns the wrappers' launches made."""
+    sfx = "_tracked" if c.per_window else ""
+    ch = gamma_ov2.CH2
+    pcp = gamma_ov2.gamma_ov2_fwd_plain(y_win, entry, chained, c)
+    ref = {emit: gamma_ov2.gamma_ov2_bwd_plain(y_win, pcp, entry, chained,
+                                               tmx, term, c, emit)
+           for emit in (False, True)}
+    for shape in (None,) + gamma_ov2.GAMMA_SHAPES:
+        if shape is None:
+            cp = gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c)
+        else:
+            cp = gamma_ov2._fwd_launch("gamma_ov2_fwd" + sfx, y_win, entry,
+                                       chained, c, ch, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(cp, pcp), shape
+        for emit in (False, True):
+            if shape is None:
+                got = gamma_ov2.gamma_ov2_bwd(y_win, pcp, entry, chained,
+                                              tmx, term, c, emit)
+            else:
+                got = gamma_ov2._bwd_launch(
+                    "gamma_ov2_bwd" + sfx, y_win, pcp, entry, chained, tmx,
+                    term, c, emit, ch, shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], ref[emit][1]), (shape, emit)
+            if emit:
+                assert torch.equal(got[0], ref[emit][0]), shape
+                assert torch.isfinite(got[0]).all()
+    return 1, 2
+
+
 @pytest.mark.parametrize("K", [2, 9, 12, 60, 65])
 def test_gamma_ov2_kernels_equal_plain(cuda, K):
     """Kernels 9-10 on a ragged tail with chained and cold windows and
-    random entry/terminal states: bit for bit."""
+    random entry/terminal states, at every block shape: bit for bit."""
     L = 64
     y, temps, lp = _problem(K, 1, 3 * L + 37, seed=K)
     c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
@@ -472,22 +508,45 @@ def test_gamma_ov2_kernels_equal_plain(cuda, K):
         y[0], L, c.S, cuda, seed=K)
     n_f = gamma_ov2.gamma_ov2_fwd.launches
     n_b = gamma_ov2.gamma_ov2_bwd.launches
-    cp = gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c)
-    pcp = gamma_ov2.gamma_ov2_fwd_plain(y_win, entry, chained, c)
-    torch.cuda.synchronize()
-    assert torch.equal(cp, pcp)
-    for emit in (False, True):
-        got = gamma_ov2.gamma_ov2_bwd(y_win, pcp, entry, chained, tmx, term,
-                                      c, emit)
-        ref = gamma_ov2.gamma_ov2_bwd_plain(y_win, pcp, entry, chained, tmx,
-                                            term, c, emit)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], ref[1])
-        if emit:
-            assert torch.equal(got[0], ref[0])
-            assert torch.isfinite(got[0]).all()
-    assert gamma_ov2.gamma_ov2_fwd.launches == n_f + 1
-    assert gamma_ov2.gamma_ov2_bwd.launches == n_b + 2
+    f, b = _ov2_every_shape(y_win, entry, chained, tmx, term, c)
+    assert gamma_ov2.gamma_ov2_fwd.launches == n_f + f
+    assert gamma_ov2.gamma_ov2_bwd.launches == n_b + b
+
+
+# (K, L, T): more windows than SMs (the two-CTA shape at K=60), the
+# terminal mid-chunk, windows of a single chunk
+OV2_CASES = {"windows_over_sms": (60, 64, 140 * 64 - 21),
+             "terminal_mid_chunk": (12, 64, 3 * 64 + 39),
+             "single_chunk": (12, gamma_ov2.CH2, 7 * gamma_ov2.CH2 + 2)}
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+@pytest.mark.parametrize("case", sorted(OV2_CASES))
+def test_gamma_ov2_kernels_cases(cuda, case, tracked):
+    """Kernels 9-10 (17-18 with one model per window) at every block shape
+    where the plan takes two CTAs an SM, where the window's terminal falls
+    mid-chunk and where a window is a single chunk: bit for bit."""
+    K, L, T = OV2_CASES[case]
+    y, temps, lp = _problem(K, 1, T, seed=T)
+    B = -(-T // L)
+    if tracked:
+        c = vmb.ov2_consts(*_tracked_params(K, B, seed=K), dtype=torch.float32,
+                           device=cuda)
+        wr = (gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked)
+    else:
+        c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+        wr = (gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd)
+    y_win, _, term, _, chained, entry, tmx = _gamma_inputs(
+        y[0], L, c.S, cuda, seed=K)
+    if case == "windows_over_sms":
+        assert B > vmb.sm_count(cuda)
+        assert gamma_ov2.gamma_ov2_plan_for(B, K - 1, cuda) \
+            .ctas_per_sm == 2
+    else:
+        assert int(term[-1]) % gamma_ov2.CH2 != 0
+    before = [w.launches for w in wr]
+    made = _ov2_every_shape(y_win, entry, chained, tmx, term, c)
+    assert [w.launches - n for w, n in zip(wr, before)] == list(made)
 
 
 @pytest.mark.parametrize("overlaps,N,T,L", [
@@ -624,8 +683,8 @@ def test_tracked_decode_runs_kernel_16(cuda):
 @pytest.mark.parametrize("K", [2, 9, 12, 60, 65])
 def test_gamma_ov2_tracked_kernels_equal_plain(cuda, K):
     """Kernels 17-18 on a ragged tail with chained and cold windows, random
-    entry/terminal states and one model per window: bit for bit; launches
-    counted on their own wrappers."""
+    entry/terminal states and one model per window, at every block shape:
+    bit for bit; launches counted on their own wrappers."""
     L = 64
     y, _, _ = _problem(K, 1, 3 * L + 37, seed=K)
     B = 4
@@ -636,21 +695,8 @@ def test_gamma_ov2_tracked_kernels_equal_plain(cuda, K):
     wr = (gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked,
           gamma_ov2.gamma_ov2_fwd, gamma_ov2.gamma_ov2_bwd)
     before = [w.launches for w in wr]
-    cp = gamma_ov2.gamma_ov2_fwd(y_win, entry, chained, c)
-    pcp = gamma_ov2.gamma_ov2_fwd_plain(y_win, entry, chained, c)
-    torch.cuda.synchronize()
-    assert torch.equal(cp, pcp)
-    for emit in (False, True):
-        got = gamma_ov2.gamma_ov2_bwd(y_win, pcp, entry, chained, tmx, term,
-                                      c, emit)
-        ref = gamma_ov2.gamma_ov2_bwd_plain(y_win, pcp, entry, chained, tmx,
-                                            term, c, emit)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], ref[1])
-        if emit:
-            assert torch.equal(got[0], ref[0])
-            assert torch.isfinite(got[0]).all()
-    assert [w.launches - n for w, n in zip(wr, before)] == [1, 2, 0, 0]
+    f, b = _ov2_every_shape(y_win, entry, chained, tmx, term, c)
+    assert [w.launches - n for w, n in zip(wr, before)] == [f, b, 0, 0]
 
 
 @pytest.mark.parametrize("T,L", [(777, 128), (1024, 256)])
