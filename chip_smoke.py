@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
   kernels_ovn  kernels 3-4 vs ovn_forward_mb_plain / ovn_backtrace_mb_plain
                (flags, rings, rowcol, xT and labels exactly equal) at the
                N=3 main path's shapes (B=128 windows of W=8704, K=60) and
-               at N=4, K=60 (32 windows of W=8704); times and bounds
+               at N=4, K=60 (32 windows of W=8704); times and bounds; for
+               kernel 3 the block shape ops/viterbi_ovn_mb.ovn_launch_plan
+               chose (`design`: threads, interior slots, shared memory,
+               resident CTAs an SM, registers and spill bytes a thread, the
+               time of a window step; `ms_by_shape`: one shape per N)
   reference    small decodes through the kernels (N=2, N=3, N=4 at K=60)
                vs the generic gather Viterbi (core/viterbi.py) in float64
   main_path    api.fit_spiking_model_fast on the bench.py problem (N=2,
@@ -40,7 +44,8 @@ Phases, each printing one JSON line:
   main_path_n3 the same at the repository's N=3 configuration
                (BASELINE.json config 2, benchmarks/suite.py config2: K=60,
                S=10,621, sigma=0.3, pp=(0.003, 0.002, 0.001), T=2^20,
-               L=8192, H=256, seed 1234), through kernels 3-4
+               L=8192, H=256, seed 1234), through kernels 3-4; kernel 3's
+               time (kernels_ovn) and its share of the one-shot wall
   kernels_em   kernels 5-6 (the EM E-step) vs em_forward_mb_plain /
                em_backward_mb_plain at both training shapes (B=256 windows
                of W=2528, K=60): N=2 on the first 2^19 samples of the
@@ -168,9 +173,10 @@ Phases, each printing one JSON line:
                posteriors' error against a float64 run on the card);
                --adaptive --confidence --qc on drift_path's recording
                (labels equal the library's)
-About 12-15 minutes on an H100.
-Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
-last, {"ok": true, "device": {...}}. Any failed check raises: the script
+About 11-12 minutes on an H100 (the wall phase prints it).
+Then one {"kernels": [...]} line, the script's own wall ({"phase": "wall"},
+from the platform phase on, against its 1200 s limit), the nvidia-smi
+name/power-limit line and, last, {"ok": true, "device": {...}}. Any failed check raises: the script
 then exits non-zero and prints no result. Without CUDA it exits 1 first.
 """
 
@@ -490,10 +496,27 @@ def force_overlaps(y, temps, every):
         y[t + 7:t + 7 + K - 1] += temps[1:, j]
 
 
+def ovn_design(vomb, W, N, Km1, dev, ms):
+    """The block shape csrc/viterbi_ovn_fwd.cu ran with
+    (ops/viterbi_ovn_mb.ovn_launch_plan), what the card made of it
+    (resident CTAs an SM, registers and spill bytes a thread) and the time
+    of one window step; `ms_by_shape` the forward's time at each block
+    shape the plan has for this N (one: the plan's)."""
+    plan = vomb.ovn_launch_plan(N, Km1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"design": {"kind": plan.design, "threads": plan.threads,
+                       "interior_slots_per_thread": plan.cells_per_thread,
+                       "dynamic_smem_bytes": plan.smem_bytes,
+                       **vomb.ovn_design(plan, N, Km1), "sm_count": sms,
+                       "us_per_window_step": ms * 1e3 / W},
+            "ms_by_shape": {f"{plan.threads}x1": ms}}
+
+
 def ovn_kernels(vomb, y_win, sil, c, fwd_reps, bt_reps):
     """Kernels 3-4 vs their plain versions on (y_win, sil): exact
-    equality of every packed output and of the labels, CUDA-event times
-    and the bounds, as one row of the kernels_ovn line."""
+    equality of every packed output and of the labels, CUDA-event times,
+    kernel 3's block shape and the bounds, as one row of the kernels_ovn
+    line."""
     B, W = y_win.shape
     fwd = lambda: vomb.ovn_forward_mb(y_win, sil, c)         # noqa: E731
     fwd()                                                     # warm-up
@@ -521,7 +544,9 @@ def ovn_kernels(vomb, y_win, sil, c, fwd_reps, bt_reps):
                         "bound_ops_ms": ovn_fwd_ops(B, W, c.N, c.Km1)
                         / FP32_OPS_PER_S * 1e3,
                         "bound_bytes_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
-                        "max_abs_err": fwd_err, "match": True},
+                        "max_abs_err": fwd_err, "match": True,
+                        **ovn_design(vomb, W, c.N, c.Km1, y_win.device,
+                                     fwd_ms)},
             "backtrace": {"ms": bt_ms, "plain_ms": bt_plain_ms,
                           "bound_bytes_ms": ovn_bt_bytes(labels, xT, c.Km1,
                                                          c.N)
@@ -1725,6 +1750,7 @@ def main():
 
     dev = torch.device("cuda")
     card = card_line()
+    t_start = time.perf_counter()
     emit({"phase": "platform", **platform_report(), "card": card})
 
     t0 = time.perf_counter()
@@ -1899,11 +1925,13 @@ def main():
 
     # ---- main paths -----------------------------------------------------
     def main_path(phase, tm_p, y_p, truth_p, wrappers, kernel_ms, H_p,
-                  stream_kw):
+                  stream_kw, fwd_ms_p):
         """Drive api.fit_spiking_model_fast one-shot and streaming with the
         launch counts of `wrappers` set to 0 just before each call and
-        read just after, against the float64 plain twin; check and emit.
-        Returns the one-shot run's launch counts and decoded model."""
+        read just after, against the float64 plain twin; check and emit
+        (with the forward kernel's time, `fwd_ms_p`, against the one-shot
+        wall). Returns the one-shot run's launch counts and decoded
+        model."""
         T_p = len(y_p)
 
         def drive(**kw):
@@ -1969,6 +1997,8 @@ def main():
               # kernel time (CUDA events, kernels phases) over one-shot
               # wall time: an upper bound on the device's busy share
               "kernel_share_of_oneshot": kernel_ms / 1e3 / one_s,
+              "forward_kernel_ms": fwd_ms_p,
+              "forward_kernel_share_of_oneshot": fwd_ms_p / 1e3 / one_s,
               "f64_plain_twin_seconds": f64_s,
               "agreement_vs_f64": agree, "ll": one.ll, "ll_f64": f64.ll,
               "ll_rel_err": ll_rel,
@@ -1983,14 +2013,14 @@ def main():
 
     one_launches, decoded_n2 = main_path(
         "main_path", tm, y, truth, (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb),
-        fwd_ms + bt_ms, H, {})
+        fwd_ms + bt_ms, H, {}, fwd_ms)
     # streaming in batches of 64 windows (two calls in flight), not one
     # batch padded to the default 256
     one3_launches, _ = main_path(
         "main_path_n3", tm3, y3, truth3,
         (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb),
         ovn3["forward"]["ms"] + ovn3["backtrace"]["ms"], H3,
-        {"blocks_per_call": 64})
+        {"blocks_per_call": 64}, ovn3["forward"]["ms"])
 
     # ---- training: bench.py's EM problem (N=2, K=60, non-overlap, f32,
     # T=2^19, block 2048 -> L=2048, H=240, W=2528, B=256) ----------------
@@ -2404,6 +2434,8 @@ def main():
         gamma_entry("ov2_forward_cuda", "viterbi_ov2_fwd.cu",
                     "pallas_viterbi.py:55", r1["launches"], r1),
     ]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "limit_seconds": 1200})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,10 @@ Packed outputs, written alike by each kernel and its plain version:
   xT     (B,) i32           first max of the final flat state
   labels (B, W) i16
 
+Kernel 3's block shape and cell map, fixed per launch, are chosen here
+(`ovn_launch_plan`, `ovn_cell_map`, the Python mirror of
+csrc/ovn_cells.cuh) so that the CPU tests can hold them.
+
 A wrapper takes its plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in its
 `launches` attribute.
@@ -41,6 +45,7 @@ launches the kernel or raises. Each wrapper counts its launches in its
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -123,6 +128,168 @@ def ovn_smem_bytes(N: int, K: int) -> int:
     return 4 * (2 * S + n_f + n_i)
 
 
+# --------------------------------------------------------------------------
+# kernel 3's block shape and cell map (csrc/ovn_cells.cuh)
+# --------------------------------------------------------------------------
+
+FIXED = 96               # head warp + two edge warps
+# the threads and the interior slots a thread of the cell-map kernels built
+# for each N (csrc/viterbi_ovn_fwd.cu kShapes): the last slot count covers
+# every K-1 <= 64 the shared memory takes, the other fits K = 60 exactly.
+# N = 2..5 run the cell map, larger N the general forward (1024 threads).
+CELL_SHAPES = {2: (512, (10,)), 3: (512, (25, 30)), 4: (512, (51, 59)),
+               5: (1024, (31,))}
+
+
+@dataclasses.dataclass(frozen=True)
+class OvnPlan:
+    """The block shape of csrc/viterbi_ovn_fwd.cu for one launch: one
+    window per CTA, one CTA an SM. design "cells" (N <= 5): warp 0 on the
+    heads, warps 1-2 on the edge lanes, every other thread on
+    `cells_per_thread` interior slots (the smallest slot count built that
+    holds the cells a thread needs). design "general" (N >= 6):
+    ovn_fwd.cuh's 1024 threads in 16 rows of 64 lanes."""
+
+    design: str
+    threads: int
+    cells_per_thread: int
+    smem_bytes: int
+
+
+def _npairs(N):
+    return N * (N - 1) // 2
+
+
+def interior_span(N: int, Km1: int) -> int:
+    """Positions of the flat pair region from its first interior cell (M +
+    1 cells in) to its last one: the interior threads' range."""
+    return max(0, _npairs(N) * Km1 * Km1 - Km1 - 1)
+
+
+def cells_per_thread(N: int, Km1: int, threads: int) -> int:
+    """The interior cells a thread needs at this shape."""
+    h = interior_span(N, Km1)
+    t = threads - FIXED
+    return -(-h // t) if h > t else 1
+
+
+def ovn_launch_plan(N: int, Km1: int) -> OvnPlan:
+    """Kernel 3's block shape for (N, K-1): 512 threads for N <= 4, 1024 for
+    N = 5 (512 would need more than 64 slots a thread), the general forward
+    for N >= 6. The window count does not enter: 1024 threads measured
+    slower than 512 at every N <= 4 shape, and two CTAs of 512 sharing an
+    SM once windows outnumber SMs only 1-2% ahead of one (PERF.md)."""
+    if not 1 <= Km1 <= KP or N < 2:
+        raise ValueError(f"ovn forward supports N >= 2, 1 <= K-1 <= {KP}")
+    if N not in CELL_SHAPES:
+        return OvnPlan("general", 1024, 0, ovn_smem_bytes(N, Km1 + 1))
+    threads, slots = CELL_SHAPES[N]
+    need = cells_per_thread(N, Km1, threads)
+    fits = [c for c in slots if c >= need]
+    if not fits:
+        raise ValueError(f"ovn forward: N={N}, K-1={Km1} needs {need} cells "
+                         f"a thread at {threads} threads")
+    # the two state buffers and the tail the interior's last loads read past
+    # the second one
+    PB = 1 + N * Km1
+    S = PB + _npairs(N) * Km1 * Km1
+    tail = max(0, PB + fits[0] * (threads - FIXED) - S)
+    return OvnPlan("cells", threads, fits[0], 4 * (2 * S + tail))
+
+
+# the compile-time topology of csrc/ovn_cells.cuh, in Python
+def _pair_of(N, i, j):
+    return i * (2 * N - i - 1) // 2 + (j - i - 1)
+
+
+def _pair_ij(N, q):
+    i = 0
+    while q >= N - 1 - i:
+        q -= N - 1 - i
+        i += 1
+    return i, i + 1 + q
+
+
+def _ring_src(N, n, c):
+    """The c-th pair containing n (ascending) and whether n is its i."""
+    return (_pair_of(N, c, n), False) if c < n else (_pair_of(N, n, c + 1),
+                                                      True)
+
+
+def _third(i, j, c):
+    m = c + (c >= i)
+    return m + (m >= j)
+
+
+def ovn_cell_map(plan: OvnPlan, N: int, Km1: int):
+    """The cell-map kernel's work, thread by thread: a list over the CTA's
+    threads of [(state index, [candidate source indices, in candidate
+    order])] that the thread writes every step. Thread h < 1+N+P: head h
+    (silent, onset of h-1, corner of pair h-1-N); thread 32 + k, 1 <= k <
+    K-1: ring slot k of every ring, then row-edge (0, k) and column-edge (k,
+    0) of every pair; interior thread u: the interior cells among flat
+    states PB + M + 1 + u + c * (threads - 96), c < the plan's slots."""
+    if plan.design != "cells":
+        raise ValueError("the cell map is the N <= 5 design's")
+    M, P = Km1, _npairs(N)
+    G2, PB = M * M, 1 + N * M
+    ends = [(m + 1) * M for m in range(N)]
+    pends = [PB + r * G2 + G2 - 1 for r in range(P)]
+
+    def hb(r, is_i, p):
+        """Pair r's cell with the staying member at p, the other at its
+        end."""
+        return (PB + r * G2 + p * M + M - 1 if is_i
+                else PB + r * G2 + (M - 1) * M + p)
+
+    out = []
+    T = plan.threads - FIXED
+    span = interior_span(N, Km1)
+    for tid in range(plan.threads):
+        cells = []
+        if tid < 1 + N + P:
+            h = tid
+            if h == 0:
+                dst, singles, pairs = 0, range(N), range(P)
+            elif h <= N:
+                n = h - 1
+                dst = 1 + n * M
+                singles = [m for m in range(N) if m != n]
+                pairs = [r for r in range(P) if n not in _pair_ij(N, r)]
+            else:
+                q = h - 1 - N
+                ij = set(_pair_ij(N, q))
+                dst = PB + q * G2
+                singles = [m for m in range(N) if m not in ij]
+                pairs = [r for r in range(P)
+                         if not ij & set(_pair_ij(N, r))]
+            cells = [(dst, [0] + [ends[m] for m in singles]
+                      + [pends[r] for r in pairs])]
+        elif 32 <= tid < FIXED and 1 <= tid - 32 < M:
+            k = tid - 32
+            for n in range(N):
+                cells.append((1 + n * M + k, [n * M + k] + [
+                    hb(*_ring_src(N, n, c), k - 1) for c in range(N - 1)]))
+            for q in range(P):
+                i, j = _pair_ij(N, q)
+                thirds = [_third(i, j, c) for c in range(N - 2)]
+                cells.append((PB + q * G2 + k, [j * M + k] + [
+                    hb(_pair_of(N, min(j, m), max(j, m)), j < m, k - 1)
+                    for m in thirds]))
+                cells.append((PB + q * G2 + k * M, [i * M + k] + [
+                    hb(_pair_of(N, min(i, m), max(i, m)), i < m, k - 1)
+                    for m in thirds]))
+        elif tid >= FIXED:
+            for c in range(plan.cells_per_thread):
+                h = tid - FIXED + c * T
+                g = h + M + 1
+                a, b = (g % G2) // M, g % M
+                if h < span and a >= 1 and b >= 1:
+                    cells.append((PB + g, [PB + h]))
+        out.append(cells)
+    return out
+
+
 def ovn_mc_smem_bytes(N: int, K: int) -> int:
     """Dynamic shared memory of kernel 11: the two state buffers, the float
     constants (the dynamics' and c1), the int tables and two staged stream
@@ -191,9 +358,25 @@ def _check_fits(name, c: OvnConsts):
             f"> {SMEM_LIMIT})")
 
 
+def ovn_design(plan: OvnPlan, N: int, Km1: int) -> dict:
+    """What the card makes of a cell-map block shape: the CTAs resident on
+    one SM at once, the registers a thread and its local-memory (spill)
+    bytes."""
+    fn = _lib("viterbi_ovn_fwd", "ovn_forward_attrs",
+              [_I, _I, _I, _I, _I, _P])
+    out = (ctypes.c_int * 3)()
+    err = fn(N, Km1, plan.threads, plan.cells_per_thread, plan.smem_bytes,
+             out)
+    if err != 0:
+        raise RuntimeError(f"ovn_forward_attrs: CUDA error {err}")
+    return {"resident_ctas_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
+
+
 def ovn_forward_mb(y_win, sil, c: OvnConsts):
     """Kernel 3: (B, W) windows, (B,) bool silent-start rows ->
-    (flags, rings, rowcol, xT). CPU tensors take `ovn_forward_mb_plain`."""
+    (flags, rings, rowcol, xT), with the block shape of `ovn_launch_plan`.
+    CPU tensors take `ovn_forward_mb_plain`."""
     if y_win.device.type == "cpu":
         return ovn_forward_mb_plain(y_win, sil, c)
     _check_fits("ovn_forward_mb", c)
@@ -206,16 +389,19 @@ def ovn_forward_mb(y_win, sil, c: OvnConsts):
     if sil8.shape != (B,):
         raise ValueError("ovn_forward_mb: shape mismatch")
     dev = y_win.device
+    plan = ovn_launch_plan(N, K1)
     flags = torch.empty((B, W, 1 + N + P), dtype=torch.uint8, device=dev)
     rings = torch.empty((B, W, N, K1), dtype=torch.uint8, device=dev)
     rowcol = torch.empty((B, W, 2 * P, K1), dtype=torch.uint8, device=dev)
     xT = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _lib("viterbi_ovn_fwd", "ovn_forward_mb",
-              [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P])
+              [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I,
+               _I, _I, _P])
     err = fn(y_win.data_ptr(), sil8.data_ptr(), B, W, N, K1,
              c.fpack.data_ptr(), c.fpack.numel(), c.ipack.data_ptr(),
              c.ipack.numel(), flags.data_ptr(), rings.data_ptr(),
-             rowcol.data_ptr(), xT.data_ptr(), _stream(dev))
+             rowcol.data_ptr(), xT.data_ptr(), plan.threads,
+             plan.cells_per_thread, plan.smem_bytes, _stream(dev))
     if err != 0:
         raise RuntimeError(f"ovn_forward_mb: CUDA error {err} at launch")
     ovn_forward_mb.launches += 1

@@ -107,7 +107,7 @@ def _ovn_problem(N, K, B, W, seed):
     """Windows of N templates with overlapping spikes forced into row 0."""
     temps = np.stack([create_spike_template(K, *PARAMS[n % 4])
                       for n in range(N)], axis=1)
-    pp = np.array([0.03, 0.02, 0.025, 0.015][:N])
+    pp = np.array([0.03, 0.02, 0.025, 0.015, 0.01][:N])
     rng = np.random.default_rng(seed)
     y = np.stack([create_signal_fast(W, 0.3, pp, temps, rng=rng)[0]
                   for _ in range(B)])
@@ -136,6 +136,8 @@ def _silent(mask, B, dev):
     (4, 60, 3, 257),
     (3, 65, 2, 131),          # K-1 = 64, the largest the kernels take
     (4, 65, 2, 99),
+    (5, 54, 2, 70),           # the largest N=5 that fits a CTA
+    (3, 60, 140, 40),         # more windows than an H100 has SMs
 ])
 @pytest.mark.parametrize("silent", SILENT)
 def test_ovn_kernels_equal_plain(cuda, N, K, B, W, silent):

@@ -177,3 +177,156 @@ def test_shared_memory_gate():
     assert not vomb.ovn_kernel_ok(3, 66)
     assert vomb.ovn_kernel_ok(5, 54) and not vomb.ovn_kernel_ok(5, 55)
     assert not vomb.ovn_kernel_ok(1, 60)
+
+
+# --------------------------------------------------------------------------
+# kernel 3's block shape and cell map (csrc/ovn_cells.cuh), held here on the
+# CPU; the kernel itself is held against the plain version on the card
+# --------------------------------------------------------------------------
+
+# (N, K) of the cell-map tests: every N the cell map takes, K at one and two
+# ring slots, a small grid, the production K and the largest K-1 (64) that
+# fits (N=5: K=54, the largest its shared memory takes)
+CELL_CASES = [(N, K) for N in (2, 3, 4) for K in (2, 3, 9, 60, 65)] + [
+    (5, K) for K in (2, 3, 9, 54)]
+
+
+def _gate_at_parent(N, K):
+    """The shared-memory gate kernels 3-4 had before the cell map: the
+    double-buffered state, the float constants and the int tables in one
+    CTA's 227 KB (less the argmax scratch)."""
+    Km1, P = K - 1, N * (N - 1) // 2
+    S = 1 + N * Km1 + P * Km1 * Km1
+    n_f = 8 + N + 2 * P + 2 * N * Km1
+    n_i = 2 * P + N * (N - 1) + 2 * P * (N - 2)
+    return 1 <= Km1 <= 64 and 4 * (2 * S + n_f + n_i) <= 232448 - 256
+
+
+@pytest.mark.parametrize("N", [2, 3, 4, 5, 6, 8])
+def test_kernel_gate_admits_every_earlier_topology(N):
+    # never narrower than before: N=2-4 for every K <= 65, N=5 to K=54
+    for K in range(2, 70):
+        if _gate_at_parent(N, K):
+            assert vomb.ovn_kernel_ok(N, K), (N, K)
+            plan = vomb.ovn_launch_plan(N, K - 1)
+            assert plan.smem_bytes <= vomb.SMEM_LIMIT, (N, K)
+    if N <= 4:
+        assert all(vomb.ovn_kernel_ok(N, K) for K in range(2, 66))
+    if N == 5:
+        assert vomb.ovn_kernel_ok(5, 54)
+
+
+@pytest.mark.parametrize("N,K", CELL_CASES)
+def test_launch_plan(N, K):
+    Km1 = K - 1
+    plan = vomb.ovn_launch_plan(N, Km1)
+    assert plan.design == "cells"
+    assert plan.threads == (512 if N <= 4 else 1024)
+    P = N * (N - 1) // 2
+    S = 1 + N * Km1 + P * Km1 * Km1
+    PB = 1 + N * Km1
+    T = plan.threads - vomb.FIXED
+    need = vomb.cells_per_thread(N, Km1, plan.threads)
+    assert need * T >= vomb.interior_span(N, Km1)
+    assert plan.cells_per_thread in vomb.CELL_SHAPES[N][1]
+    assert need <= plan.cells_per_thread <= 64
+    # the last interior load (PB + slots*T - 1 past the second buffer) stays
+    # inside the dynamic shared memory
+    assert S + PB + plan.cells_per_thread * T <= plan.smem_bytes // 4
+    assert plan.smem_bytes <= vomb.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        vomb.ovn_launch_plan(N, 65)
+
+
+def test_launch_plan_production_shapes():
+    # the main path's K = 60 runs the slot counts built for it exactly
+    assert vomb.ovn_launch_plan(3, 59).cells_per_thread == 25
+    assert vomb.ovn_launch_plan(4, 59).cells_per_thread == 51
+    assert vomb.ovn_launch_plan(5, 53).threads == 1024
+    general = vomb.ovn_launch_plan(6, 7)
+    assert general.design == "general" and general.threads == 1024
+    assert general.smem_bytes == vomb.ovn_smem_bytes(6, 8)
+    with pytest.raises(ValueError):
+        vomb.ovn_cell_map(general, 6, 7)
+
+
+def _expected_candidates(tab, x):
+    """The candidate sources of flat state x in ring_viterbi_ovn's
+    maxplus_step order, from the plain version's tables."""
+    N, M, P, PB = tab.N, tab.Km1, tab.P, tab.PB
+    G2 = M * M
+    src = tab.src.tolist()
+
+    def hb(r, is_i, p):
+        return (PB + r * G2 + p * M + M - 1 if is_i
+                else PB + r * G2 + (M - 1) * M + p)
+
+    def allowed(mask_row):
+        return [i for i, v in enumerate(mask_row.tolist()) if v == 0]
+
+    if x == 0:
+        return [0] + src[1:]
+    if x < PB:
+        n, k = divmod(x - 1, M)
+        if k == 0:
+            return ([0] + [src[1 + m] for m in allowed(tab.mask_diag[n])]
+                    + [src[1 + N + r] for r in allowed(tab.mask_inpair[n])])
+        return [x - 1] + [hb(int(q), bool(i), k - 1) for q, i in
+                          zip(tab.ring_q[n], tab.ring_i[n])]
+    q, g = divmod(x - PB, G2)
+    a, b = divmod(g, M)
+    if a == 0 and b == 0:
+        return ([0] + [src[1 + m] for m in allowed(tab.mask_member[q])]
+                + [src[1 + N + r] for r in allowed(tab.mask_nondis[q])])
+    if a == 0:
+        return [1 + int(tab.pj[q]) * M + b - 1] + [
+            hb(int(r), bool(i), b - 1)
+            for r, i in zip(tab.row_q[q], tab.row_i[q])]
+    if b == 0:
+        return [1 + int(tab.pi[q]) * M + a - 1] + [
+            hb(int(r), bool(i), a - 1)
+            for r, i in zip(tab.col_q[q], tab.col_i[q])]
+    return [x - M - 1]
+
+
+@pytest.mark.parametrize("N,K", CELL_CASES)
+def test_cell_map_writes_every_state_once_from_the_plain_candidates(N, K):
+    Km1 = K - 1
+    tab = trvo.ovn_tables(N, Km1, dtype=torch.float64, device="cpu")
+    plan = vomb.ovn_launch_plan(N, Km1)
+    cmap = vomb.ovn_cell_map(plan, N, Km1)
+    assert len(cmap) == plan.threads
+    written = [x for cells in cmap for x, _ in cells]
+    assert sorted(written) == list(range(tab.S))
+    for tid, cells in enumerate(cmap):
+        for x, cands in cells:
+            assert cands == _expected_candidates(tab, x), (tid, x)
+    # the roles: heads on warp 0, edges on warps 1-2, interior after
+    P = N * (N - 1) // 2
+    assert [x for x, _ in sum(cmap[:1 + N + P], [])] == (
+        [0] + [1 + n * Km1 for n in range(N)]
+        + [tab.PB + q * Km1 * Km1 for q in range(P)])
+    assert not any(cmap[1 + N + P:32])
+    for tid in range(32, vomb.FIXED):
+        k = tid - 32
+        assert len(cmap[tid]) == (N + 2 * P if 1 <= k < Km1 else 0)
+    for tid in range(vomb.FIXED, plan.threads):
+        assert len(cmap[tid]) <= plan.cells_per_thread
+        assert all(len(c) == 1 for _, c in cmap[tid])
+
+
+def test_cell_map_topology_is_the_plain_tables():
+    # the kernel's compile-time topology (its Python mirror) against the
+    # tables the plain version reads
+    for N in range(2, 6):
+        pairs, qn, row_tab, col_tab = trvo._tables(N)
+        for q, (i, j) in enumerate(pairs):
+            assert vomb._pair_ij(N, q) == (i, j)
+            assert vomb._pair_of(N, i, j) == q
+            thirds = [vomb._third(i, j, c) for c in range(N - 2)]
+            assert [(vomb._pair_of(N, min(j, m), max(j, m)), j < m)
+                    for m in thirds] == row_tab[q]
+            assert [(vomb._pair_of(N, min(i, m), max(i, m)), i < m)
+                    for m in thirds] == col_tab[q]
+        for n in range(N):
+            assert [vomb._ring_src(N, n, c) for c in range(N - 1)] == qn[n]
