@@ -6,7 +6,8 @@ output.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line with its own wall (`phase_seconds`,
+since the previous phase line):
   platform     torch and CUDA versions, the card (nvidia-smi)
   build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-19), all
                sources at once
@@ -52,8 +53,9 @@ Phases, each printing one JSON line:
                bench.py signal with its templates, N=7 with
                init_templates(60, 7, std(y), default_rng(1)); and at the
                drift tracking's shape (N=2, B=16 windows of W=2528, one
-               32768-sample chunk); checkpoints and la exactly equal, the
-               summed statistics within 1e-5 relative; times and bounds,
+               32768-sample chunk), the plain versions on the first 4
+               windows; checkpoints and la exactly equal, the summed
+               statistics within 1e-5 relative; times and bounds,
                the block shape ops/fb_mb.em_launch_plan chose and the time
                of a window step
   reference_em one EM step through kernels 5-6 (float32) vs
@@ -76,15 +78,16 @@ Phases, each printing one JSON line:
   kernels_gamma  kernels 7-10 (the chained onset posteriors) vs their plain
                versions at bench.py's posterior shapes (T=2^19 of the
                bench.py signal, L=4096, B=128, K=60): kernels 9-10 (N=2
-               overlaps, S=3600) on the first 32 windows, kernels 7-8
-               (non-overlap, N=2 and N=7 with the kernels_em templates) on
-               all 128; checkpoints, first-position betas and posteriors
+               overlaps, S=3600) and kernels 7-8 (non-overlap, N=2 and N=7
+               with the kernels_em templates), the plain versions on the
+               first 4 windows; checkpoints, first-position betas and
+               posteriors
                exactly equal; times and bounds of the forward, the chaining
                sweep and the gamma pass; for kernels 9-10 the block shapes
                gamma_ov2_launch_plan chose, the CTAs resident on an SM, the
                time of a window step; kernels 9-10 again at 512 windows of
                4096 (posterior_path's shape, two CTAs an SM), exactly equal
-               on the first 32, timed the same way
+               on the first 4, timed the same way
   posterior_bench  bench.py's posterior problem (bench.py:216-241):
                core/posterior.onset_posteriors_chained on the N=2 overlap
                model, T=2^19, float32, after one warm-up (kernels 9-10);
@@ -110,7 +113,7 @@ Phases, each printing one JSON line:
                tracked below the stationary); labels >= 0.9999 equal to the
                float64 plain twin; kernel 16 vs its plain version on 4
                windows at full width (W=33,248) and kernels 17-18 vs theirs
-               on 32 windows at T=2^19 and at model_posteriors' 512
+               on 4 windows at T=2^19 and at model_posteriors' 512
                windows of 4096, exactly equal, timed with their block
                shapes;
                then model_posteriors (kernels 17-18, 2 + 2), confidence and
@@ -126,15 +129,21 @@ Phases, each printing one JSON line:
                (the first two templates; B=256 windows of L=2048, H=256),
                and kernel 4 on kernel 11's output vs its plain version:
                exactly equal; times, bounds and the channel projection's
-               time
+               time; kernel 11's block shape from
+               ops/viterbi_ovn_mb.ovn_mc_launch_plan (`design`: the
+               interior's kind, threads, interior cells a thread, CTAs an
+               SM, shared memory, resident CTAs an SM, registers and spill
+               bytes a thread, the time of a window step; `ms_by_shape`:
+               each shape it has for that N, forced, exactly equal)
   main_path_mc models/multichannel.fit_spiking_model_mc_fast on config 6,
                one-shot and streaming (16 windows a call), launches of
                kernels 11 and 4 counted in each run; labels vs the float64
                plain twin, ll, onset counts vs the generator's truth
   kernels_em_mc  kernels 12-13 vs em_forward_mb_mc_plain /
                em_backward_mb_mc_plain at config 6's training shapes (B=256
-               windows of W=2528, S=178, C=4): checkpoints and la exactly
-               equal, the summed statistics within 1e-5 relative
+               windows of W=2528, S=178, C=4; the plain versions on the
+               first 4): checkpoints and la exactly equal, the summed
+               statistics within 1e-5 relative
   train_em_mc  5 chained em_chain_mc(fb_mode="overlap_cuda") iterations on
                config 6 from its templates after one warm-up: iterations/s,
                launches 5 + 5, the first iteration vs one float64 step of the
@@ -150,7 +159,7 @@ Phases, each printing one JSON line:
                posteriors, reading the emission stream) vs
                gamma_fwd_mb_mc_plain / gamma_bwd_mb_mc_plain at config 6 with
                overlaps off (S=178, T=2^19, B=128 windows of L=4096; the
-               plain versions on the first 16): checkpoints, first-position
+               plain versions on the first 4): checkpoints, first-position
                betas and posteriors exactly equal; times and bounds
   posterior_bench_mc  core/posterior.onset_posteriors_chained_mc on config 6
                with overlaps off, T=2^19, float32, after one warm-up
@@ -173,7 +182,8 @@ Phases, each printing one JSON line:
                posteriors' error against a float64 run on the card);
                --adaptive --confidence --qc on drift_path's recording
                (labels equal the library's)
-About 11-12 minutes on an H100 (the wall phase prints it).
+About 12-14 minutes on an H100 (the wall phase prints it; each phase line
+carries its own phase_seconds).
 Then one {"kernels": [...]} line, the script's own wall ({"phase": "wall"},
 from the platform phase on, against its 1200 s limit), the nvidia-smi
 name/power-limit line and, last, {"ok": true, "device": {...}}. Any failed check raises: the script
@@ -195,13 +205,28 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # for compute capability 9.0)
 SFU_OPS_PER_S = FP32_OPS_PER_S / 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+# windows held against the plain versions where the plain version's time
+# grows with the windows (the E-step and posterior checks): window 0 starts
+# the recording (or the chain), the others do not. The decode checks'
+# plain versions take a launch-bound step at any window count and hold
+# every window (kernels 1-4) or 16 (kernels 11 + 4).
+PLAIN_WINDOWS = 4
 # template shapes of BASELINE.json config 2 (benchmarks/suite.py's first
 # three) and the fourth of that list for N=4
 OVN_SHAPES = ((3.0, 0.8, 0.2), (4.0, 0.3, 0.2), (2.5, 0.6, 0.3),
               (2.0, 0.5, 0.25))
 
 
+_PHASE_T = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print one JSON line; a phase line gets `phase_seconds`, the wall
+    since the previous phase line (or since the script started)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_seconds": now - _PHASE_T[0]}
+        _PHASE_T[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -323,14 +348,16 @@ def ops_ms(f32, sfu):
     return max(f32 / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
 
 
-def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
-    """Kernels 5-6 vs their plain versions on (y_win, bounds): checkpoints
-    and la exactly equal, the per-window partials and their sums over the
-    windows compared (sums within 1e-5 relative), CUDA-event times and the
-    bounds, as one row of the kernels_em line. With yc_win (B, W, C),
-    kernels 12-13 instead, y_win then the (B, W, S) stream emission
-    windows."""
+def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
+               P=PLAIN_WINDOWS):
+    """Kernels 5-6 on (y_win, bounds) vs their plain versions on the first P
+    windows: checkpoints and la exactly equal, the per-window partials and
+    their sums over those windows compared (sums within 1e-5 relative),
+    CUDA-event times and the bounds, as one row of the kernels_em line.
+    With yc_win (B, W, C), kernels 12-13 instead, y_win then the (B, W, S)
+    stream emission windows."""
     B, W = y_win.shape[:2]
+    P = min(P, B)
     ch = fb_mb.em_chunk(c.S)
     mc = yc_win is not None
     names = ("12", "13") if mc else ("5", "6")
@@ -339,25 +366,27 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
         bwd_k = lambda cp_: fb_mb.em_backward_mb_mc(             # noqa
             y_win, yc_win, cp_, bounds, c, ch)
         bwd_p = lambda cp_: fb_mb.em_backward_mb_mc_plain(       # noqa
-            y_win, yc_win, cp_, bounds, c, ch)
+            y_win[:P], yc_win[:P], cp_, bounds[:P], c, ch)
     else:
         fwd_k, fwd_p = fb_mb.em_forward_mb, fb_mb.em_forward_mb_plain
         bwd_k = lambda cp_: fb_mb.em_backward_mb(                # noqa
             y_win, cp_, bounds, c, ch)
         bwd_p = lambda cp_: fb_mb.em_backward_mb_plain(          # noqa
-            y_win, cp_, bounds, c, ch)
+            y_win[:P], cp_, bounds[:P], c, ch)
     fwd = lambda: fwd_k(y_win, c, ch)                         # noqa: E731
     fwd()                                                     # warm-up
     fwd_ms, (cp, la) = cuda_ms(fwd, reps=fwd_reps)
-    fwd_plain_ms, (pcp, pla) = cuda_ms(lambda: fwd_p(y_win, c, ch), reps=1)
-    fwd_err = max_abs_err([(cp, pcp), (la, pla)])
-    check(torch.equal(cp, pcp) and torch.equal(la, pla),
+    fwd_plain_ms, (pcp, pla) = cuda_ms(lambda: fwd_p(y_win[:P], c, ch),
+                                       reps=1)
+    fwd_err = max_abs_err([(cp[:P], pcp), (la[:P], pla)])
+    check(torch.equal(cp[:P], pcp) and torch.equal(la[:P], pla),
           f"kernel {names[0]} differs from its plain version at N={c.N}")
-    bwd = lambda: bwd_k(pcp)                                  # noqa: E731
+    bwd = lambda: bwd_k(cp)                                   # noqa: E731
     bwd()
     bwd_ms, got = cuda_ms(bwd, reps=bwd_reps)
     bwd_plain_ms, ref = cuda_ms(lambda: bwd_p(pcp), reps=1)
-    bwd_err = max_abs_err(list(zip(got, ref)))
+    got_p = [g[:P] for g in got]
+    bwd_err = max_abs_err(list(zip(got_p, ref)))
     # the statistics as the wrapper hands them on: summed over windows,
     # window 0's beta, and the telescoped ll from la
     def rel(a, b):
@@ -365,10 +394,12 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
         return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
     names = ("G1", "Gy", "Gy2", "X", "Xd")
-    sums_rel = {n: rel(a.sum(0), b.sum(0)) for n, a, b in zip(names, got, ref)}
+    sums_rel = {n: rel(a.sum(0), b.sum(0))
+                for n, a, b in zip(names, got_p, ref)}
     sums_rel["beta0"] = rel(got[5][0], ref[5][0])
-    lo, hi = bounds[:, 0].long(), bounds[:, 1].long()
-    (ek, pk), (ep, pp_) = (fb_mb._edge_reads(x, lo, hi) for x in (la, pla))
+    lo, hi = bounds[:P, 0].long(), bounds[:P, 1].long()
+    (ek, pk), (ep, pp_) = (fb_mb._edge_reads(x, lo, hi)
+                           for x in (la[:P], pla))
     sums_rel["ll"] = rel(ek[0] + (ek[1:] - pk[1:]).sum(),
                          ep[0] + (ep[1:] - pp_[1:]).sum())
     check(max(sums_rel.values()) <= 1e-5,
@@ -402,6 +433,7 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None):
             "us_per_window_step": {"forward": fwd_ms * 1e3 / W,
                                    "backward": bwd_ms * 1e3 / W}}}
     return {"N": c.N, "K": c.Km1 + 1, "S": c.S, "B": B, "W": W, "ch": ch,
+            "plain_windows": P,
             **design,
             "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                         "f32_ops": f_f32, "sfu_ops": f_sfu,
@@ -554,11 +586,46 @@ def ovn_kernels(vomb, y_win, sil, c, fwd_reps, bt_reps):
                           "max_abs_err": bt_err, "match": True}}
 
 
+def ovn_mc_design(vomb, es_win, d_win, sil, c, ms, reps):
+    """The block shape csrc/viterbi_ovn_mc_fwd.cu ran with
+    (ops/viterbi_ovn_mb.ovn_mc_launch_plan), what the card made of it
+    (resident CTAs an SM, registers and spill bytes a thread) and the time
+    of one window step; `ms_by_shape` the forward's time at each block shape
+    built for this N (threads x CTAs an SM), each forced, exactly equal to
+    the plan's output."""
+    B, W = es_win.shape
+    dev = es_win.device
+    plan = vomb.ovn_mc_plan_for(B, c.N, c.Km1, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_shape = {}
+    ref = vomb._mc_forward_launch(es_win, d_win, sil, c)
+    for shape in vomb.MC_SHAPES[c.N]:
+        key = f"{shape[0]}x{shape[1]}"
+        if shape == (plan.threads, plan.ctas_per_sm):
+            by_shape[key] = ms
+            continue
+        run = lambda: vomb._mc_forward_launch(           # noqa: E731
+            es_win, d_win, sil, c, shape=shape)
+        run()
+        by_shape[key], got = cuda_ms(run, reps)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"kernel 11 differs between its block shapes at N={c.N}")
+    return {"design": {"kind": plan.design, "interior": plan.interior,
+                       "threads": plan.threads,
+                       "interior_cells_per_thread": plan.cells_per_thread,
+                       "ctas_per_sm": plan.ctas_per_sm,
+                       "dynamic_smem_bytes": plan.smem_bytes,
+                       **vomb.ovn_mc_design(plan, c.N, c.Km1),
+                       "sm_count": sms, "us_per_window_step": ms * 1e3 / W},
+            "ms_by_shape": by_shape}
+
+
 def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
     """Kernel 11 vs its plain version on the first P windows of (es_win,
     d_win, sil), and kernel 4 on kernel 11's output vs its plain version
     there: exact equality of every packed output and label; CUDA-event
-    times of the kernels on all windows and of the plain versions on P."""
+    times of the kernels on all windows and of the plain versions on P;
+    kernel 11's block shape (`ovn_mc_design`)."""
     B, W = es_win.shape
     fwd = lambda: vomb.ovn_mc_forward_mb(es_win, d_win, sil, c)  # noqa
     fwd()                                                     # warm-up
@@ -589,7 +656,9 @@ def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
                                                    streams=True)
                        / FP32_OPS_PER_S * 1e3,
                        "bound_bytes_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
-                       "max_abs_err": fwd_err, "match": True},
+                       "max_abs_err": fwd_err, "match": True,
+                       **ovn_mc_design(vomb, es_win, d_win, sil, c, fwd_ms,
+                                       fwd_reps)},
            "backtrace": {"ms": bt_ms, "plain_ms": bt_plain_ms,
                          "bound_bytes_ms": ovn_bt_bytes(labels, xT, c.Km1,
                                                         c.N)
@@ -904,7 +973,8 @@ def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
             "config6": (yc6, truth6, mu6, sg6, lp6)}
 
 
-def mc_posterior_phases(dev, card, config6_, Lg=4096, plain_windows=16):
+def mc_posterior_phases(dev, card, config6_, Lg=4096,
+                        plain_windows=PLAIN_WINDOWS):
     """The multichannel posterior phases on BASELINE.json config 6 with
     overlaps off (S=178, the kernel path): kernels_gamma_mc,
     posterior_bench_mc, posterior_path_mc. Returns the kernel rows and the
@@ -1324,7 +1394,7 @@ def with_pack_bytes(row, B, S):
 
 
 def drift_path(dev, card, temps, lp, sigma, T=1 << 21, Tg=1 << 19, Lg=4096,
-               P16=4, P17=32):
+               P16=4, P17=PLAIN_WINDOWS):
     """The drift-adaptive path at full width: bench.py's N=2, K=60,
     sigma=0.3 topology on a drifting recording (create_drifting_signal,
     T=2^21, template scale 1.0 -> 2.0, default_rng(1234)).
@@ -2217,7 +2287,7 @@ def main():
         device=dev, dtype=f32) for v in (lp, temps, sigma))
     # kernels 9-10 at these 128 windows (one CTA an SM, the gamma pass
     # split) and at posterior_path's 512 (T=2^21: two CTAs an SM), each
-    # held against the plain versions on its first 32 windows
+    # held against the plain versions on its first PLAIN_WINDOWS windows
     g_rows = {}
     for key, (yk, ybk, tmk, lwk, chk) in (
             ("ov2", (yg, ybnd, term, lastw, chained)),
@@ -2232,9 +2302,9 @@ def main():
             yk, ybk, tmk, lwk, chk,
             lambda ex: gamma_ov2.terminal_exits(ex, ybk, lwk, lp_d, mu_d,
                                                 sg_d),
-            c9, c9.S, 32, reps=3)
+            c9, c9.S, PLAIN_WINDOWS, reps=3)
         g_rows[key] = ov2g_rows(gamma_ov2, parts, yk.shape[0], Lg, K - 1,
-                                32, dev)
+                                PLAIN_WINDOWS, dev)
         del parts
     for n_g, (lp_g, mu_g, sg_g) in ((2, (lp, temps, sigma)),
                                     (7, (lp7, mu7, sig7))):
@@ -2249,11 +2319,12 @@ def main():
             lambda yw, cp, en, hi, ex, tr, yb, lw, e:
                 gamma_mb.gamma_bwd_mb_plain(yw, cp, en, hi, ex, tr, yb, lw,
                                             cg, chg, e),
-            yg, ybnd, term, lastw, chained, lambda ex: ex, cg, cg.S, Bg,
-            reps=5)
+            yg, ybnd, term, lastw, chained, lambda ex: ex, cg, cg.S,
+            PLAIN_WINDOWS, reps=5)
         g_rows[f"nov_n{n_g}"] = {part: gamma_row(
             {"fwd": "nov_fwd", "chain": "nov_chain",
-             "gamma": "nov_gamma"}[part], *v, Bg, Lg, n_g, K - 1, chg, Bg)
+             "gamma": "nov_gamma"}[part], *v, Bg, Lg, n_g, K - 1, chg,
+            PLAIN_WINDOWS)
             for part, v in parts.items()}
     del yg
     emit({"phase": "kernels_gamma", "dtype": "float32", "card": card,

@@ -1,8 +1,10 @@
 // The general-N pairwise-overlap max-plus forward over one window, laid out
-// as a fixed cell map per thread (kernel 3, viterbi_ovn_fwd.cu, for N = 2..5;
-// written with its emission as a policy so that kernel 11 can take it with
-// its stream emission). ops/viterbi_ovn_mb.ovn_cell_map is the same map in
-// Python, held by the CPU tests.
+// as a fixed cell map per thread, for N = 2..5 of kernel 3
+// (viterbi_ovn_fwd.cu, fused Gaussian emission) and kernel 11
+// (viterbi_ovn_mc_fwd.cu, the multichannel stream emission): the dynamics
+// are written once and the emission is a policy. ops/viterbi_ovn_mb's
+// ovn_cell_map and ovn_mc_cell_map are the same maps in Python, held by the
+// CPU tests.
 //
 // State (S = 1 + N(K-1) + P(K-1)^2 scores, P = N(N-1)/2, M = K-1; flat order
 // = the state index of core/state_space.py):
@@ -31,8 +33,11 @@
 //    last row of each grid), which the lane loads once a step. Lane 0 writes
 //    the zero bytes of index 0.
 //  - every other thread, the interior: cells (a, b) with a, b >= 1, a pure
-//    diagonal shift nxt[x] = (cur[x - M - 1] + m2) + e_x. Interior thread u
-//    takes the positions h = u + c*T (T interior threads, c < CPT slots) of
+//    diagonal shift nxt[x] = (cur[x - M - 1] + m2) + e_x, by an interior
+//    class: `StrideInterior` below by default (kernel 3; kernel 11 at N =
+//    4, 5), kernel 11's `DiagInterior` at N <= 3. In the stride interior,
+//    thread u takes the positions h = u + c*T (T interior threads, c < CPT
+//    slots) of
 //    the flat pair region past its first M + 1 cells, so that its cells lie
 //    at a compile-time stride: every address is a base plus an immediate.
 //    The loads are unconditional and issued four at a time ahead of their
@@ -40,7 +45,7 @@
 //    a position that is an edge cell, or past the last cell, has its bit
 //    clear in the thread's mask and only its store predicated off. (A load
 //    under the store's predicate would chain every cell of a warp behind the
-//    one before it.) Each cell's emission constant sits in a register.
+//    one before it.) Each cell's emission data sits in one register.
 //
 // Exactness: every add and multiply is __fadd_rn / __fmul_rn (never an
 // FMA), in the plain version's order: candidates (x + lp) + m*lpz, then
@@ -49,13 +54,27 @@
 // maxplus_step, and a later one wins only if strictly greater.
 //
 // An emission policy `Em` provides, all __device__:
-//   Cell                            the per-state constant it keeps in a
-//                                   register (kernel 3: the state's mean)
+//   Cell                            the per-state data it keeps in registers
+//                                   (kernel 3: the state's mean; kernel 11:
+//                                   the byte offsets of the state's two
+//                                   staged-row operands and its c1 / c2)
 //   silent(), single(n, k),
 //   pair(q, i, j, a, b)             the Cell of a state
 //   begin(t)                        at the start of step t, t = 0 the
-//                                   init (every thread)
-//   value(const Cell&)              the step's emission of that state
+//                                   init (every thread); the policy's own
+//                                   loads for step t must be visible to
+//                                   every thread after begin(t) (kernel 11
+//                                   stages rows 0 and 1 before the call)
+//   value(const Cell&)              the step's emission of a head or edge
+//   Pre, fetch<OFF>(const Cell&),   an interior slot's emission in two
+//   finish(const Pre&)              halves: fetch issues its loads beside
+//                                   the slot's state load (OFF = the slot's
+//                                   compile-time stride offset in floats,
+//                                   so that a per-state table laid out like
+//                                   the pair region is read at a base plus
+//                                   an immediate), finish does its
+//                                   arithmetic (kernel 3: Pre is the mean,
+//                                   fetch a copy)
 
 #pragma once
 
@@ -144,13 +163,91 @@ __device__ __forceinline__ float ld_shared(const float* base) {
   return v;
 }
 
+// The interior at a compile-time stride (the cell map's default, kernel 3's
+// and kernel 11's for N = 4, 5): thread u = tid - kFixed takes positions h =
+// u + c*T, c < CPT, of the flat pair region past its first M + 1 cells.
+// An interior class provides, all __device__ and called by the threads
+// tid >= kFixed: a constructor (em, M), init(em, cur) the t = 0 emission,
+// step(em, cur, nxt, m2) one max-plus step, and, where kFinish, finish(cur)
+// to write the interior's final state before the termination.
+template <int N, int NT, int CPT, class Em>
+struct StrideInterior {
+  using Cell = typename Em::Cell;
+  static constexpr int T = NT - kFixed;
+  static constexpr bool kFinish = false;
+  static_assert(CPT <= kMaxCells && T > 0, "shape");
+  using Mask = std::conditional_t<(CPT > 32), unsigned long long, unsigned>;
+  int M, PB, u;
+  Cell in_cell[CPT];
+  Mask msk = 0;
+
+  __device__ __forceinline__ StrideInterior(Em& em, int m)
+      : M(m), PB(1 + N * m), u(static_cast<int>(threadIdx.x) - kFixed) {
+    if (u < 0) return;
+    const int G2 = M * M;
+    const int hsz = interior_span(N, M);
+#pragma unroll
+    for (int r = 0; r < CPT; ++r) {
+      in_cell[r] = Cell{};
+      const int h = u + r * T;
+      if (h < hsz) {
+        const int g = h + M + 1;
+        const int q = g / G2;
+        const int rem = g - q * G2;
+        const int a = rem / M;
+        const int b = rem - a * M;
+        if (a >= 1 && b >= 1) {
+          msk |= Mask{1} << r;
+          in_cell[r] = em.pair(q, pair_i(N, q), pair_j(N, q), a, b);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void init(Em& em, float* cur) {
+    float* d0 = cur + PB + M + 1 + u;
+    static_for<0, CPT>([&](auto rc) {
+      constexpr int r = decltype(rc)::value;
+      if ((msk >> r) & 1)
+        d0[r * T] = em.finish(em.template fetch<r * T>(in_cell[r]));
+    });
+  }
+  // a diagonal shift at stride T, four loads ahead
+  __device__ __forceinline__ void step(Em& em, const float* cur, float* nxt,
+                                       float m2) {
+    const float* s0 = cur + PB + u;
+    float* d0 = nxt + PB + M + 1 + u;
+    static_for<0, (CPT + 3) / 4>([&](auto bc) {
+      constexpr int r0 = decltype(bc)::value * 4;
+      float x[4];
+      typename Em::Pre p[4];
+      static_for<0, 4>([&](auto ic) {
+        constexpr int i = decltype(ic)::value, r = r0 + i;
+        if constexpr (r < CPT) {
+          x[i] = ld_shared<r * T>(s0);
+          p[i] = em.template fetch<r * T>(in_cell[r]);
+        }
+      });
+      static_for<0, 4>([&](auto ic) {
+        constexpr int i = decltype(ic)::value, r = r0 + i;
+        if constexpr (r < CPT) {
+          const float v = __fadd_rn(__fadd_rn(x[i], m2), em.finish(p[i]));
+          if ((msk >> r) & 1) d0[r * T] = v;
+        }
+      });
+    });
+  }
+  __device__ __forceinline__ void finish(float*) {}
+};
+
 // The forward over one window: init, W-1 max-plus steps writing the packed
 // choices, and the termination argmax into *xTb. `dyn` holds [m*lpz for m =
 // N..N-4 | lp (N) | lp_i+lp_j (P)]; cur and nxt are the two state buffers,
-// nxt at cur + S, with `tail_floats` behind it for the interior's last
-// loads; red_v/red_i NT/32 entries each. CPT is the interior slots a thread
-// (at least cells_per_thread at this M).
-template <int N, int NT, int CPT, class Em>
+// nxt at cur + S, with `tail_floats` behind it for the stride interior's
+// last loads; red_v/red_i NT/32 entries each. CPT is the stride interior's
+// slots a thread (at least cells_per_thread at this M); In the interior
+// class.
+template <int N, int NT, int CPT, class Em,
+          class In = StrideInterior<N, NT, CPT, Em>>
 __device__ __forceinline__ void forward_cells(
     Em& em, const float* __restrict__ dyn, int W, int M, bool sil0,
     uint8_t* __restrict__ fb, uint8_t* __restrict__ rb,
@@ -159,9 +256,7 @@ __device__ __forceinline__ void forward_cells(
   using Cell = typename Em::Cell;
   constexpr int P = npairs(N);
   constexpr int F = 1 + N + P;
-  constexpr int T = NT - kFixed;
-  static_assert(F <= 32 && CPT <= kMaxCells && T > 0, "shape");
-  using Mask = std::conditional_t<(CPT > 32), unsigned long long, unsigned>;
+  static_assert(F <= 32 && NT > kFixed, "shape");
   const int G2 = M * M;
   const int PB = 1 + N * M;
   const int S = PB + P * G2;
@@ -234,29 +329,8 @@ __device__ __forceinline__ void forward_cells(
       e_col[q] = em.pair(q, i, j, k, 0);
     });
   }
-  // interior: slot r holds position h = u + r*T
-  const int u = tid - kFixed;
-  const int hsz = interior_span(N, M);
-  Cell in_cell[CPT];
-  Mask msk = 0;
-  if (tid >= kFixed) {
-#pragma unroll
-    for (int r = 0; r < CPT; ++r) {
-      in_cell[r] = Cell{};
-      const int h = u + r * T;
-      if (h < hsz) {
-        const int g = h + M + 1;
-        const int q = g / G2;
-        const int rem = g - q * G2;
-        const int a = rem / M;
-        const int b = rem - a * M;
-        if (a >= 1 && b >= 1) {
-          msk |= Mask{1} << r;
-          in_cell[r] = em.pair(q, pair_i(N, q), pair_j(N, q), a, b);
-        }
-      }
-    }
-  }
+  // interior
+  In in(em, M);
 
   // ---- t = 0: emission-only init; flagged windows get the forced silent
   // start ---------------------------------------------------------------
@@ -273,12 +347,7 @@ __device__ __forceinline__ void forward_cells(
       cur[PB + q * G2 + k * M] = em.value(e_col[q]);
     });
   }
-  if (tid >= kFixed) {
-    float* d0 = cur + PB + M + 1 + u;
-#pragma unroll
-    for (int r = 0; r < CPT; ++r)
-      if ((msk >> r) & 1) d0[r * T] = em.value(in_cell[r]);
-  }
+  if (tid >= kFixed) in.init(em, cur);
   for (int i = tid; i < F; i += NT) fb[i] = 0;
   for (int i = tid; i < N * M; i += NT) rb[i] = 0;
   for (int i = tid; i < 2 * P * M; i += NT) cb[i] = 0;
@@ -390,25 +459,7 @@ __device__ __forceinline__ void forward_cells(
         });
       }
     } else {
-      // the interior: a diagonal shift at stride T, four loads ahead
-      const float* s0 = cur + PB + u;
-      float* d0 = nxt + PB + M + 1 + u;
-      static_for<0, (CPT + 3) / 4>([&](auto bc) {
-        constexpr int r0 = decltype(bc)::value * 4;
-        float x[4];
-        static_for<0, 4>([&](auto ic) {
-          constexpr int i = decltype(ic)::value;
-          if constexpr (r0 + i < CPT) x[i] = ld_shared<(r0 + i) * T>(s0);
-        });
-        static_for<0, 4>([&](auto ic) {
-          constexpr int i = decltype(ic)::value, r = r0 + i;
-          if constexpr (r < CPT) {
-            const float v = __fadd_rn(__fadd_rn(x[i], m2),
-                                      em.value(in_cell[r]));
-            if ((msk >> r) & 1) d0[r * T] = v;
-          }
-        });
-      });
+      in.step(em, cur, nxt, m2);
     }
     __syncthreads();
     float* tmp = cur;
@@ -416,6 +467,10 @@ __device__ __forceinline__ void forward_cells(
     nxt = tmp;
   }
 
+  if constexpr (In::kFinish) {
+    if (tid >= kFixed) in.finish(cur);
+    __syncthreads();
+  }
   // termination: first max over the flat state, lowest index on ties
   float bv = -INFINITY;
   int bi = S;

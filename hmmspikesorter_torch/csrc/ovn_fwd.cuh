@@ -1,7 +1,8 @@
-// The general-N pairwise-overlap max-plus forward over one window, shared by
-// kernel 3 (viterbi_ovn_fwd.cu, fused Gaussian emission) and kernel 11
-// (viterbi_ovn_mc_fwd.cu, multi-channel stream emission): the dynamics are
-// written once and the emission is a policy, as the JAX package's
+// The general-N pairwise-overlap max-plus forward over one window, for
+// N >= 6 only of kernel 3 (viterbi_ovn_fwd.cu, fused Gaussian emission) and
+// kernel 11 (viterbi_ovn_mc_fwd.cu, multi-channel stream emission); N = 2..5
+// of both run ovn_cells.cuh's cell map. The dynamics are written once and
+// the emission is a policy, as the JAX package's
 // `_make_fwd_kernel(..., em_factory)` shares them between its front-ends.
 //
 // State (S = 1 + N(K-1) + P(K-1)^2 scores, P = N(N-1)/2; flat order = the

@@ -30,8 +30,9 @@
 // rejects a shape, slot count or shared-memory size other than the plan's.
 //
 // N >= 6 (only small K fits a CTA there) runs ovn_fwd.cuh's general
-// forward, kernel 11's code, with the Gaussian policy `GaussEm` below: the
-// topology from tables in shared memory, 16 rows of 64 lanes.
+// forward, which kernel 11 runs at N >= 6 too, with the Gaussian policy
+// `GaussEm` below: the topology from tables in shared memory, 16 rows of 64
+// lanes.
 
 #include "ovn_cells.cuh"
 #include "ovn_fwd.cuh"
@@ -84,6 +85,13 @@ struct GaussCells {
   __device__ float value(float mean) const {
     return emit(yt, mean, econst, inv_2s2);
   }
+  // an interior slot: the mean is already in its register
+  using Pre = float;
+  template <int OFF>
+  __device__ float fetch(float mean) const {
+    return mean;
+  }
+  __device__ float finish(float mean) const { return value(mean); }
 };
 
 template <int N, int NT, int CPT>

@@ -14,12 +14,12 @@ Kernel 4, `ovn_backtrace_mb` (csrc/viterbi_ovn_bt.cu), replaces
 chase. Both take any N >= 2 whose state fits one CTA's shared memory
 (`ovn_kernel_ok`).
 Kernel 11, `ovn_mc_forward_mb` (csrc/viterbi_ovn_mc_fwd.cu), replaces the
-multi-channel front-end `_forward_native_mc`: the same dynamics (shared
-with kernel 3 through csrc/ovn_fwd.cuh) with the emission read from the
-factorised streams es (B, W) and d (B, W, N, K-1) of core/emission_mc.py
-and the static energies c1, c2 (`ovn_mc_kernel_ok`). Its packed output is
-kernel 3's, so kernel 4 decodes it, as the JAX package shares
-`_backtrace_native`. The plain versions are ops/ring_viterbi_ovn.py's
+multi-channel front-end `_forward_native_mc`: the same dynamics (kernel
+3's cell map, csrc/ovn_cells.cuh, for N = 2..5; csrc/ovn_fwd.cuh for N >=
+6) with the emission read from the factorised streams es (B, W) and d (B,
+W, N, K-1) of core/emission_mc.py and the static energies c1, c2
+(`ovn_mc_kernel_ok`). Its packed output is kernel 3's, so kernel 4 decodes
+it, as the JAX package shares `_backtrace_native`. The plain versions are ops/ring_viterbi_ovn.py's
 forward and backtrace, whose module docstring lists the candidate order,
 association and tie-breaks the kernels follow.
 
@@ -34,9 +34,10 @@ Packed outputs, written alike by each kernel and its plain version:
   xT     (B,) i32           first max of the final flat state
   labels (B, W) i16
 
-Kernel 3's block shape and cell map, fixed per launch, are chosen here
-(`ovn_launch_plan`, `ovn_cell_map`, the Python mirror of
-csrc/ovn_cells.cuh) so that the CPU tests can hold them.
+The block shapes and cell maps of kernels 3 and 11, fixed per launch, are
+chosen here (`ovn_launch_plan`, `ovn_cell_map`, the Python mirror of
+csrc/ovn_cells.cuh; `ovn_mc_launch_plan`, `ovn_mc_cell_map`, kernel 11's
+stream policy) so that the CPU tests can hold them.
 
 A wrapper takes its plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in its
@@ -51,7 +52,7 @@ import dataclasses
 import torch
 
 from . import ring_viterbi_ovn as rvo
-from .viterbi_mb import KP, _I, _P, _check_cuda, _lib, _stream
+from .viterbi_mb import KP, _I, _P, _check_cuda, _lib, _stream, sm_count
 
 # Shared memory one CTA may opt into on an H100 (227 KB), less what the
 # forward kernel declares statically (its argmax scratch).
@@ -290,10 +291,248 @@ def ovn_cell_map(plan: OvnPlan, N: int, Km1: int):
     return out
 
 
+# --------------------------------------------------------------------------
+# kernel 11's block shape and cell data (csrc/viterbi_ovn_mc_fwd.cu)
+# --------------------------------------------------------------------------
+
+# kernel 11's cell-map shapes (csrc/viterbi_ovn_mc_fwd.cu kShapes): {N:
+# {(threads, CTAs an SM): cells a thread}}. N <= 3 the cells of a diagonal
+# piece (the interior in registers; the smaller fits K = 60, the larger
+# every K-1 <= 64); N = 4, 5 kernel 3's threads and stride slots. The first
+# shape of each N is its default; N=2 takes two CTAs an SM when the windows
+# outnumber the SMs.
+MC_SHAPES = {2: {(512, 1): (9, 11), (512, 2): (9, 11)},
+             3: {(512, 1): (29, 32)},
+             4: {(512, 1): (51, 59)}, 5: {(1024, 1): (31,)}}
+MAX_RUN = 32             # the longest piece: the staged row's pad
+
+
+def piece_warp_rank(w: int, nwarps: int) -> int:
+    """The place of warp w (>= 3) among the interior warps in the order in
+    which they take diagonal pieces: scheduler 3's warps (w % 4) first, then
+    scheduler 0's (the head warp's), then schedulers 1 and 2's (the edge
+    warps') alternately, each ascending."""
+    order = [x for cls in (0, 1, 2) for x in range(3, nwarps)
+             if (0 if x % 4 == 3 else 1 if x % 4 == 0 else 2) == cls]
+    return order.index(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class OvnMCPlan:
+    """The block shape of csrc/viterbi_ovn_mc_fwd.cu for one launch: one
+    window per CTA. design "cells" (N <= 5): kernel 3's threads and heads
+    and edges; `interior` "diagonal" (N <= 3: pieces of at most
+    `cells_per_thread` cells of the grids' wrapped diagonals, one a thread,
+    in registers) or "stride" (N = 4, 5: kernel 3's stride slots, c2 read
+    from global memory); `ctas_per_sm` CTAs an SM the registers are capped
+    for; `c2_floats` the floats of c2 the kernel reads (the grids, and for
+    the stride interior up to its last slot). design "general" (N >= 6):
+    ovn_fwd.cuh's 1024 threads."""
+
+    design: str
+    interior: str
+    threads: int
+    cells_per_thread: int
+    ctas_per_sm: int
+    smem_bytes: int
+    c2_floats: int
+
+
+def _diagonal(N: int) -> bool:
+    return N <= 3
+
+
+def ovn_mc_d_row(N: int, Km1: int) -> int:
+    """Floats of one d row in kernel 11's staged row: [d_j[0..M) |
+    d_j[1..M)] where the interior is diagonal (a piece crossing the wrap
+    reads on without a modulo), d_j alone otherwise."""
+    return 2 * Km1 - 1 if _diagonal(N) else Km1
+
+
+def ovn_mc_stage_floats(N: int, Km1: int) -> int:
+    """Floats of one staged stream row: [es | es + d (N, K-1) | N d rows],
+    and for the diagonal interior a pad its pieces' last loads read."""
+    return (1 + N * Km1 + N * ovn_mc_d_row(N, Km1)
+            + (MAX_RUN if _diagonal(N) else 0))
+
+
+def _diag_fits(N, Km1, threads, R):
+    """Whether pieces of at most R cells give every wrapped diagonal of
+    every pair grid its pieces, one a thread."""
+    G = Km1 - 1
+    return G <= 0 or _npairs(N) * -(-G // R) * G <= threads - FIXED
+
+
+def ovn_mc_launch_plan(N: int, Km1: int, B: int = 1, sm_count: int = 132,
+                       shape: tuple | None = None) -> OvnMCPlan:
+    """Kernel 11's block shape for (N, K-1) at B windows on a card of
+    `sm_count` SMs: the first of MC_SHAPES[N], or for N = 2 two CTAs an SM
+    when the windows outnumber the SMs (`shape` = (threads, CTAs an SM)
+    forces one); the fewest cells a thread built that cover K-1. The shared
+    memory: the two state buffers, then the two staged rows, which also
+    take the stride interior's last loads past the second buffer."""
+    if not 1 <= Km1 <= KP or N < 2:
+        raise ValueError(f"ovn MC forward supports N >= 2, 1 <= K-1 <= {KP}")
+    P, G2 = _npairs(N), Km1 * Km1
+    if N not in MC_SHAPES:
+        if shape not in (None, (1024, 1)):
+            raise ValueError("the general forward runs 1024 threads, one "
+                             "CTA an SM")
+        return OvnMCPlan("general", "general", 1024, 0, 1,
+                         ovn_mc_smem_bytes(N, Km1 + 1), P * G2)
+    if shape is None:
+        shape = (512, 2) if N == 2 and B > sm_count else next(
+            iter(MC_SHAPES[N]))
+    if shape not in MC_SHAPES[N]:
+        raise ValueError(f"ovn MC forward: N={N} is built for the shapes "
+                         f"{list(MC_SHAPES[N])}, not {shape}")
+    threads, ctas = shape
+    T = threads - FIXED
+    if _diagonal(N):
+        fits = [R for R in MC_SHAPES[N][shape]
+                if _diag_fits(N, Km1, threads, R)]
+    else:
+        need = cells_per_thread(N, Km1, threads)
+        fits = [c for c in MC_SHAPES[N][shape] if c >= need]
+    if not fits:
+        raise ValueError(f"ovn MC forward: N={N}, K-1={Km1} does not fit "
+                         f"the cells built at {threads} threads")
+    slots = fits[0]
+    S = 1 + N * Km1 + P * G2
+    tail = 0 if _diagonal(N) else max(0, slots * T - P * G2)
+    floats = 2 * S + max(2 * ovn_mc_stage_floats(N, Km1), tail)
+    c2n = P * G2 if _diagonal(N) else max(P * G2, Km1 + 1 + slots * T)
+    return OvnMCPlan("cells", "diagonal" if _diagonal(N) else "stride",
+                     threads, slots, ctas, 4 * floats, c2n)
+
+
+def ovn_mc_pieces(plan: OvnMCPlan, N: int, Km1: int):
+    """The diagonal interior's pieces, thread by thread (None for a thread
+    without one): the thread of rank u (its lane + 32 times its warp's
+    `piece_warp_rank`) holds piece k of wrapped diagonal dg of pair q, u
+    = (q S + k)(M-1) + dg, S = ceil((M-1) / R). A dict with `q`,
+    `cells` (its states in order), `pred0` / `predw` (the states whose last
+    values cell 0 and the wrap cell `w` take from shared memory; w = -1:
+    none, predw = pred0) and `st_w` / `st_last` (the states it writes there
+    each step: the cell before the wrap, or the last again, and its last
+    cell), `lo` / `hi` (cell 0's A and d indices in the staged row, cell p
+    at + p) and `c2` (the flat c2 index of each cell)."""
+    if plan.interior != "diagonal":
+        raise ValueError("the pieces are the diagonal interior's")
+    M, P, R = Km1, _npairs(N), plan.cells_per_thread
+    G, G2, PB, DR = M - 1, M * M, 1 + N * M, ovn_mc_d_row(N, Km1)
+    out = [None] * plan.threads
+    if G <= 0:
+        return out
+    S = -(-G // R)
+    for tid in range(FIXED, plan.threads):
+        u = 32 * piece_warp_rank(tid // 32, plan.threads // 32) + tid % 32
+        if u >= P * S * G:
+            continue
+        q, rem = divmod(u, S * G)
+        k, dg = divmod(rem, G)
+        i, j = _pair_ij(N, q)
+        s0 = k * R
+        n = min(R, G - s0)
+        a0, bw0 = s0 + 1, dg + s0
+        base = PB + q * G2
+        cells = [base + (a0 + p) * M + (bw0 + p) % G + 1 for p in range(n)]
+        wl = G - bw0
+        w = wl if 1 <= wl < n else -1
+        pred0 = base + (a0 - 1) * M + bw0 % G
+        out[tid] = {
+            "q": q, "cells": cells, "w": w, "pred0": pred0,
+            "predw": base + (a0 + w - 1) * M if w > 0 else pred0,
+            "st_w": base + (a0 + w - 1) * M + M - 1 if w > 0 else cells[-1],
+            "st_last": cells[-1],
+            "lo": 1 + i * M + a0, "hi": 1 + N * M + j * DR + 1 + bw0,
+            "c2": [x - PB for x in cells]}
+    return out
+
+
+def ovn_mc_cell_map(plan: OvnMCPlan, N: int, Km1: int):
+    """Kernel 11's per-state emission data, thread by thread: a list over the
+    CTA's threads of [(state, lo, hi, c)] that the thread's policy holds.
+    lo and hi index the staged row (`ovn_mc_stage_floats`; hi = 0: no
+    second operand), c is ("c1", flat index), ("c2", flat index) or None
+    (the silent state); the emission is (row[lo] + row[hi] if hi else
+    row[lo]) - c. Heads and edges are kernel 3's (`ovn_cell_map`) and keep
+    their c1 / c2 in a register. A diagonal piece's cell p reads the row at
+    its cell 0's indices + p and keeps c2 in a register; a stride slot c <
+    the plan's slots of thread u reads c2 at M + 1 + u + c * (threads - 96),
+    its stride offset."""
+    if plan.design != "cells":
+        raise ValueError("the cell map is the N <= 5 design's")
+    M, P = Km1, _npairs(N)
+    G2, PB, NM = M * M, 1 + N * M, N * M
+    DR = ovn_mc_d_row(N, Km1)
+
+    def single(n, k):
+        return (1 + n * M + k, 0, ("c1", n * M + k))
+
+    def pair(q, a, b):
+        i, j = _pair_ij(N, q)
+        return (1 + i * M + a, 1 + NM + j * DR + b,
+                ("c2", q * G2 + a * M + b))
+
+    pieces = (ovn_mc_pieces(plan, N, Km1) if plan.interior == "diagonal"
+              else None)
+    out = []
+    T = plan.threads - FIXED
+    span = interior_span(N, Km1)
+    for tid in range(plan.threads):
+        cells = []
+        if tid == 0:
+            cells = [(0, 0, 0, None)]
+        elif tid <= N:
+            cells = [(1 + (tid - 1) * M, *single(tid - 1, 0))]
+        elif tid < 1 + N + P:
+            q = tid - 1 - N
+            cells = [(PB + q * G2, *pair(q, 0, 0))]
+        elif 32 <= tid < FIXED and 1 <= tid - 32 < M:
+            k = tid - 32
+            cells = [(1 + n * M + k, *single(n, k)) for n in range(N)]
+            for q in range(P):
+                cells.append((PB + q * G2 + k, *pair(q, 0, k)))
+                cells.append((PB + q * G2 + k * M, *pair(q, k, 0)))
+        elif tid >= FIXED and pieces is not None:
+            pc = pieces[tid]
+            if pc is not None:
+                cells = [(x, pc["lo"] + p, pc["hi"] + p, ("c2", c))
+                         for p, (x, c) in enumerate(zip(pc["cells"],
+                                                        pc["c2"]))]
+        elif tid >= FIXED:
+            u = tid - FIXED
+            for c in range(plan.cells_per_thread):
+                h = u + c * T
+                g = h + M + 1
+                q, rem = divmod(g, G2)
+                a, b = divmod(rem, M)
+                if h < span and a >= 1 and b >= 1:
+                    lo, hi, _ = pair(q, a, b)
+                    cells.append((PB + g, lo, hi, ("c2", M + 1 + u + c * T)))
+        out.append(cells)
+    return out
+
+
+def ovn_mc_stage_row(es_t, d_t):
+    """The staged row of one step as kernel 11 writes it: es_t (B,), d_t
+    (B, N, K-1) -> (B, `ovn_mc_stage_floats`) [es | es + d | d rows | pad
+    (zeros here)], the JAX `esdi` beside d's rows (`ovn_mc_d_row`)."""
+    B, N, M = d_t.shape
+    d = d_t.reshape(B, -1)
+    rows = (torch.cat([d_t, d_t[..., 1:]], dim=2) if _diagonal(N)
+            else d_t).reshape(B, -1)
+    pad = d_t.new_zeros((B, ovn_mc_stage_floats(N, M) - 1 - N * M
+                         - rows.shape[1]))
+    return torch.cat([es_t[:, None], es_t[:, None] + d, rows, pad], dim=1)
+
+
 def ovn_mc_smem_bytes(N: int, K: int) -> int:
-    """Dynamic shared memory of kernel 11: the two state buffers, the float
-    constants (the dynamics' and c1), the int tables and two staged stream
-    rows of 1 + N(K-1) floats; c2 stays in global memory."""
+    """Dynamic shared memory of kernel 11's general forward (N >= 6): the
+    two state buffers, the float constants (the dynamics' and c1), the int
+    tables and two staged stream rows of 1 + N(K-1) floats; c2 stays in
+    global memory."""
     Km1 = K - 1
     P = N * (N - 1) // 2
     S = 1 + N * Km1 + P * Km1 * Km1
@@ -304,12 +543,16 @@ def ovn_mc_smem_bytes(N: int, K: int) -> int:
 
 def ovn_mc_kernel_ok(N: int, K: int) -> bool:
     """Whether kernel 11 (and kernel 4 after it) takes this topology: N >=
-    2, K-1 <= 64 and its shared memory within one CTA. Admits what
-    ovn_kernel_ok admits for N <= 4 (N=4, K=65: 201,996 bytes) and N=5 up
-    to K=54."""
-    return (N >= 2 and 1 <= K - 1 <= KP
-            and ovn_mc_smem_bytes(N, K) <= SMEM_LIMIT
-            and ovn_kernel_ok(N, K))
+    2, K-1 <= 64 and its launch plan's shared memory within one CTA. N =
+    2-4 for every K <= 65 (N=4, K=65: 202,768 bytes), N = 5 up to K=54
+    (231,096 bytes), N >= 6 where `ovn_mc_smem_bytes` fits."""
+    if not (N >= 2 and 1 <= K - 1 <= KP and ovn_kernel_ok(N, K)):
+        return False
+    try:
+        plan = ovn_mc_launch_plan(N, K - 1)
+    except ValueError:
+        return False
+    return plan.smem_bytes <= SMEM_LIMIT
 
 
 def ovn_kernel_ok(N: int, K: int) -> bool:
@@ -441,18 +684,37 @@ def ovn_backtrace_mb(flags, rings, rowcol, xT, c: OvnConsts):
 ovn_backtrace_mb.launches = 0
 
 
-def ovn_mc_forward_mb(es_win, d_win, sil, c: OvnMCConsts):
-    """Kernel 11: stream windows es (B, W), d (B, W, N, K-1), (B,) bool
-    silent-start rows -> (flags, rings, rowcol, xT). CPU tensors take
-    `ovn_mc_forward_mb_plain`."""
-    if es_win.device.type == "cpu":
-        return ovn_mc_forward_mb_plain(es_win, d_win, sil, c)
+def ovn_mc_plan_for(B: int, N: int, Km1: int, device,
+                    shape: tuple | None = None) -> OvnMCPlan:
+    """`ovn_mc_launch_plan` on the card holding the windows."""
+    return ovn_mc_launch_plan(N, Km1, B, sm_count(device), shape)
+
+
+def ovn_mc_design(plan: OvnMCPlan, N: int, Km1: int) -> dict:
+    """What the card makes of a kernel-11 cell-map block shape: the CTAs
+    resident on one SM at once, the registers a thread and its local-memory
+    (spill) bytes."""
+    fn = _lib("viterbi_ovn_mc_fwd", "ovn_mc_forward_attrs",
+              [_I, _I, _I, _I, _I, _I, _P])
+    out = (ctypes.c_int * 3)()
+    err = fn(N, Km1, plan.threads, plan.cells_per_thread, plan.ctas_per_sm,
+             plan.smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"ovn_mc_forward_attrs: CUDA error {err}")
+    return {"resident_ctas_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
+
+
+def _mc_forward_launch(es_win, d_win, sil, c: OvnMCConsts, shape=None):
+    """Launches csrc/viterbi_ovn_mc_fwd.cu on stream windows with the block
+    shape of `ovn_mc_plan_for` (`shape` forces one of MC_SHAPES[N]); c2
+    padded to the plan's `c2_floats`."""
     N, K1, P = c.N, c.Km1, c.P
     if not ovn_mc_kernel_ok(N, K1 + 1):
         raise ValueError(
             f"ovn_mc_forward_mb: N={N}, K={K1 + 1} does not fit the kernel "
-            f"(K-1 <= {KP}, {ovn_mc_smem_bytes(N, K1 + 1)} bytes of shared "
-            f"memory > {SMEM_LIMIT})")
+            f"(K-1 <= {KP} and the state in {SMEM_LIMIT} bytes of shared "
+            f"memory)")
     B, W = es_win.shape
     sil8 = sil.to(torch.uint8).contiguous()
     c2 = c.em.c2
@@ -464,21 +726,37 @@ def ovn_mc_forward_mb(es_win, d_win, sil, c: OvnMCConsts):
             or c2.shape != (P, K1, K1)):
         raise ValueError("ovn_mc_forward_mb: shape mismatch")
     dev = es_win.device
+    plan = ovn_mc_plan_for(B, N, K1, dev, shape)
+    c2p = c2.reshape(-1)
+    if plan.c2_floats > c2p.numel():
+        c2p = torch.cat([c2p, c2p.new_zeros(plan.c2_floats - c2p.numel())])
     flags = torch.empty((B, W, 1 + N + P), dtype=torch.uint8, device=dev)
     rings = torch.empty((B, W, N, K1), dtype=torch.uint8, device=dev)
     rowcol = torch.empty((B, W, 2 * P, K1), dtype=torch.uint8, device=dev)
     xT = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _lib("viterbi_ovn_mc_fwd", "ovn_mc_forward_mb",
-              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
-               _P, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
+               _P, _P, _I, _I, _I, _I, _P])
     err = fn(es_win.data_ptr(), d_win.data_ptr(), sil8.data_ptr(), B, W, N,
              K1, c.fpack.data_ptr(), c.fpack.numel(), c.ipack.data_ptr(),
-             c.ipack.numel(), c2.data_ptr(), flags.data_ptr(),
-             rings.data_ptr(), rowcol.data_ptr(), xT.data_ptr(), _stream(dev))
+             c.ipack.numel(), c2p.data_ptr(), c2p.numel(), flags.data_ptr(),
+             rings.data_ptr(), rowcol.data_ptr(), xT.data_ptr(),
+             plan.threads, plan.cells_per_thread, plan.ctas_per_sm,
+             plan.smem_bytes, _stream(dev))
     if err != 0:
         raise RuntimeError(f"ovn_mc_forward_mb: CUDA error {err} at launch")
-    ovn_mc_forward_mb.launches += 1
     return flags, rings, rowcol, xT
+
+
+def ovn_mc_forward_mb(es_win, d_win, sil, c: OvnMCConsts):
+    """Kernel 11: stream windows es (B, W), d (B, W, N, K-1), (B,) bool
+    silent-start rows -> (flags, rings, rowcol, xT), with the block shape of
+    `ovn_mc_launch_plan`. CPU tensors take `ovn_mc_forward_mb_plain`."""
+    if es_win.device.type == "cpu":
+        return ovn_mc_forward_mb_plain(es_win, d_win, sil, c)
+    out = _mc_forward_launch(es_win, d_win, sil, c)
+    ovn_mc_forward_mb.launches += 1
+    return out
 
 
 ovn_mc_forward_mb.launches = 0

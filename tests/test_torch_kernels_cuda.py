@@ -107,7 +107,7 @@ def _ovn_problem(N, K, B, W, seed):
     """Windows of N templates with overlapping spikes forced into row 0."""
     temps = np.stack([create_spike_template(K, *PARAMS[n % 4])
                       for n in range(N)], axis=1)
-    pp = np.array([0.03, 0.02, 0.025, 0.015, 0.01][:N])
+    pp = np.resize([0.03, 0.02, 0.025, 0.015, 0.01], N)
     rng = np.random.default_rng(seed)
     y = np.stack([create_signal_fast(W, 0.3, pp, temps, rng=rng)[0]
                   for _ in range(B)])
@@ -138,6 +138,7 @@ def _silent(mask, B, dev):
     (4, 65, 2, 99),
     (5, 54, 2, 70),           # the largest N=5 that fits a CTA
     (3, 60, 140, 40),         # more windows than an H100 has SMs
+    (6, 8, 3, 50),            # N >= 6: ovn_fwd.cuh's general forward
 ])
 @pytest.mark.parametrize("silent", SILENT)
 def test_ovn_kernels_equal_plain(cuda, N, K, B, W, silent):
@@ -797,11 +798,16 @@ def _mc_windows(N, K, C, B, W, seed):
     (4, 60, 4, 3, 257),
     (3, 65, 4, 2, 131),       # K-1 = 64, the largest the kernels take
     (4, 65, 2, 2, 99),
+    (5, 54, 3, 2, 70),        # the largest N=5 that fits (1024 threads)
+    (3, 60, 4, 140, 40),      # more windows than an H100 has SMs
+    (2, 60, 2, 140, 33),      # N=2 there: two CTAs an SM
+    (6, 8, 2, 3, 50),         # N >= 6: ovn_fwd.cuh's general forward
 ])
 @pytest.mark.parametrize("silent", SILENT)
 def test_ovn_mc_kernel_equal_plain(cuda, N, K, C, B, W, silent):
     """Kernel 11 vs ovn_mc_forward_mb_plain on the same stream windows,
-    and kernel 4 on its output: every packed output and label exact."""
+    and kernel 4 on its output: every packed output and label exact; then
+    every block shape kernel 11 has for this N, forced, exact again."""
     from hmmspikesorter_torch.core.emission_mc import MCTables, mc_streams
     from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
 
@@ -825,6 +831,12 @@ def test_ovn_mc_kernel_equal_plain(cuda, N, K, C, B, W, silent):
     assert vomb.ovn_mc_forward_mb.launches == n_fwd + 1
     if K >= 7:                  # the forced overlap reaches a pair state
         assert bool((ref[0] >= c.tab.PB).any())
+    for shape in vomb.MC_SHAPES.get(N, [None]):
+        forced = vomb._mc_forward_launch(es, d, sil, c, shape=shape)
+        torch.cuda.synchronize()
+        for a, b in zip(forced, plain):
+            assert torch.equal(a, b), shape
+    assert vomb.ovn_mc_forward_mb.launches == n_fwd + 1
 
 
 def test_ovn_mc_kernel_refuses_what_it_cannot_take(cuda):

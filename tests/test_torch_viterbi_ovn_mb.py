@@ -216,6 +216,216 @@ def test_kernel_gate_admits_every_earlier_topology(N):
         assert vomb.ovn_kernel_ok(5, 54)
 
 
+def _mc_gate_at_parent(N, K):
+    """The shared-memory gate kernel 11 had before the cell map: the
+    double-buffered state, the float constants (the dynamics' and c1), the
+    int tables and two staged stream rows in one CTA, and kernel 4's gate."""
+    Km1, P = K - 1, N * (N - 1) // 2
+    S = 1 + N * Km1 + P * Km1 * Km1
+    n_f = 5 + N + P + N * Km1
+    n_i = 2 * P + N * (N - 1) + 2 * P * (N - 2)
+    mc = 4 * (2 * S + n_f + n_i + 2 * (1 + N * Km1))
+    return _gate_at_parent(N, K) and mc <= 232448 - 256
+
+
+@pytest.mark.parametrize("N", [2, 3, 4, 5, 6, 7, 8])
+def test_mc_kernel_gate_admits_every_earlier_topology(N):
+    # never narrower than before: N=2-4 for every K <= 65, N=5 to K=54
+    admitted = 0
+    for K in range(2, 70):
+        if _mc_gate_at_parent(N, K):
+            admitted += 1
+            assert vomb.ovn_mc_kernel_ok(N, K), (N, K)
+            plan = vomb.ovn_mc_launch_plan(N, K - 1)
+            assert plan.smem_bytes <= vomb.SMEM_LIMIT, (N, K)
+            assert plan.design == ("cells" if N <= 5 else "general")
+    assert admitted > 0
+    if N <= 4:
+        assert all(vomb.ovn_mc_kernel_ok(N, K) for K in range(2, 66))
+    if N == 5:
+        assert vomb.ovn_mc_kernel_ok(5, 54)
+
+
+@pytest.mark.parametrize("N,K,threads,cells,interior", [
+    (2, 60, 512, 9, "diagonal"), (3, 60, 512, 29, "diagonal"),
+    (4, 60, 512, 51, "stride"), (5, 54, 1024, 31, "stride")])
+def test_mc_launch_plan_production_shapes(N, K, threads, cells, interior):
+    Km1, P = K - 1, N * (N - 1) // 2
+    plan = vomb.ovn_mc_launch_plan(N, Km1)
+    assert (plan.design, plan.interior, plan.threads, plan.cells_per_thread,
+            plan.ctas_per_sm) == ("cells", interior, threads, cells, 1)
+    assert vomb.ovn_launch_plan(N, Km1).threads == threads
+    built = next(iter(vomb.MC_SHAPES[N].values()))
+    assert cells == built[0]
+    S = 1 + N * Km1 + P * Km1 * Km1
+    T = threads - vomb.FIXED
+    G = P * Km1 * Km1
+    floats = plan.smem_bytes // 4
+    # [state | state | the staged rows, which also take the stride
+    # interior's last loads past the second buffer]
+    rows = 2 * vomb.ovn_mc_stage_floats(N, Km1)
+    if interior == "diagonal":
+        assert floats == 2 * S + rows and plan.c2_floats == G
+        # every wrapped diagonal of every grid has its pieces, one a thread
+        assert P * -(-(Km1 - 1) // cells) * (Km1 - 1) <= T
+        # and the larger piece would not be needed
+        assert vomb.ovn_mc_launch_plan(N, 64).cells_per_thread == built[1]
+    else:
+        assert floats == 2 * S + max(rows, cells * T - G)
+        assert S + 1 + N * Km1 + cells * T <= floats
+        # the last slot's c2 (at M + 1 + u + c*T) lies in the padded c2
+        assert plan.c2_floats == max(G, Km1 + 1 + cells * T)
+        need = vomb.cells_per_thread(N, Km1, threads)
+        assert cells == min(c for c in built if c >= need)
+    assert plan.smem_bytes <= vomb.SMEM_LIMIT
+    # windows beyond the SMs: N=2 takes its two-CTA shape, the rest one
+    wide = vomb.ovn_mc_launch_plan(N, Km1, B=256, sm_count=132)
+    assert wide.ctas_per_sm == (2 if N == 2 else 1)
+    assert vomb.ovn_mc_launch_plan(N, Km1, B=132, sm_count=132) == plan
+    assert wide.smem_bytes == plan.smem_bytes
+    with pytest.raises(ValueError):
+        vomb.ovn_mc_launch_plan(N, Km1, shape=(512, 3))
+    # every shape built for N takes its production K
+    for shape in vomb.MC_SHAPES[N]:
+        forced = vomb.ovn_mc_launch_plan(N, Km1, shape=shape)
+        assert (forced.threads, forced.ctas_per_sm) == shape
+        assert forced.smem_bytes <= vomb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("N,K", [(2, 2), (2, 3), (2, 12), (2, 60), (2, 65),
+                                 (3, 3), (3, 9), (3, 33), (3, 60), (3, 61),
+                                 (3, 65)])
+def test_mc_diagonal_pieces_close_the_recursion(N, K):
+    # the diagonal interior's dataflow: the pieces hold every interior cell
+    # once; each cell's predecessor (a-1, b-1) is the cell before it in its
+    # piece, or a state read from shared memory that an edge lane or a
+    # piece writes every step; and every interior cell the edges and heads
+    # read (the last row and column) is written there every step
+    Km1 = K - 1
+    M, P = Km1, N * (N - 1) // 2
+    PB, G2 = 1 + N * M, M * M
+    plan = vomb.ovn_mc_launch_plan(N, Km1)
+    pieces = vomb.ovn_mc_pieces(plan, N, Km1)
+    assert len(pieces) == plan.threads
+    assert not any(pieces[:vomb.FIXED])
+
+    def grid(x):
+        q, g = divmod(x - PB, G2)
+        return q, g // M, g % M
+
+    interior = [PB + q * G2 + a * M + b for q in range(P)
+                for a in range(1, M) for b in range(1, M)]
+    held = [x for pc in pieces if pc for x in pc["cells"]]
+    assert sorted(held) == sorted(interior)
+    written = set()
+    for pc in pieces:
+        if pc is None:
+            continue
+        assert 1 <= len(pc["cells"]) <= plan.cells_per_thread
+        written |= {pc["st_w"], pc["st_last"]}
+        for p, x in enumerate(pc["cells"]):
+            q, a, b = grid(x)
+            pred = PB + q * G2 + (a - 1) * M + (b - 1)
+            if p == 0:
+                assert pc["pred0"] == pred
+            elif p == pc["w"]:
+                assert pc["predw"] == pred and b == 1
+            else:
+                assert pc["cells"][p - 1] == pred
+            if b == M - 1 and p < len(pc["cells"]) - 1:
+                assert pc["st_w"] == x and pc["w"] == p + 1
+        assert pc["st_last"] == pc["cells"][-1]
+    edge = {PB + q * G2 + e for q in range(P) for e in range(M)} | {
+        PB + q * G2 + e * M for q in range(P) for e in range(M)}
+    for pc in pieces:
+        if pc is not None:
+            for x in (pc["pred0"], pc["predw"]):
+                assert x in edge or x in written
+    last = {x for x in interior
+            if grid(x)[1] == M - 1 or grid(x)[2] == M - 1}
+    assert last <= written
+    # a warp's lanes hold neighbouring diagonals of one piece index: their
+    # A reads one word, their d reads consecutive words
+    for w0 in range(vomb.FIXED, plan.threads, 32):
+        lanes = [pc for pc in pieces[w0:w0 + 32] if pc is not None]
+        runs = {}
+        for pc in lanes:
+            runs.setdefault((pc["q"], pc["lo"]), []).append(pc["hi"])
+        for his in runs.values():
+            assert his == list(range(his[0], his[0] + len(his)))
+
+
+def test_mc_launch_plan_general():
+    plan = vomb.ovn_mc_launch_plan(6, 7, B=256)
+    assert (plan.design, plan.threads, plan.cells_per_thread,
+            plan.ctas_per_sm) == ("general", 1024, 0, 1)
+    assert plan.smem_bytes == vomb.ovn_mc_smem_bytes(6, 8)
+    assert plan.c2_floats == 15 * 49
+    with pytest.raises(ValueError):
+        vomb.ovn_mc_cell_map(plan, 6, 7)
+    with pytest.raises(ValueError):
+        vomb.ovn_mc_launch_plan(3, 65)
+
+
+MC_CELL_CASES = [(2, 2), (2, 12), (2, 60), (3, 3), (3, 9), (3, 60), (3, 65),
+                 (4, 2), (4, 9), (4, 60), (5, 3), (5, 9), (5, 54)]
+
+
+@pytest.mark.parametrize("N,K", MC_CELL_CASES)
+def test_mc_cell_map_emission_is_the_plain_emission(N, K):
+    # the kernel's per-state data (row offsets, c1 / c2 index), through the
+    # staged row it writes, gives OvnMCEmission's emission bit for bit, for
+    # every state, in float32
+    Km1, B = K - 1, 3
+    P = N * (N - 1) // 2
+    plan = vomb.ovn_mc_launch_plan(N, Km1)
+    cmap = vomb.ovn_mc_cell_map(plan, N, Km1)
+    assert len(cmap) == plan.threads
+    rng = np.random.default_rng(N * 100 + K)
+    f32 = torch.float32
+    es = torch.as_tensor(rng.normal(-3.0, 2.0, B), dtype=f32)
+    d = torch.as_tensor(rng.normal(0.0, 3.0, (B, N, Km1)), dtype=f32)
+    c1 = torch.as_tensor(rng.normal(1.0, 2.0, (N, Km1)), dtype=f32)
+    c2 = torch.as_tensor(rng.normal(2.0, 2.0, (P, Km1, Km1)), dtype=f32)
+    es[0] = -0.0                      # the silent state's es - 0 keeps -0
+    em = trvo.mc_em_ovn(c1, c2)
+    e_s, e_b, e_p = em(es, d)
+    want = torch.cat([e_s[:, None], e_b.reshape(B, -1),
+                      e_p.reshape(B, -1)], dim=1)
+    row = vomb.ovn_mc_stage_row(es, d)
+    assert row.shape == (B, vomb.ovn_mc_stage_floats(N, Km1))
+    PB = 1 + N * Km1
+    states, got = [], []
+    for cells in cmap:
+        for x, lo, hi, c in cells:
+            assert 0 <= lo < row.shape[1] and 0 <= hi < row.shape[1]
+            # the byte offsets fit the kernel's 16-bit halves
+            assert 4 * lo < 1 << 16 and 4 * hi < 1 << 16
+            s = row[:, lo] + row[:, hi] if hi else row[:, lo]
+            if c is None:
+                cv = torch.zeros((), dtype=f32)
+            else:
+                kind, idx = c
+                assert kind == ("c1" if x < PB else "c2")
+                if kind == "c2":
+                    # an interior cell's c2 (a stride slot's offset, a
+                    # piece's register) is its state's
+                    assert idx == x - PB
+                cv = (c1 if kind == "c1" else c2).reshape(-1)[idx]
+            states.append(x)
+            got.append(s - cv)
+    assert sorted(states) == list(range(1 + N * Km1 + P * Km1 * Km1))
+    got = torch.stack(got, dim=1)[:, torch.as_tensor(states).argsort()]
+    assert got.dtype == f32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the heads and edges (and the stride interior) are kernel 3's, thread
+    # by thread
+    k3 = vomb.ovn_cell_map(vomb.ovn_launch_plan(N, Km1), N, Km1)
+    upto = vomb.FIXED if plan.interior == "diagonal" else plan.threads
+    assert [[x for x, *_ in cells] for cells in cmap[:upto]] == [
+        [x for x, _ in cells] for cells in k3[:upto]]
+
+
 @pytest.mark.parametrize("N,K", CELL_CASES)
 def test_launch_plan(N, K):
     Km1 = K - 1
