@@ -142,8 +142,17 @@ since the previous phase line):
   kernels_em_mc  kernels 12-13 vs em_forward_mb_mc_plain /
                em_backward_mb_mc_plain at config 6's training shapes (B=256
                windows of W=2528, S=178, C=4; the plain versions on the
-               first 4): checkpoints and la exactly equal, the summed
-               statistics within 1e-5 relative
+               first 4): checkpoints, la and kernel 13's per-window
+               partials exactly equal, the summed statistics within 1e-5
+               relative; the block shapes from
+               ops/fb_mb.em_mc_launch_plan (`design`: each kernel's body,
+               window, or step for kernel 13, states a thread, threads,
+               kernel 13's split, shared memory, resident CTAs an SM,
+               registers and spill bytes a thread, the time of a window
+               step; `ms_by_shape`:
+               both kernels at each shape they take, forced, exactly
+               equal to the plan's outputs; the same and the plan on as
+               many windows as the card has SMs)
   train_em_mc  5 chained em_chain_mc(fb_mode="overlap_cuda") iterations on
                config 6 from its templates after one warm-up: iterations/s,
                launches 5 + 5, the first iteration vs one float64 step of the
@@ -358,9 +367,9 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
     stream emission windows."""
     B, W = y_win.shape[:2]
     P = min(P, B)
-    ch = fb_mb.em_chunk(c.S)
     mc = yc_win is not None
-    names = ("12", "13") if mc else ("5", "6")
+    ch = fb_mb.em_chunk(c.S)
+    kn = ("12", "13") if mc else ("5", "6")
     if mc:
         fwd_k, fwd_p = fb_mb.em_forward_mb_mc, fb_mb.em_forward_mb_mc_plain
         bwd_k = lambda cp_: fb_mb.em_backward_mb_mc(             # noqa
@@ -380,13 +389,17 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
                                        reps=1)
     fwd_err = max_abs_err([(cp[:P], pcp), (la[:P], pla)])
     check(torch.equal(cp[:P], pcp) and torch.equal(la[:P], pla),
-          f"kernel {names[0]} differs from its plain version at N={c.N}")
+          f"kernel {kn[0]} differs from its plain version at N={c.N}")
     bwd = lambda: bwd_k(cp)                                   # noqa: E731
     bwd()
     bwd_ms, got = cuda_ms(bwd, reps=bwd_reps)
     bwd_plain_ms, ref = cuda_ms(lambda: bwd_p(pcp), reps=1)
     got_p = [g[:P] for g in got]
     bwd_err = max_abs_err(list(zip(got_p, ref)))
+    partials_equal = all(torch.equal(a, b) for a, b in zip(got_p, ref))
+    if mc:
+        check(partials_equal, f"kernel 13's per-window partials differ from "
+              f"its plain version at N={c.N}")
     # the statistics as the wrapper hands them on: summed over windows,
     # window 0's beta, and the telescoped ll from la
     def rel(a, b):
@@ -403,7 +416,7 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
     sums_rel["ll"] = rel(ek[0] + (ek[1:] - pk[1:]).sum(),
                          ep[0] + (ep[1:] - pp_[1:]).sum())
     check(max(sums_rel.values()) <= 1e-5,
-          f"kernel {names[1]} differs from its plain version at N={c.N}: "
+          f"kernel {kn[1]} differs from its plain version at N={c.N}: "
           f"{sums_rel}")
     fwd_bytes = (y_win.numel() * 4 + c.fpack.numel() * 4 + cp.numel() * 4
                  + la.numel() * 4)
@@ -419,7 +432,10 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
     b_f32, b_sfu = em_bwd_ops(B, W, c.N, c.S, emit=emit_ops,
                               moments=moments)
     design = {}
-    if not mc:
+    if mc:
+        design = em_mc_design(fb_mb, y_win, yc_win, bounds, c, ch, fwd_ms,
+                              bwd_ms, (cp, la, *got), reps=fwd_reps)
+    else:
         plan = fb_mb.em_plan_for(B, c.N, c.Km1 + 1, y_win.device)
         design = {"design": {
             "ctas": B,
@@ -448,9 +464,67 @@ def em_kernels(fb_mb, y_win, bounds, c, fwd_reps, bwd_reps, yc_win=None,
                          "bound_ops_ms": ops_ms(b_f32, b_sfu),
                          "bound_bytes_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
                          "max_abs_err": bwd_err,
-                         "partials_bit_equal": all(
-                             torch.equal(a, b) for a, b in zip(got, ref)),
+                         "partials_bit_equal": partials_equal,
                          "sums_rel_err": sums_rel, "match": True}}
+
+
+def em_mc_design(fb_mb, e_win, yc_win, bounds, c, ch, fwd_ms, bwd_ms, ref,
+                 reps):
+    """Kernels 12-13's block shapes: the plan's (ops/fb_mb.em_mc_launch_plan
+    on this card) with what the card made of it (the body, resident CTAs an
+    SM, registers and spill bytes a thread) and the time of a window step;
+    `ms_by_shape` both kernels' times at every shape they take here ("step"
+    kernel 13's step body beside kernel 12's window body at the plan's spt,
+    else states a thread and kernel 13's split), each forced
+    and every output exactly equal to the plan's, `ref`; the same on as
+    many windows as the card has SMs, with the plan there."""
+    B, W = e_win.shape[:2]
+    C, K = yc_win.shape[2], c.Km1 + 1
+    plan = fb_mb.em_mc_plan_for(B, c.N, K, C, e_win.device, ch=ch)
+    attrs = fb_mb.em_mc_design(plan, c.N, K, C, ch)
+    sms = torch.cuda.get_device_properties(e_win.device).multi_processor_count
+
+    def by_shape(n):
+        """Both kernels at every shape on the first n windows."""
+        out = {}
+        for shape in fb_mb.EM_MC_SHAPES:
+            if not fb_mb.em_mc_shape_ok(c.N, K, C, shape, ch):
+                continue
+            fwd = lambda: fb_mb.em_forward_mb_mc(            # noqa: E731
+                e_win[:n], c, ch, shape=shape)
+            fwd()
+            f_ms, (cp, la) = cuda_ms(fwd, reps)
+            bwd = lambda: fb_mb.em_backward_mb_mc(           # noqa: E731
+                e_win[:n], yc_win[:n], cp, bounds[:n], c, ch, shape=shape)
+            bwd()
+            b_ms, got = cuda_ms(bwd, reps)
+            check(all(torch.equal(a, b[:n])
+                      for a, b in zip((cp, la, *got), ref)),
+                  f"kernels 12-13 differ between block shapes at {shape}")
+            key = ("step" if shape == fb_mb.EM_MC_STEP else
+                   f"spt{shape[0]}{'_split' if shape[1] else ''}")
+            out[key] = {"forward": f_ms, "backward": b_ms}
+        return out
+
+    # as many windows as SMs, where the plan splits kernel 13 (one CTA an
+    # SM); more, where it takes two CTAs an SM unsplit
+    at_sms = min(B, sms)
+    plan_sms = fb_mb.em_mc_plan_for(at_sms, c.N, K, C, e_win.device, ch=ch)
+    return {"design": {
+        "ctas": B, "sm_count": sms,
+        "forward": {**attrs["forward"], "states_per_thread": plan.fwd_spt,
+                    "threads": plan.fwd_threads,
+                    "dynamic_smem_bytes": plan.fwd_smem_bytes,
+                    "us_per_window_step": fwd_ms * 1e3 / W},
+        "backward": {**attrs["backward"], "states_per_thread": plan.spt,
+                     "threads": plan.cta_threads,
+                     "remat_and_walk_split": plan.split,
+                     "dynamic_smem_bytes": plan.bwd_smem_bytes,
+                     "us_per_window_step": bwd_ms * 1e3 / W}},
+        "ms_by_shape": by_shape(B),
+        f"ms_by_shape_at_{at_sms}_windows": by_shape(at_sms),
+        f"plan_at_{at_sms}_windows": {"states_per_thread": plan_sms.spt,
+                                      "split": plan_sms.split}}
 
 
 def bound_of(row):
@@ -854,7 +928,9 @@ def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
                       yc_win=ycw6)
     del e6_win, ycw6, es_s, body_s
     emit({"phase": "kernels_em_mc", "dtype": "float32", "card": card,
-          "L": Le6, "H": He6, "C": C6, "n3": emmc})
+          "L": Le6, "H": He6, "C": C6,
+          "bodies": {k: emmc["design"][k]["body"]
+                     for k in ("forward", "backward")}, "n3": emmc})
 
     # ---- train_em_mc: 5 chained kernel EM iterations on config 6 --------
     tab_e6 = tem.EMTables.build(build_state_space(N6, K6, False), dev)

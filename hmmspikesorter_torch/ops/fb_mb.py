@@ -41,7 +41,11 @@ Kernels 12-13, `em_forward_mb_mc` and `em_backward_mb_mc`
 emissions from (B, W, S) windows of the streams [es | eb] instead of
 computing them, and kernel 13 accumulates the first and second moments of
 each of C channels from (B, W, C) windows of the recording: Gy and Gy2 are
-(B, C, S). The recursions are kernels 5-6's (em_step.cuh).
+(B, C, S). They run kernels 5-6's design (em_win.cuh) with the emission
+rows staged into shared memory (em_win_mc.cuh). Kernel 13 keeps a step
+body (em_step.cuh's recursion, a thread a state) for where its window body
+does not fit in shared memory (large C, or S near 1024), or when a caller
+forces it. `em_mc_launch_plan` chooses.
 
 A wrapper takes its plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in its
@@ -50,6 +54,7 @@ launches the kernel or raises. Each wrapper counts its launches in its
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -124,11 +129,12 @@ SMEM_SM = 233472            # shared memory of an H100 SM, 1 KB of it per CTA
 
 @dataclasses.dataclass(frozen=True)
 class EmPlan:
-    """Block shape of kernels 5-6, one window a CTA. Kernel 5: each of its
-    `fwd_threads` threads owns `fwd_spt` states. Kernel 6: `spt` states a
-    thread, and with `split` the CTA is two sets of `threads` threads, one
-    rematerialising a chunk's alphas while the other walks beta through the
-    chunk after it, else one set doing both in turn."""
+    """Block shape of kernels 5-6 (or 12-13), one window a CTA. The
+    forward: each of its `fwd_threads` threads owns `fwd_spt` states. The
+    backward: `spt` states a thread, and with `split` the CTA is two sets
+    of `threads` threads, one rematerialising a chunk's alphas while the
+    other walks beta through the chunk after it, else one set doing both in
+    turn; spt 0 is kernel 13's step body, a thread a state."""
 
     fwd_spt: int
     spt: int
@@ -140,8 +146,13 @@ class EmPlan:
 
     @property
     def cta_threads(self) -> int:
-        """Kernel 6's threads of one CTA (one window)."""
+        """The backward's threads of one CTA (one window)."""
         return self.threads * (2 if self.split else 1)
+
+    @property
+    def bwd_body(self) -> str:
+        """The backward's body: "window", or kernel 13's "step"."""
+        return "window" if self.spt else "step"
 
 
 def em_window_threads(S: int, spt: int) -> int:
@@ -150,17 +161,62 @@ def em_window_threads(S: int, spt: int) -> int:
     return 32 * -(-S // (32 * spt))
 
 
+def _window_fits(S: int, spt: int, split, smem_bytes: int) -> bool:
+    """Whether a window-body CTA of `spt` states a thread (two sets of
+    threads where split) is within EM_CTA_THREADS (the kernels' launch
+    bound, which gives a thread 128 registers) and its shared memory within
+    one CTA."""
+    return (spt in EM_SPT and smem_bytes <= SMEM_LIMIT
+            and (2 if split else 1) * em_window_threads(S, spt)
+            <= EM_CTA_THREADS)
+
+
 def em_shape_ok(N: int, K: int, shape, ch: int | None = None) -> bool:
     """Whether kernels 5-6 take the block shape (spt, split) at this
-    topology: spt in EM_SPT, the CTA within EM_CTA_THREADS (the kernels'
-    launch bound, which gives a thread 128 registers) and kernel 6's
+    topology: spt in EM_SPT, the CTA within EM_CTA_THREADS and kernel 6's
     shared memory within one CTA."""
     spt, split = shape
-    if not em_kernel_ok(N, K) or spt not in EM_SPT:
-        return False
-    nt = em_window_threads(1 + N * (K - 1), spt)
-    return ((2 if split else 1) * nt <= EM_CTA_THREADS
-            and em_smem_bytes(N, K, ch, bool(split)) <= SMEM_LIMIT)
+    return em_kernel_ok(N, K) and _window_fits(
+        1 + N * (K - 1), spt, split, em_smem_bytes(N, K, ch, bool(split)))
+
+
+def _fwd_spt(B: int, S: int, sm_count: int) -> int:
+    """The forward's states a thread for B windows: one where the window's
+    threads fit EM_CTA_THREADS while every window has an SM of its own,
+    and half of it once windows share SMs; else two."""
+    fit = EM_CTA_THREADS if B <= sm_count else EM_CTA_THREADS // 2
+    return 1 if em_window_threads(S, 1) <= fit else 2
+
+
+def _window_plan(B: int, S: int, sm_count: int, shape, candidates,
+                 fallback, fwd_smem, bwd_smem, whole_sm: bool) -> EmPlan:
+    """A forward and backward pair's block shapes for B windows: the
+    forward's from _fwd_spt; the backward the first of `candidates` (spt,
+    split) whose threads and shared memory (bwd_smem(spt, split)) fit one
+    CTA an SM while every window has an SM of its own, and half an SM once
+    windows share SMs, then (with `whole_sm`) a whole SM, else `fallback`.
+    `shape` forces the backward's (spt, split), and the forward's spt where
+    it is not 0."""
+    fwd_spt = _fwd_spt(B, S, sm_count)
+    if shape is None:
+        wide = B <= sm_count
+        budgets = [(EM_CTA_THREADS if wide else EM_CTA_THREADS // 2,
+                    SMEM_LIMIT if wide else SMEM_SM // 2 - 1024)]
+        if whole_sm:
+            budgets.append((EM_CTA_THREADS, SMEM_LIMIT))
+        spt, split = next(
+            ((p, q) for nt_max, smem in budgets for p, q in candidates
+             if em_window_threads(S, p) * (2 if q else 1) <= nt_max
+             and bwd_smem(p, q) <= smem),
+            fallback)
+    else:
+        spt, split = shape
+        fwd_spt = spt or fwd_spt
+    return EmPlan(fwd_spt=fwd_spt, spt=spt, split=bool(split),
+                  fwd_threads=em_window_threads(S, fwd_spt),
+                  threads=em_window_threads(S, spt or 1),
+                  fwd_smem_bytes=fwd_smem(fwd_spt),
+                  bwd_smem_bytes=bwd_smem(spt, bool(split)))
 
 
 def em_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
@@ -174,27 +230,14 @@ def em_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
     of it once windows share SMs, so that two CTAs of up to 128 registers a
     thread (and their shared memory) are resident on one. `shape` = (spt,
     split) forces one that em_shape_ok admits on both kernels."""
-    S = 1 + N * (K - 1)
-    if shape is None:
-        fit = EM_CTA_THREADS if B <= sm_count else EM_CTA_THREADS // 2
-        smem = SMEM_LIMIT if B <= sm_count else SMEM_SM // 2 - 1024
-        fwd_spt = 1 if em_window_threads(S, 1) <= fit else 2
-        spt, split = next(
-            ((p, q) for p, q in ((1, True), (2, True), (1, False))
-             if em_window_threads(S, p) * (2 if q else 1) <= fit
-             and em_smem_bytes(N, K, ch, q) <= smem),
-            (2, False))
-    else:
-        if not em_shape_ok(N, K, shape, ch):
-            raise ValueError(f"kernels 5-6 do not take the block shape "
-                             f"{shape} at N={N}, K={K}")
-        spt, split = shape
-        fwd_spt = spt
-    return EmPlan(fwd_spt=fwd_spt, spt=spt, split=bool(split),
-                  fwd_threads=em_window_threads(S, fwd_spt),
-                  threads=em_window_threads(S, spt),
-                  fwd_smem_bytes=em_fwd_smem_bytes(N, K, ch),
-                  bwd_smem_bytes=em_smem_bytes(N, K, ch, bool(split)))
+    if shape is not None and not em_shape_ok(N, K, shape, ch):
+        raise ValueError(f"kernels 5-6 do not take the block shape "
+                         f"{shape} at N={N}, K={K}")
+    return _window_plan(
+        B, 1 + N * (K - 1), sm_count, shape,
+        ((1, True), (2, True), (1, False)), (2, False),
+        lambda p: em_fwd_smem_bytes(N, K, ch),
+        lambda p, q: em_smem_bytes(N, K, ch, q), whole_sm=False)
 
 
 def em_plan_for(B: int, N: int, K: int, device, shape=None,
@@ -204,21 +247,162 @@ def em_plan_for(B: int, N: int, K: int, device, shape=None,
 
 
 def em_mc_smem_bytes(N: int, K: int, C: int) -> int:
-    """Dynamic shared memory of kernel 13 (the larger of kernels 12-13):
-    kernel 6's, plus the per-channel first and second moment accumulators
-    of every state (2 C S floats)."""
+    """Dynamic shared memory of kernel 13's step body at the default chunk
+    (the gate: every topology it takes runs, on one body or the other):
+    kernel 6's step-body layout plus the per-channel first and second
+    moment sums of every state (2 C S floats)."""
     S = 1 + N * (K - 1)
     return 4 * ((em_chunk(S) + 3 + 2 * C) * S + 64)
 
 
 def em_mc_kernel_ok(N: int, K: int, C: int) -> bool:
     """Whether kernels 12-13 take this topology and channel count: one
-    thread per state (S = 1 + N(K-1) <= 1024) and kernel 13's shared memory
-    within one CTA. The limit on C follows from S: at N=3, K=60 (S=178,
-    chunk 32) C <= 145; at S=1024 (chunk 16) C <= 18."""
+    thread per state (S = 1 + N(K-1) <= 1024) and kernel 13's step-body
+    shared memory within one CTA. The limit on C follows from S: at N=3,
+    K=60 (S=178, chunk 32) C <= 145; at S=1024 (chunk 16) C <= 18."""
     S = 1 + N * (K - 1)
     return (N >= 1 and K >= 2 and C >= 1 and S <= MAX_THREADS
             and em_mc_smem_bytes(N, K, C) <= SMEM_LIMIT)
+
+
+# Kernels 12-13's block shapes (spt, split): states a thread of the window
+# bodies (1 or 2) and kernel 13's remat and walk on two sets of threads (one
+# state a thread only: at em_chunk's chunk two sets fit in shared memory
+# only where S <= 219, and there two sets of one-state threads fit), or
+# EM_MC_STEP, kernel 13's step body (em_step.cuh's recursion, a thread a
+# state) beside kernel 12 at its own spt.
+EM_MC_STEP = (0, 0)
+EM_MC_SHAPES = ((1, 0), (2, 0), (1, 1), EM_MC_STEP)
+
+
+def em_mc_fwd_smem_bytes(N: int, K: int, ch: int | None = None) -> int:
+    """Dynamic shared memory of kernel 12 (csrc/em_mc_fwd.cu; the same at
+    one or two states a thread): the onset log-probs, alpha slab (ch x S),
+    two buffers of a chunk's emission rows (ch x S each), two rows of the
+    heads' logsumexps and the partial maxes and sums of `la` (ch x
+    ceil(S/32) each); 4 bytes each, each part rounded to 16 bytes."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    return 4 * (_r4(N) + 3 * _r4(ch * S) + 2 * _r4(N + 1)
+                + 2 * _r4(ch * -(-S // 32)))
+
+
+def em_mc_bwd_smem_bytes(N: int, K: int, C: int, ch: int | None = None,
+                         spt: int = 1, split: bool = False) -> int:
+    """Dynamic shared memory of kernel 13 (csrc/em_mc_bwd.cu): the step
+    body's (spt 0), or the window body's onset log-probs; alpha, beta and
+    emission slabs (ch x S; 3 + 2 + 3 where split, else 1 + 1 + 2); two
+    beta + emission rows and two checkpoint rows; the yc chunks (ch x C; 4
+    where split, else 2); per beta slab the onsets' emissions (ch x N) and
+    g_t (ch); the moment sums (2 C S), four rows of the heads' logsumexps
+    and the partial maxes and sums of g_t (ch x ceil(S/32) each); each part
+    rounded to 16 bytes."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if spt == 0:
+        return 4 * ((ch + 3 + 2 * C) * S + 64)
+    na, nb, ne, ny = (3, 2, 3, 4) if split else (1, 1, 2, 2)
+    return 4 * (_r4(N) + (na + nb + ne) * _r4(ch * S) + 4 * _r4(S)
+                + ny * _r4(ch * C) + nb * _r4(ch * N) + _r4(nb * ch)
+                + 2 * _r4(C * S) + 4 * _r4(N + 1) + 2 * _r4(ch * -(-S // 32)))
+
+
+def _mc_fwd_ok(N: int, K: int, ch: int) -> bool:
+    """Whether kernel 12 takes this topology and chunk (at either spt: at
+    em_chunk's chunk every topology em_mc_kernel_ok admits fits)."""
+    return (ch >= 2 and 1 + N * (K - 1) <= MAX_THREADS
+            and em_mc_fwd_smem_bytes(N, K, ch) <= SMEM_LIMIT)
+
+
+def em_mc_shape_ok(N: int, K: int, C: int, shape,
+                   ch: int | None = None) -> bool:
+    """Whether kernels 12-13 both take the block shape (spt, split) at
+    this topology, with a chunk of at least 2 steps and kernel 12's shared
+    memory within one CTA: kernel 13's step body wherever em_mc_kernel_ok
+    admits the topology (at the default chunk); the window body as
+    em_shape_ok admits kernels 5-6's."""
+    spt, split = shape
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if (not em_mc_kernel_ok(N, K, C) or (spt, split) not in EM_MC_SHAPES
+            or not _mc_fwd_ok(N, K, ch)):
+        return False
+    bwd = em_mc_bwd_smem_bytes(N, K, C, ch, spt, bool(split))
+    return bwd <= SMEM_LIMIT if spt == 0 else _window_fits(S, spt, split,
+                                                           bwd)
+
+
+def em_mc_fwd_spt(B: int, N: int, K: int, sm_count: int, shape=None,
+                  ch: int | None = None) -> int:
+    """Kernel 12's states a thread for B windows, as em_mc_launch_plan
+    gives it, without a channel count: a forced `shape` = (spt, split)
+    gives its spt, EM_MC_STEP (kernel 13's step body) the plan's own."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if not _mc_fwd_ok(N, K, ch) or (
+            shape is not None
+            and (tuple(shape) not in EM_MC_SHAPES
+                 or (shape[0] and em_window_threads(S, shape[0])
+                     > EM_CTA_THREADS))):
+        raise ValueError(f"kernel 12 does not take the block shape {shape} "
+                         f"at N={N}, K={K}, chunk {ch}")
+    return (shape[0] if shape is not None else 0) or _fwd_spt(B, S,
+                                                             sm_count)
+
+
+def em_mc_launch_plan(B: int, N: int, K: int, C: int, sm_count: int,
+                      shape=None, ch: int | None = None) -> EmPlan:
+    """Kernels 12-13's block shapes for B windows on a card of `sm_count`
+    SMs, as em_launch_plan chooses kernels 5-6's: kernel 12 the window
+    body, one thread a state where the window's threads fit, else two;
+    kernel 13 the window body split where both sets and their shared
+    memory fit, else unsplit at one state a thread, else two; threads and
+    shared memory within one CTA an SM while every window has an SM of its
+    own, and within half an SM once windows share SMs. Where no kernel-13
+    shape fits half an SM it takes one a whole SM (two waves or more), and
+    where none fits at all the step body. `shape` = (spt, split) forces one
+    that em_mc_shape_ok admits on both kernels (EM_MC_STEP: kernel 13's
+    step body)."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if not em_mc_kernel_ok(N, K, C) or not _mc_fwd_ok(N, K, ch):
+        raise ValueError(f"kernels 12-13 do not take N={N}, K={K}, C={C} "
+                         f"at chunk {ch}")
+    if shape is not None and not em_mc_shape_ok(N, K, C, shape, ch):
+        raise ValueError(f"kernels 12-13 do not take the block shape "
+                         f"{shape} at N={N}, K={K}, C={C}")
+    return _window_plan(
+        B, S, sm_count, shape, ((1, True), (1, False), (2, False)),
+        EM_MC_STEP, lambda p: em_mc_fwd_smem_bytes(N, K, ch),
+        lambda p, q: em_mc_bwd_smem_bytes(N, K, C, ch, p, q), whole_sm=True)
+
+
+def em_mc_plan_for(B: int, N: int, K: int, C: int, device, shape=None,
+                   ch: int | None = None) -> EmPlan:
+    """`em_mc_launch_plan` on the card holding the windows."""
+    return em_mc_launch_plan(B, N, K, C, sm_count(device), shape, ch)
+
+
+def em_mc_design(plan: EmPlan, N: int, K: int, C: int, ch: int) -> dict:
+    """What the card makes of kernels 12-13's shapes: for each, its body,
+    the CTAs resident on an SM at once, registers a thread and local
+    (spill) bytes a thread."""
+    out = (ctypes.c_int * 3)()
+    res = {}
+    for name, body, fn, args in (
+            ("forward", "window",
+             _lib("em_mc_fwd", "em_mc_forward_attrs", [_I] * 4 + [_P]),
+             (N, K - 1, ch, plan.fwd_spt)),
+            ("backward", plan.bwd_body,
+             _lib("em_mc_bwd", "em_mc_backward_attrs", [_I] * 6 + [_P]),
+             (N, K - 1, ch, C, plan.spt, int(plan.split)))):
+        err = fn(*args, out)
+        if err != 0:
+            raise RuntimeError(f"em_mc_{name}_attrs: CUDA error {err}")
+        res[name] = {"body": body,
+                     "resident_ctas_per_sm": out[0], "registers": out[1],
+                     "local_bytes": out[2]}
+    return res
 
 
 @dataclasses.dataclass(frozen=True)
@@ -622,11 +806,15 @@ def _check_fits_mc(name, c: EmConsts, W, ch, C):
             f"{em_mc_smem_bytes(c.N, c.Km1 + 1, C)} bytes of shared memory "
             f"> {SMEM_LIMIT})")
     _check_chunk(W, ch)
+    if ch < 2:
+        raise ValueError(f"{name}: the kernel's checkpoint chunk must be at "
+                         f"least 2 steps, got {ch}")
 
 
-def em_forward_mb_mc(e_win, c: EmConsts, ch: int):
+def em_forward_mb_mc(e_win, c: EmConsts, ch: int, shape=None):
     """Kernel 12: (B, W, S) emission windows -> (cp, la). CPU tensors take
-    `em_forward_mb_mc_plain`."""
+    `em_forward_mb_mc_plain`. `shape` forces a block shape
+    (em_mc_launch_plan; kernel 12 reads only its spt, em_mc_fwd_spt)."""
     if e_win.device.type == "cpu":
         return em_forward_mb_mc_plain(e_win, c, ch)
     B, W, S = e_win.shape
@@ -636,12 +824,13 @@ def em_forward_mb_mc(e_win, c: EmConsts, ch: int):
     if S != c.S:
         raise ValueError("em_forward_mb_mc: shape mismatch")
     dev = e_win.device
+    spt = em_mc_fwd_spt(B, c.N, c.Km1 + 1, sm_count(dev), shape, ch)
     cp = torch.empty((B, W // ch, c.S), dtype=torch.float32, device=dev)
     la = torch.empty((B, W), dtype=torch.float32, device=dev)
     fn = _lib("em_mc_fwd", "em_mc_forward_mb",
-              [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P])
-    err = fn(e_win.data_ptr(), B, W, c.N, c.Km1, ch, c.fpack.data_ptr(),
-             cp.data_ptr(), la.data_ptr(), _stream(dev))
+              [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    err = fn(e_win.data_ptr(), B, W, c.N, c.Km1, ch, spt,
+             c.fpack.data_ptr(), cp.data_ptr(), la.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"em_forward_mb_mc: CUDA error {err} at launch")
     em_forward_mb_mc.launches += 1
@@ -651,11 +840,13 @@ def em_forward_mb_mc(e_win, c: EmConsts, ch: int):
 em_forward_mb_mc.launches = 0
 
 
-def em_backward_mb_mc(e_win, yc_win, cp, bounds, c: EmConsts, ch: int):
+def em_backward_mb_mc(e_win, yc_win, cp, bounds, c: EmConsts, ch: int,
+                      shape=None):
     """Kernel 13: emission windows (B, W, S), channel windows (B, W, C),
     checkpoints and (B, 3) int32 bounds -> per-window (G1 (B, S), Gy
     (B, C, S), Gy2 (B, C, S), X (B, N), Xd (B,), beta0 (B, S)). CPU tensors
-    take `em_backward_mb_mc_plain`."""
+    take `em_backward_mb_mc_plain`. `shape` forces a block shape
+    (em_mc_launch_plan)."""
     if e_win.device.type == "cpu":
         return em_backward_mb_mc_plain(e_win, yc_win, cp, bounds, c, ch)
     B, W, S = e_win.shape
@@ -668,6 +859,7 @@ def em_backward_mb_mc(e_win, yc_win, cp, bounds, c: EmConsts, ch: int):
             or cp.shape != (B, W // ch, c.S) or bounds.shape != (B, 3)):
         raise ValueError("em_backward_mb_mc: shape mismatch")
     dev = e_win.device
+    plan = em_mc_plan_for(B, c.N, c.Km1 + 1, C, dev, shape, ch)
     G1, beta0 = (torch.empty((B, c.S), dtype=torch.float32, device=dev)
                  for _ in range(2))
     Gy, Gy2 = (torch.empty((B, C, c.S), dtype=torch.float32, device=dev)
@@ -675,12 +867,13 @@ def em_backward_mb_mc(e_win, yc_win, cp, bounds, c: EmConsts, ch: int):
     X = torch.empty((B, c.N), dtype=torch.float32, device=dev)
     Xd = torch.empty((B,), dtype=torch.float32, device=dev)
     fn = _lib("em_mc_bwd", "em_mc_backward_mb",
-              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-               _P, _P, _P])
+              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+               _P, _P, _P, _P, _P])
     err = fn(e_win.data_ptr(), yc_win.data_ptr(), cp.data_ptr(),
-             bounds.data_ptr(), B, W, c.N, c.Km1, ch, C, c.fpack.data_ptr(),
-             G1.data_ptr(), Gy.data_ptr(), Gy2.data_ptr(), X.data_ptr(),
-             Xd.data_ptr(), beta0.data_ptr(), _stream(dev))
+             bounds.data_ptr(), B, W, c.N, c.Km1, ch, C, plan.spt,
+             int(plan.split), c.fpack.data_ptr(), G1.data_ptr(),
+             Gy.data_ptr(), Gy2.data_ptr(), X.data_ptr(), Xd.data_ptr(),
+             beta0.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"em_backward_mb_mc: CUDA error {err} at launch")
     em_backward_mb_mc.launches += 1

@@ -217,6 +217,117 @@ def test_em_launch_plan_fits_every_admitted_topology():
     assert n_topo >= 60
 
 
+MC_GRID = [(N, K, C) for K in (2, 3, 12, 34, 60, 65, 129, 513, 1024)
+           for N in (1, 2, 3, 4, 7, 8, 15, 31, 64, 1023)
+           for C in (1, 2, 4, 5, 18, 19, 40, 145, 146)]
+
+
+def test_em_mc_kernel_ok_admits_what_it_admitted():
+    """The gate of kernels 12-13 is the step body's: one thread a state and
+    its shared memory ((ch + 3 + 2C) S + 64 floats at the default chunk)
+    within one CTA, whatever body the plan then takes."""
+    n_ok = 0
+    for N, K, C in MC_GRID:
+        S = 1 + N * (K - 1)
+        ok = S <= 1024 and 4 * ((fb_mb.em_chunk(S) + 3 + 2 * C) * S
+                                + 64) <= 232448
+        assert fb_mb.em_mc_kernel_ok(N, K, C) == ok, (N, K, C)
+        n_ok += ok
+    assert n_ok >= 150
+    assert fb_mb.em_mc_kernel_ok(3, 60, 145)
+    assert not fb_mb.em_mc_kernel_ok(3, 60, 146)
+    assert fb_mb.em_mc_kernel_ok(31, 34, 18)
+    assert not fb_mb.em_mc_kernel_ok(31, 34, 19)
+
+
+def test_em_mc_launch_plan_fits_every_admitted_topology():
+    """Every (N, K, C) em_mc_kernel_ok admits, at any B, gets from
+    em_mc_launch_plan block shapes that fit one SM: whole warps owning all
+    S states, the window bodies within their launch bound of 512 threads
+    (kernel 13's step body a thread a state), both kernels' shared memory
+    within one CTA; kernel 12 always the window body, at the spt
+    em_mc_fwd_spt gives it; once windows share SMs, two CTAs on one
+    wherever a window shape fits there; every shape em_mc_shape_ok admits
+    fits alike, and the plan refuses the rest."""
+    shapes = list(fb_mb.EM_MC_SHAPES) + [(3, 0), (0, 1), (1, 2), (2, 1)]
+    half = fb_mb.SMEM_SM // 2 - 1024
+    n_topo = 0
+    for N, K, C in MC_GRID:
+        if not fb_mb.em_mc_kernel_ok(N, K, C):
+            with pytest.raises(ValueError):
+                fb_mb.em_mc_launch_plan(16, N, K, C, 132)
+            continue
+        n_topo += 1
+        S = 1 + N * (K - 1)
+        for B in (1, 16, 131, 132, 133, 256, 4096):
+            for shape in [None] + shapes:
+                if shape is not None and not fb_mb.em_mc_shape_ok(N, K, C,
+                                                                   shape):
+                    with pytest.raises(ValueError, match="block shape"):
+                        fb_mb.em_mc_launch_plan(B, N, K, C, 132, shape)
+                    continue
+                p = fb_mb.em_mc_launch_plan(B, N, K, C, 132, shape)
+                assert p.fwd_spt in (1, 2)
+                assert p.fwd_spt == fb_mb.em_mc_fwd_spt(B, N, K, 132, shape)
+                for spt, nt in ((p.fwd_spt, p.fwd_threads),
+                                (p.spt, p.threads)):
+                    assert nt % 32 == 0 and spt in (0, 1, 2)
+                    per = spt or 1
+                    assert nt * per >= S > (nt - 32) * per
+                    assert nt <= (512 if spt else 1024)
+                assert p.spt or not p.split
+                assert p.cta_threads <= (512 if p.spt else 1024)
+                assert max(p.fwd_smem_bytes,
+                           p.bwd_smem_bytes) <= fb_mb.SMEM_LIMIT
+                assert p.fwd_smem_bytes == fb_mb.em_mc_fwd_smem_bytes(N, K)
+                assert p.bwd_smem_bytes == fb_mb.em_mc_bwd_smem_bytes(
+                    N, K, C, None, p.spt, p.split)
+                if shape is None:
+                    two = [(q, r) for q, r in fb_mb.EM_MC_SHAPES[:3]
+                           if fb_mb.em_window_threads(S, q) * (1 + r) <= 256
+                           and fb_mb.em_mc_bwd_smem_bytes(
+                               N, K, C, None, q, bool(r)) <= half]
+                    if B > 132 and two:
+                        # two CTAs of 128-register threads on an SM
+                        assert p.spt and p.cta_threads <= 256
+                        assert p.bwd_smem_bytes <= half
+                        assert p.fwd_threads <= 256
+                    if p.bwd_body == "step":
+                        assert not any(fb_mb.em_mc_shape_ok(N, K, C, s)
+                                       for s in fb_mb.EM_MC_SHAPES[:3])
+    assert n_topo >= 150
+
+
+def test_em_mc_plan_at_config6():
+    """BASELINE config 6's training shape (N=3, K=60, C=4: S=178, 256
+    windows of 2528) on an H100's 132 SMs takes the window bodies, kernel
+    13 unsplit at two CTAs an SM (one wave), the shape measured fastest
+    beside the split one in two waves; below the SM count the split."""
+    p = fb_mb.em_mc_launch_plan(256, 3, 60, 4, 132)
+    assert (p.fwd_spt, p.spt, p.split) == (1, 1, False)
+    assert (p.fwd_threads, p.cta_threads) == (192, 192)
+    assert 2 * (p.bwd_smem_bytes + 1024) <= fb_mb.SMEM_SM
+    q = fb_mb.em_mc_launch_plan(128, 3, 60, 4, 132)
+    assert (q.spt, q.split, q.cta_threads) == (1, True, 384)
+    # 145 channels: the window body's moment sums leave no room
+    assert fb_mb.em_mc_launch_plan(256, 3, 60, 145, 132).bwd_body == "step"
+
+
+def test_em_mc_plan_refuses_a_chunk_of_one():
+    """Kernel 12 runs only the window body, which walks a chunk of at least
+    two steps: the plan and kernel 12's spt refuse a chunk of one, at every
+    shape, kernel 13's step body included."""
+    for shape in (None,) + fb_mb.EM_MC_SHAPES:
+        with pytest.raises(ValueError):
+            fb_mb.em_mc_launch_plan(256, 3, 60, 4, 132, shape, ch=1)
+        with pytest.raises(ValueError):
+            fb_mb.em_mc_fwd_spt(256, 3, 60, 132, shape, ch=1)
+        if shape is not None:
+            assert not fb_mb.em_mc_shape_ok(3, 60, 4, shape, ch=1)
+    assert fb_mb.em_mc_fwd_spt(256, 3, 60, 132, fb_mb.EM_MC_STEP) == 1
+    assert fb_mb.em_mc_fwd_spt(256, 31, 34, 132) == 2
+
+
 def test_consts_pack():
     y, temps, lp = _problem(3, 100, seed=2)
     c = fb_mb.em_consts(lp, temps, 0.3, dtype=torch.float64, device="cpu")

@@ -985,6 +985,140 @@ def test_em_mc_kernels_refuse_what_they_cannot_take(cuda):
             fb_mb.em_chunk(big.S))
 
 
+def _em_mc_every_shape(e_win, yc_win, bounds, c, ch, P=None):
+    """Kernels 12-13 at the default block shape and at every shape of
+    EM_MC_SHAPES they take here (the step body included), each output bit
+    for bit the plain versions' on the first P windows (all by default)
+    and every window equal across the shapes. Returns the plans run."""
+    B, C = e_win.shape[0], yc_win.shape[2]
+    P = B if P is None else P
+    pcp, pla = fb_mb.em_forward_mb_mc_plain(e_win[:P], c, ch)
+    ref = fb_mb.em_backward_mb_mc_plain(e_win[:P], yc_win[:P], pcp,
+                                        bounds[:P], c, ch)
+    K = c.Km1 + 1
+    ran, first = [], None
+    for shape in [None] + [s for s in fb_mb.EM_MC_SHAPES
+                           if fb_mb.em_mc_shape_ok(c.N, K, C, s, ch)]:
+        cp, la = fb_mb.em_forward_mb_mc(e_win, c, ch, shape=shape)
+        got = fb_mb.em_backward_mb_mc(e_win, yc_win, cp, bounds, c, ch,
+                                      shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(cp[:P], pcp) and torch.equal(la[:P], pla), shape
+        for a, b in zip(got, ref):
+            assert a.shape[1:] == b.shape[1:] and torch.equal(a[:P], b), shape
+        if first is None:
+            first = (cp, la, *got)
+        for a, b in zip((cp, la, *got), first):
+            assert torch.equal(a, b), shape
+        ran.append(fb_mb.em_mc_plan_for(B, c.N, K, C, e_win.device, shape,
+                                        ch))
+    return ran
+
+
+@pytest.mark.parametrize("N,K,C", [(1, 2, 1), (2, 12, 3), (3, 60, 4),
+                                   (3, 60, 9), (8, 65, 2), (31, 34, 18)])
+def test_em_mc_kernels_every_shape_equal_plain(cuda, N, K, C):
+    """Every block shape kernels 12-13 take (the window bodies' states a
+    thread and kernel 13's split, and kernel 13's step body) on B = 7
+    windows: the outputs do not depend on the shape. C = 9 takes the window
+    body's moment passes past the first four channels. S = 1024 with C =
+    18, the most channels the gate admits there, leaves kernel 13 the step
+    body only; kernel 12 runs its window body at every shape."""
+    e_win, yc_win, bounds, c = _mc_em_windows(N, K, C, 64, 16, 6 * 64 + 9,
+                                              seed=7 * N + K + C, cuda=cuda)
+    assert e_win.shape[0] == 7
+    ch = fb_mb.em_chunk(c.S)
+    ran = _em_mc_every_shape(e_win, yc_win, bounds, c, ch)
+    assert {p.fwd_spt for p in ran} <= {1, 2}
+    bodies = {p.bwd_body for p in ran}
+    if c.S == 1024:
+        assert bodies == {"step"} and len(ran) == 2
+    else:
+        assert bodies == {"window", "step"} and len(ran) >= 3
+
+
+@pytest.mark.parametrize("ch", [16, 32])
+@pytest.mark.parametrize("N,K,C", [(2, 12, 3), (3, 60, 4)])
+def test_em_mc_kernels_on_one_chunk_equal_plain(cuda, N, K, C, ch):
+    """W = ch: a window of a single checkpoint chunk (the carries across
+    chunk edges never used, the terminal beta in the first chunk walked),
+    every shape, at chunks of 16 and 32 steps."""
+    e_win, yc_win, bounds, c = _mc_em_windows(N, K, C, ch // 2, ch // 4, 80,
+                                              3, cuda)
+    assert e_win.shape[1] == ch
+    _em_mc_every_shape(e_win, yc_win, bounds, c, ch)
+
+
+def test_em_mc_kernels_with_dead_templates_equal_plain(cuda):
+    """Onset log-probs of -inf: kernels 12-13 stay finite and bit-equal to
+    the plain versions at every shape."""
+    e_win, yc_win, bounds, c = _mc_em_windows(3, 60, 4, 64, 16, 4 * 64, 3,
+                                              cuda)
+    lp = c.lp.double().cpu().numpy()
+    for dead in ([0], [0, 2]):
+        lp_d = lp.copy()
+        lp_d[dead] = -np.inf
+        cd = fb_mb.em_consts_mc(lp_d, 60, dtype=torch.float32, device=cuda)
+        ch = fb_mb.em_chunk(cd.S)
+        _em_mc_every_shape(e_win, yc_win, bounds, cd, ch)
+        got = fb_mb.em_backward_mb_mc(
+            e_win, yc_win, fb_mb.em_forward_mb_mc(e_win, cd, ch)[0], bounds,
+            cd, ch)
+        assert not any(torch.isnan(a).any() for a in got)
+        assert torch.all(got[3][:, dead] == 0)
+
+
+def test_em_mc_shared_memory_is_the_kernels(cuda):
+    """The wrappers' shared-memory sizes (the plan's) are what kernels
+    12-13 ask for at launch, on every body."""
+    fwd = fb_mb._lib("em_mc_fwd", "em_mc_forward_smem", [fb_mb._I] * 3)
+    bwd = fb_mb._lib("em_mc_bwd", "em_mc_backward_smem", [fb_mb._I] * 6)
+    for N, K, C in ((1, 2, 1), (2, 60, 3), (3, 60, 4), (3, 60, 145),
+                    (8, 65, 2), (31, 34, 18)):
+        for ch in (fb_mb.em_chunk(1 + N * (K - 1)), 2, 16):
+            assert fwd(N, K - 1, ch) == fb_mb.em_mc_fwd_smem_bytes(N, K, ch)
+            for spt in (0, 1, 2):
+                for split in (0, 1):
+                    assert bwd(N, K - 1, ch, C, spt, split) == (
+                        fb_mb.em_mc_bwd_smem_bytes(N, K, C, ch, spt,
+                                                   bool(split)))
+    assert fb_mb.em_mc_smem_bytes(3, 60, 4) == bwd(3, 59, 32, 4, 0, 0)
+
+
+def test_em_mc_kernels_refuse_a_chunk_of_one(cuda):
+    """Kernels 12-13 walk chunks of at least two steps: a chunk of one is
+    refused before any launch, at every shape."""
+    e_win, yc_win, bounds, c = _mc_em_windows(2, 12, 3, 64, 16, 300, 0,
+                                              cuda)
+    n_f = fb_mb.em_forward_mb_mc.launches
+    n_b = fb_mb.em_backward_mb_mc.launches
+    cp = torch.zeros((e_win.shape[0], e_win.shape[1], c.S), device=cuda)
+    for shape in (None,) + fb_mb.EM_MC_SHAPES:
+        with pytest.raises(ValueError, match="at least 2"):
+            fb_mb.em_forward_mb_mc(e_win, c, 1, shape=shape)
+        with pytest.raises(ValueError, match="at least 2"):
+            fb_mb.em_backward_mb_mc(e_win, yc_win, cp, bounds, c, 1,
+                                    shape=shape)
+    assert fb_mb.em_forward_mb_mc.launches == n_f
+    assert fb_mb.em_backward_mb_mc.launches == n_b
+
+
+def test_em_mc_kernels_at_config6_shape_equal_plain(cuda):
+    """BASELINE config 6's training shape, 256 windows of W = 2528 (N=3,
+    K=60, C=4, block 2048 -> L=2048, H=240), at both candidate plans for
+    more windows than SMs (kernel 13 unsplit at two CTAs an SM, and split
+    at one in two waves) and the default: every window equal across them,
+    the first four bit for bit the plain versions'."""
+    L, H = tem.cuda_em_geometry(60, 2048)
+    e_win, yc_win, bounds, c = _mc_em_windows(3, 60, 4, L, H, 256 * L, 6,
+                                              cuda)
+    assert e_win.shape[:2] == (256, 2528)
+    ch = fb_mb.em_chunk(c.S)
+    ran = _em_mc_every_shape(e_win, yc_win, bounds, c, ch, P=4)
+    shapes = {(p.spt, p.split) for p in ran}
+    assert {(1, False), (1, True)} <= shapes
+
+
 def test_train_model_mc_runs_mc_kernels(cuda):
     """train_model_mc on the card chooses fb_mode "overlap_cuda" for a
     signal of two kernel windows and launches kernels 12-13 every EM
