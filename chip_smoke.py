@@ -85,9 +85,15 @@ since the previous phase line):
                exactly equal; times and bounds of the forward, the chaining
                sweep and the gamma pass; for kernels 9-10 the block shapes
                gamma_ov2_launch_plan chose, the CTAs resident on an SM, the
-               time of a window step; kernels 9-10 again at 512 windows of
+               time of a window step; for kernel 8 (`design`) the shapes
+               gamma_mb.gamma_launch_plan chose for each pass, shared
+               bytes, resident CTAs, registers, spill bytes and the time
+               of a window step, and `ms_by_shape`: both passes forced to
+               every shape kernel 8 takes, each exactly equal to the
+               plan's on all 128 windows; kernels 9-10 again at 512 windows of
                4096 (posterior_path's shape, two CTAs an SM), exactly equal
-               on the first 4, timed the same way
+               on the first 4, timed the same way; `seconds_by_row`: each
+               row's wall and the part of it its plain runs took
   posterior_bench  bench.py's posterior problem (bench.py:216-241):
                core/posterior.onset_posteriors_chained on the N=2 overlap
                model, T=2^19, float32, after one warm-up (kernels 9-10);
@@ -102,7 +108,11 @@ since the previous phase line):
                qc_arrays; launches of kernels 9-10 exactly 2 + 2, median
                confidence above 0.9, isi_invariant_violations 0
   posterior_path_nov  the same for a non-overlap N=2 decode of the same
-               signal, through kernels 7-8
+               signal, through kernels 7-8; their kernel time at its 512
+               windows (timed alone just before, no plain run:
+               `kernels7_8_512` with kernel 8's design there, each of its
+               shapes one that kernels_gamma checked) and its share
+               of model_posteriors
   drift_path   the drift-adaptive path: bench.py's topology (N=2, K=60,
                sigma=0.3) on create_drifting_signal (T=2^21, scale 1.0 ->
                2.0, default_rng(1234)); api.fit_spiking_model_adaptive at
@@ -169,7 +179,9 @@ since the previous phase line):
                gamma_fwd_mb_mc_plain / gamma_bwd_mb_mc_plain at config 6 with
                overlaps off (S=178, T=2^19, B=128 windows of L=4096; the
                plain versions on the first 4): checkpoints, first-position
-               betas and posteriors exactly equal; times and bounds
+               betas and posteriors exactly equal; times and bounds; kernel
+               15's `design` (gamma_mb.gamma_mc_launch_plan's shapes;
+               `ms_by_shape` as kernel 8's)
   posterior_bench_mc  core/posterior.onset_posteriors_chained_mc on config 6
                with overlaps off, T=2^19, float32, after one warm-up
                (kernels 14-15, launches 2 + 2); samples/s; within 1e-4 of
@@ -177,7 +189,9 @@ since the previous phase line):
                plain engines' own error where that is larger (at most 1e-3);
                expected onset counts within 1e-3 of a non-overlap decode's
   posterior_path_mc  the --confidence --qc composition (posterior_path's) on
-               that non-overlap multichannel decode, through kernels 14-15
+               that non-overlap multichannel decode, through kernels 14-15;
+               their kernel time (from kernels_gamma_mc, the same 128
+               windows) and its share of model_posteriors
   cli_path     the CLI's body on arrays (cli._sort_loaded, everything after
                the HDF5 loaders; the MAT file written with scipy.io.savemat
                under build/cli_path/ and read back): --engine fast
@@ -1079,18 +1093,25 @@ def mc_posterior_phases(dev, card, config6_, Lg=4096,
     term, lastw, chained = gamma_mb.chain_geometry(T6, Lg, dev)
     parts = gamma_kernels(
         lambda e, en, hi: gamma_mb.gamma_fwd_mb_mc(e, en, hi, c14, ch, Lg),
-        lambda e, cp, en, hi, ex, tr, _yb, lw, em_: gamma_mb.gamma_bwd_mb_mc(
-            e, cp, en, hi, ex, tr, lw, c14, ch, Lg, em_),
+        lambda e, cp, en, hi, ex, tr, _yb, lw, em_, shape=None:
+            gamma_mb.gamma_bwd_mb_mc(e, cp, en, hi, ex, tr, lw, c14, ch, Lg,
+                                     em_, shape=shape),
         lambda e, en, hi: gamma_mb.gamma_fwd_mb_mc_plain(e, en, hi, c14, ch,
                                                          Lg),
         lambda e, cp, en, hi, ex, tr, _yb, lw, em_:
             gamma_mb.gamma_bwd_mb_mc_plain(e, cp, en, hi, ex, tr, lw, c14,
                                            ch, Lg, em_),
         e6, None, term, lastw, chained, lambda ex: ex, c14, c14.S,
-        plain_windows, reps=5, L=Lg)
+        plain_windows, reps=5, L=Lg,
+        shapes=gamma_shapes(gamma_mb, N6, K6, ch, mc=True))
+    by_shape = parts.pop("ms_by_shape")
     rows = {part: gamma_row("mc_" + part, *v, Bg, Lg, N6, K6 - 1, ch,
                             plain_windows)
             for part, v in parts.items()}
+    rows["design"] = gamma_design(gamma_mb, Bg, Lg, N6, K6, ch, dev,
+                                  {part: v[0] for part, v in parts.items()},
+                                  mc=True)
+    rows["design"]["ms_by_shape"] = by_shape
     del e6
     emit({"phase": "kernels_gamma_mc", "dtype": "float32", "card": card,
           "N": N6, "K": K6, "C": C6, "S": c14.S, "T": T6, "L": Lg, "B": Bg,
@@ -1158,7 +1179,11 @@ def mc_posterior_phases(dev, card, config6_, Lg=4096,
     del p_64, p_po
 
     # ---- posterior_path_mc: --confidence --qc on the nov MC decode ------
-    path_launches = posterior_path("posterior_path_mc", dec_nov, pair, card)
+    # kernels 14-15 of one model_posteriors at these 128 windows, from
+    # kernels_gamma_mc's times
+    path_launches = posterior_path(
+        "posterior_path_mc", dec_nov, pair, card,
+        2 * rows["fwd"]["ms"] + rows["chain"]["ms"] + rows["gamma"]["ms"])
     return {"rows": rows, "launches": path_launches}
 
 
@@ -1236,15 +1261,21 @@ def gamma_row(kind, ms, plain_ms, err, B, L, N, Km1, ch, plain_windows):
 
 
 def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
-                  chained, tmx_of, c, S, P, reps, L=None):
+                  chained, tmx_of, c, S, P, reps, L=None, shapes=None):
     """One chained posterior pass at these windows through a kernel pair
     (fwd, bwd) and against its plain versions on the first P windows:
     checkpoints, first-position betas and onset posteriors must be bit for
     bit equal. `bwd(..., exits_or_terminal, emit)` takes the per-window
     beta input (exit betas for kernel 8, terminal betas from `tmx_of` for
     kernel 10). With L, y_win is the (B*L+1, S) emission stream of kernels
-    14-15 and its first P windows are its first P*L+1 rows. Returns
-    {part: (ms, plain_ms, max_abs_err)}."""
+    14-15 and its first P windows are its first P*L+1 rows. With `shapes`
+    ({key: block shape}, kernels 8 and 15), bwd takes `shape=` and each
+    pass runs again forced to every one of them, its outputs on every
+    window bit for bit equal to the plan's (which the plain versions
+    held), so a shape the plan picks at another window count is tied to
+    the plain versions too; no plain run is added. Returns {part: (ms,
+    plain_ms, max_abs_err)}, and with `shapes` {key: {part: ms}} under
+    "ms_by_shape"."""
     B = chained.shape[0]
     head = (lambda x: x[:P]) if L is None else (lambda x: x[:P * L + 1])
     zero = torch.zeros((B, S), dtype=torch.float32, device=y_win.device)
@@ -1276,9 +1307,73 @@ def gamma_kernels(fwd, bwd, fwd_plain, bwd_plain, y_win, ybnd, term, lastw,
         check(all(torch.equal(a, b) for a, b in pairs),
               f"{bwd.__name__} ({part}) differs from its plain version")
         out[part] = (b_ms, b_pms, b_err)
+        for key, shape in (shapes or {}).items():
+            run_s = lambda: bwd(y_win, cp, entry, chained, bx,  # noqa: E731
+                                term, ybnd, lastw, emit, shape=shape)
+            run_s()
+            s_ms, (s_gam, s_b0) = cuda_ms(run_s, reps=reps)
+            check(torch.equal(s_b0, b0)
+                  and (not emit or torch.equal(s_gam, gam)),
+                  f"{bwd.__name__} ({part}) differs between its plan's "
+                  f"block shape and {shape}")
+            out.setdefault("ms_by_shape", {}).setdefault(key, {})[part] = s_ms
         if not emit:
             bx = tmx_of(_shift_up(_recenter(b0)))
     return out
+
+
+def row_seconds(t0, parts):
+    """The wall of one kernel row of kernels_gamma since t0, and the part
+    of it its plain versions' runs took (gamma_kernels' plain_ms)."""
+    return {"seconds": time.perf_counter() - t0,
+            "plain_seconds": sum(v[1] for v in parts.values()) / 1e3}
+
+
+def gamma_shapes(gamma_mb, N, K, ch, mc=False):
+    """{key: (spt, split)} of every block shape kernel 8 (kernel 15 with
+    mc) takes at this topology ("step": kernel 15's step body)."""
+    shapes, ok = ((gamma_mb.GAMMA_MC_SHAPES, gamma_mb.gamma_mc_shape_ok)
+                  if mc else (gamma_mb.GAMMA_SHAPES, gamma_mb.gamma_shape_ok))
+    return {("step" if spt == 0 else
+             f"spt{spt}{'_split' if split else ''}"): (spt, split)
+            for spt, split in shapes if ok(N, K, (spt, split), ch)}
+
+
+def gamma_design(gamma_mb, B, L, N, K, ch, dev, ms, mc=False):
+    """The block shapes kernel 8 (kernel 15 with mc) ran with for B windows
+    of L (ops/gamma_mb.gamma_launch_plan on this card): for the chaining
+    sweep and the gamma pass, the body, states a thread, split, threads,
+    shared bytes, resident CTAs an SM, registers and spill bytes a thread,
+    and the time of one window step (ms: {part: ms})."""
+    plan = gamma_mb.gamma_plan_for(B, N, K, dev, ch=ch, mc=mc)
+    out = gamma_mb.gamma_design(plan, N, K, ch, mc=mc)
+    for part in ("chain", "gamma"):
+        out[part]["us_per_window_step"] = ms[part] * 1e3 / L
+    return {"sm_count": torch.cuda.get_device_properties(
+        dev).multi_processor_count, **out}
+
+
+def gamma_path_ms(fwd, bwd, y_win, chained, S, reps=3):
+    """Kernel time of one chained posterior call through a kernel pair at
+    these windows, the kernels alone (no plain version): the forward twice
+    (cold sweep, final), the chaining sweep and the gamma pass once, each
+    timed by CUDA events. fwd(y_win, entry, has_init) -> cp; bwd(y_win, cp,
+    entry, has_init, exits, emit) -> (gam, beta0)."""
+    from hmmspikesorter_torch.core.posterior import (_recenter, _shift_down,
+                                                     _shift_up)
+
+    B = chained.shape[0]
+    zero = torch.zeros((B, S), dtype=torch.float32, device=y_win.device)
+    no_init = torch.zeros_like(chained)
+    entry = _shift_down(_recenter(fwd(y_win, zero, no_init)[:, -1]))
+    f_ms, cp = cuda_ms(lambda: fwd(y_win, entry, chained), reps)
+    c_ms, (_, b0) = cuda_ms(
+        lambda: bwd(y_win, cp, entry, chained, zero, False), reps)
+    exits = _shift_up(_recenter(b0))
+    g_ms, _ = cuda_ms(
+        lambda: bwd(y_win, cp, entry, chained, exits, True), reps)
+    return {"fwd": f_ms, "chain": c_ms, "gamma": g_ms,
+            "path": 2 * f_ms + c_ms + g_ms}
 
 
 def ov2g_design(gamma_ov2, B, L, Km1, dev, ms):
@@ -1322,14 +1417,15 @@ def ov2g_path_ms(rows):
     return 2 * rows["fwd"]["ms"] + rows["chain"]["ms"] + rows["gamma"]["ms"]
 
 
-def posterior_path(phase, model, pair, card, kernel_ms=None):
+def posterior_path(phase, model, pair, card, kernel_ms=None, extra=None):
     """The --confidence --qc composition on a decoded model, with the
     launch counts of the kernel `pair` set to 0 just before and read just
     after: model_posteriors, confidence_from_posteriors,
     core/qc.unit_qc(posteriors=p), qc_arrays. Gates: 2 + 2 launches, median
     confidence above 0.9, isi_invariant_violations 0. kernel_ms: the pair's
     kernel time of one model_posteriors, timed apart at its windows, set
-    beside the posteriors' wall. Returns the launch counts."""
+    beside the posteriors' wall; extra: more fields of its line. Returns
+    the launch counts."""
     from hmmspikesorter_torch.core import events as tevents
     from hmmspikesorter_torch.core import posterior as tpost
     from hmmspikesorter_torch.core import qc as tqc
@@ -1369,7 +1465,7 @@ def posterior_path(phase, model, pair, card, kernel_ms=None):
           "missing_mass": qa["missing_mass"].tolist(),
           "isi_invariant_violations":
               qa["isi_invariant_violations"].tolist(),
-          "conf_median_qc": qa["conf_median"].tolist()})
+          "conf_median_qc": qa["conf_median"].tolist(), **(extra or {})})
     check(p.shape == (len(model.ml_seq), tm_m.n_neurons)
           and np.isfinite(p).all() and p.min() >= -1e-6
           and p.max() <= 1 + 1e-4, f"{phase}: posteriors malformed")
@@ -2364,10 +2460,11 @@ def main():
     # kernels 9-10 at these 128 windows (one CTA an SM, the gamma pass
     # split) and at posterior_path's 512 (T=2^21: two CTAs an SM), each
     # held against the plain versions on its first PLAIN_WINDOWS windows
-    g_rows = {}
+    g_rows, g_secs = {}, {}
     for key, (yk, ybk, tmk, lwk, chk) in (
             ("ov2", (yg, ybnd, term, lastw, chained)),
             ("ov2_512", gamma_mb.chain_inputs(y, T, Lg, f32, dev))):
+        t_row = time.perf_counter()
         parts = gamma_kernels(
             lambda yw, en, hi: gamma_ov2.gamma_ov2_fwd(yw, en, hi, c9),
             lambda yw, cp, en, hi, tx, tr, _yb, _lw, e:
@@ -2381,33 +2478,43 @@ def main():
             c9, c9.S, PLAIN_WINDOWS, reps=3)
         g_rows[key] = ov2g_rows(gamma_ov2, parts, yk.shape[0], Lg, K - 1,
                                 PLAIN_WINDOWS, dev)
+        g_secs[key] = row_seconds(t_row, parts)
         del parts
     for n_g, (lp_g, mu_g, sg_g) in ((2, (lp, temps, sigma)),
                                     (7, (lp7, mu7, sig7))):
+        t_row = time.perf_counter()
         cg = fb_mb.em_consts(lp_g, mu_g, sg_g, dtype=f32, device=dev)
         chg = gamma_mb.gamma_chunk(n_g, K)
         parts = gamma_kernels(
             lambda yw, en, hi: gamma_mb.gamma_fwd_mb(yw, en, hi, cg, chg),
-            lambda yw, cp, en, hi, ex, tr, yb, lw, e: gamma_mb.gamma_bwd_mb(
-                yw, cp, en, hi, ex, tr, yb, lw, cg, chg, e),
+            lambda yw, cp, en, hi, ex, tr, yb, lw, e, shape=None:
+                gamma_mb.gamma_bwd_mb(yw, cp, en, hi, ex, tr, yb, lw, cg,
+                                      chg, e, shape=shape),
             lambda yw, en, hi: gamma_mb.gamma_fwd_mb_plain(yw, en, hi, cg,
                                                            chg),
             lambda yw, cp, en, hi, ex, tr, yb, lw, e:
                 gamma_mb.gamma_bwd_mb_plain(yw, cp, en, hi, ex, tr, yb, lw,
                                             cg, chg, e),
             yg, ybnd, term, lastw, chained, lambda ex: ex, cg, cg.S,
-            PLAIN_WINDOWS, reps=5)
+            PLAIN_WINDOWS, reps=5,
+            shapes=gamma_shapes(gamma_mb, n_g, K, chg))
+        by_shape = parts.pop("ms_by_shape")
         g_rows[f"nov_n{n_g}"] = {part: gamma_row(
             {"fwd": "nov_fwd", "chain": "nov_chain",
              "gamma": "nov_gamma"}[part], *v, Bg, Lg, n_g, K - 1, chg,
             PLAIN_WINDOWS)
             for part, v in parts.items()}
+        g_rows[f"nov_n{n_g}"]["design"] = gamma_design(
+            gamma_mb, Bg, Lg, n_g, K, chg, dev,
+            {part: v[0] for part, v in parts.items()})
+        g_rows[f"nov_n{n_g}"]["design"]["ms_by_shape"] = by_shape
+        g_secs[f"nov_n{n_g}"] = row_seconds(t_row, parts)
     del yg
     emit({"phase": "kernels_gamma", "dtype": "float32", "card": card,
           "T": Tg, "L": Lg, "B": Bg, "K": K, "ch_ov2": gamma_ov2.CH2,
           "ch_nov": {"n2": gamma_mb.gamma_chunk(2, K),
                      "n7": gamma_mb.gamma_chunk(7, K)},
-          **g_rows})
+          "seconds_by_row": g_secs, **g_rows})
 
     # ---- posterior_bench: bench.py's posterior problem (bench.py:216-241):
     # onset_posteriors_chained on the N=2 overlap model, T=2^19, float32,
@@ -2463,9 +2570,34 @@ def main():
     tm_nov = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
                                   allow_overlaps=False)
     dec_nov = api.fit_spiking_model_fast(tm_nov, y, L=L)
+    # kernels 7-8 alone at model_posteriors' 512 windows of 4096 (the
+    # 128-window check above held them against their plain versions)
+    c_nov = fb_mb.em_consts(lp, temps, sigma, dtype=f32, device=dev)
+    ch_nov = gamma_mb.gamma_chunk(N, K)
+    yn, ybn, tmn, lwn, chn = gamma_mb.chain_inputs(y, T, Lg, f32, dev)
+    nov_ms = gamma_path_ms(
+        lambda yw, en, hi: gamma_mb.gamma_fwd_mb(yw, en, hi, c_nov, ch_nov),
+        lambda yw, cp, en, hi, ex, e: gamma_mb.gamma_bwd_mb(
+            yw, cp, en, hi, ex, tmn, ybn, lwn, c_nov, ch_nov, e),
+        yn, chn, c_nov.S)
+    nov_ms["design"] = gamma_design(gamma_mb, yn.shape[0], Lg, N, K, ch_nov,
+                                    dev, nov_ms)
+    del yn
+    # the shapes kernel 8 takes here were each held bit for bit against the
+    # plan's at 128 windows (kernels_gamma's ms_by_shape), and so against
+    # the plain versions
+    checked = g_rows["nov_n2"]["design"]["ms_by_shape"]
+    for part in ("chain", "gamma"):
+        d = nov_ms["design"][part]
+        key = f"spt{d['spt']}{'_split' if d['split'] else ''}"
+        check(any(k.startswith(key) if part == "chain" else k == key
+                  for k in checked),
+              f"posterior_path_nov: kernel 8's {part} shape {key} at "
+              f"{len(chn)} windows was not checked in kernels_gamma")
     nov_launches = posterior_path(
         "posterior_path_nov", dec_nov,
-        (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb), card)
+        (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb), card,
+        nov_ms["path"], {"kernels7_8_512": nov_ms})
 
     drift = drift_path(dev, card, temps, lp, sigma)
     mc = mc_phases(dev, card)

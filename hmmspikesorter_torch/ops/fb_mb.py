@@ -134,7 +134,9 @@ class EmPlan:
     backward: `spt` states a thread, and with `split` the CTA is two sets
     of `threads` threads, one rematerialising a chunk's alphas while the
     other walks beta through the chunk after it, else one set doing both in
-    turn; spt 0 is kernel 13's step body, a thread a state."""
+    turn; spt 0 is kernel 13's step body, a thread a state. Kernels 8 and
+    15 (ops/gamma_mb.gamma_launch_plan) read the fwd_ fields as their
+    chaining sweep's and the rest as their gamma pass's."""
 
     fwd_spt: int
     spt: int

@@ -11,14 +11,17 @@ init; alpha checkpoints after every `ch`-th step. The last checkpoint is
 the window's terminal alpha, the next window's entry.
 Kernel 8, `gamma_bwd_mb` (csrc/gamma_bwd.cu), replaces `_make_gamma_kernel`:
 per window it rematerialises each chunk's alphas from the checkpoints with
-the same step function (em::alpha_step, so bit-identical), walks beta right
+kernel 7's step arithmetic (so bit-identical), walks beta right
 to left from the per-window EXIT beta — one step through the boundary
 sample (the first of the next window) places it at the window's terminal
 position `term`; the true last window starts from beta = 0 there — and
 writes the onset-row posteriors exp(alpha + beta - z_t), z_t the logsumexp
 over all states at t, and the window's first-position beta (the
 predecessor's exit in the backward chaining). emit_gamma=0 is the chaining
-sweep: beta only, no remat and no z_t.
+sweep: beta only, no remat and no z_t. Kernel 8 runs kernel 6's windowed
+design (csrc/em_win.cuh, csrc/gamma_win.cuh) at a block shape from
+`gamma_launch_plan`, kernel 15 kernel 13's (csrc/em_win_mc.cuh) from
+`gamma_mc_launch_plan`; their outputs do not depend on the shape.
 
 Layout: [silent | N rings of K-1] (core/state_space's non-overlap order),
 S = 1 + N(K-1). Windows are disjoint: window b covers samples [bL, bL+L)
@@ -46,15 +49,19 @@ Each wrapper counts its launches in its `launches` attribute.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Callable
+
 import numpy as np
 import torch
 
 from ..core.posterior import _recenter, _shift_down, _shift_up
 from ..utils.device import as_float, default_dtype, resolve_device
-from .fb_mb import (MAX_THREADS, SMEM_LIMIT, EmConsts, _alpha_step,
-                    _beta_step, _block_lse, _emission, em_chunk, em_consts,
-                    em_consts_mc)
-from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream
+from .fb_mb import (MAX_THREADS, SMEM_LIMIT, EmConsts, EmPlan, _alpha_step,
+                    _beta_step, _block_lse, _emission, _r4, _window_fits,
+                    _window_plan, em_chunk, em_consts, em_consts_mc)
+from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream, sm_count
 
 HBM_FRACTION = 0.5      # of the card's memory, for the checkpoints (gate)
 MC_MAX_N, MC_MAX_KM1 = 8, 64    # the JAX multi-channel front-end's limits
@@ -68,9 +75,11 @@ def gamma_chunk(N: int, K: int) -> int:
 
 
 def gamma_smem_bytes(N: int, K: int) -> int:
-    """Dynamic shared memory of kernel 8 (the larger of kernels 7-8): the
-    remat slab, the checkpoint row, two beta+emission buffers and the
-    reduction scratch, 4 bytes each."""
+    """The gate's measure of shared memory (`gamma_kernel_ok`; kernel 7's
+    and the one-thread-a-state layout of kernels 8 and 15 before their
+    windowed design): a remat slab, the checkpoint row, two beta+emission
+    buffers and the reduction scratch, 4 bytes each. Every topology it
+    admits fits a windowed shape of kernel 8 (`gamma_launch_plan`)."""
     S = 1 + N * (K - 1)
     return 4 * ((em_chunk(S) + 3) * S + 64)
 
@@ -135,6 +144,208 @@ def gamma_mc_hbm_ok(T: int, N: int, K: int, C: int, L: int = 4096,
     if budget is None:
         budget = device_budget()
     return gamma_mc_hbm_bytes(T, N, K, C, L) <= budget
+
+
+# Kernel 8's block shapes (spt, split): states a thread of its windowed
+# body (1 or 2) and the gamma pass's remat and walk on two sets of threads;
+# the chaining sweep runs unsplit at the plan's fwd_spt. Kernel 15 splits
+# with one state a thread only (two sets of its slabs fit only where S is
+# below about 215, and there two sets of one-state threads fit); its
+# GAMMA_MC_STEP is the gamma pass's step body (PR 4's kernel, a thread a
+# state), for the topologies whose slabs do not fit one CTA (S above about
+# 430 at a chunk of 32).
+GAMMA_SHAPES = ((1, 0), (2, 0), (1, 1), (2, 1))
+GAMMA_MC_STEP = (0, 0)
+GAMMA_MC_SHAPES = ((1, 0), (2, 0), (1, 1), GAMMA_MC_STEP)
+
+
+def gamma_bwd_smem_bytes(N: int, K: int, ch: int | None = None,
+                         split: bool = False, emit: bool = True) -> int:
+    """Dynamic shared memory of kernel 8 (csrc/gamma_bwd.cu; the same at one
+    or two states a thread): the onset log-probs and the ring ends' and
+    onsets' means; the gamma pass's alpha and beta slabs (ch x S each;
+    three and two where split, else one each); four rows (beta + emission
+    twice, the checkpoint or beta row, the terminal beta), three buffers of
+    a chunk's samples and g_t of each beta slab; four rows of the head
+    states' logsumexps; 4 bytes each, each part rounded to 16 bytes. The
+    chaining sweep (emit False) has no slabs."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    na, nb = ((3, 2) if split else (1, 1)) if emit else (0, 0)
+    return 4 * (3 * _r4(N) + _r4((na + nb) * ch * S + 4 * S + 3 * ch
+                                 + nb * ch) + 4 * _r4(N + 1))
+
+
+def gamma_mc_bwd_smem_bytes(N: int, K: int, ch: int | None = None,
+                            split: bool = False, emit: bool = True,
+                            spt: int = 1) -> int:
+    """Dynamic shared memory of kernel 15 (csrc/gamma_mc_bwd.cu; the same at
+    one or two states a thread): the onset log-probs; the alpha, beta and
+    emission slabs (ch x S each; 3 + 2 + 3 where split, else 1 + 1 + 2; the
+    chaining sweep two emission slabs alone); five rows (beta + emission
+    twice, the terminal beta, two checkpoint rows); g_t of each beta slab;
+    four rows of the heads' logsumexps; the gamma pass's partial maxes and
+    sums of g_t (ch x ceil(S/32) each); each part rounded to 16 bytes.
+    spt 0: the step body's, the gate's layout (gamma_smem_bytes)."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if spt == 0:
+        return 4 * ((ch + 3) * S + 64)
+    if not emit:
+        na, nb, ne = 0, 0, 2
+    else:
+        na, nb, ne = (3, 2, 3) if split else (1, 1, 2)
+    return 4 * (_r4(N) + (na + nb + ne) * _r4(ch * S) + 5 * _r4(S)
+                + _r4(nb * ch) + 4 * _r4(N + 1)
+                + (2 * _r4(ch * -(-S // 32)) if emit else 0))
+
+
+def gamma_shape_ok(N: int, K: int, shape, ch: int | None = None) -> bool:
+    """Whether kernel 8 takes the block shape (spt, split) at this topology
+    with a chunk of at least 2 steps: the gamma pass's CTA (two sets of
+    threads where split) within the launch bound of 512 threads and its
+    shared memory within one CTA (the chaining sweep, unsplit at the same
+    spt, then fits too)."""
+    spt, split = shape
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    return (gamma_kernel_ok(N, K) and ch >= 2
+            and (spt, split) in GAMMA_SHAPES
+            and _window_fits(S, spt, split,
+                             gamma_bwd_smem_bytes(N, K, ch, bool(split))))
+
+
+def gamma_mc_shape_ok(N: int, K: int, shape, ch: int | None = None) -> bool:
+    """Whether kernel 15 takes the block shape (spt, split) at this
+    topology, as gamma_shape_ok for kernel 8 (split at one state a thread
+    only); GAMMA_MC_STEP wherever gamma_mc_kernel_ok admits it."""
+    spt, split = shape
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if (not gamma_mc_kernel_ok(N, K) or ch < 2
+            or (spt, split) not in GAMMA_MC_SHAPES):
+        return False
+    smem = gamma_mc_bwd_smem_bytes(N, K, ch, bool(split), True, spt)
+    return smem <= SMEM_LIMIT if spt == 0 else _window_fits(S, spt, split,
+                                                            smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class _GammaKernel:
+    """What the plans and gamma_design read of kernel 8 or 15: its gate and
+    shape test, a pass's shared bytes smem(N, K, ch, split, emit, spt), the
+    gamma pass's shapes to try in order while at most two windows share an
+    SM (split_first) and past that (unsplit_first), the shape where none
+    fits (fallback), whether a window may then take a whole SM (whole_sm),
+    and its library and attributes entry point."""
+
+    name: str
+    ok: Callable
+    shape_ok: Callable
+    smem: Callable
+    split_first: tuple
+    unsplit_first: tuple
+    fallback: tuple
+    whole_sm: bool
+    lib: str
+    attrs: str
+
+
+_K8 = _GammaKernel(
+    "kernel 8", gamma_kernel_ok, gamma_shape_ok,
+    lambda N, K, ch, split, emit, spt: gamma_bwd_smem_bytes(N, K, ch, split,
+                                                            emit),
+    ((1, True), (2, True), (1, False)), ((1, False), (2, False)), (2, False),
+    False, "gamma_bwd", "gamma_backward_attrs")
+_K15 = _GammaKernel(
+    "kernel 15", gamma_mc_kernel_ok, gamma_mc_shape_ok,
+    gamma_mc_bwd_smem_bytes,
+    ((1, True), (1, False), (2, False)), ((1, False), (2, False)),
+    GAMMA_MC_STEP, True, "gamma_mc_bwd", "gamma_mc_backward_attrs")
+
+
+def _gamma_plan(kern: _GammaKernel, B, N, K, sm_count, shape, ch) -> EmPlan:
+    """The plans of kernels 8 and 15 on fb_mb._window_plan: the gamma pass
+    tries `split_first` while at most two windows share an SM (each one's
+    two sets then resident at once), else `unsplit_first` (more windows
+    resident, hiding each other's barriers as a split's two sets do). The
+    boundary of 2 x SMs lies between the two window counts timed (128 and
+    512 on 132 SMs); no count between them was timed."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    if not kern.ok(N, K) or ch < 2:
+        raise ValueError(f"{kern.name} does not take N={N}, K={K} at chunk "
+                         f"{ch}")
+    if shape is not None and not kern.shape_ok(N, K, shape, ch):
+        raise ValueError(f"{kern.name} does not take the block shape {shape}"
+                         f" at N={N}, K={K}")
+    return _window_plan(
+        B, S, sm_count, shape,
+        kern.split_first if B <= 2 * sm_count else kern.unsplit_first,
+        kern.fallback,
+        lambda p: kern.smem(N, K, ch, False, False, p),
+        lambda p, q: kern.smem(N, K, ch, q, True, p),
+        whole_sm=kern.whole_sm)
+
+
+def gamma_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
+                      ch: int | None = None) -> EmPlan:
+    """Kernel 8's block shapes for B windows on a card of `sm_count` SMs,
+    as em_launch_plan chooses kernels 5-6's (ops/fb_mb._window_plan): the
+    gamma pass (`spt`, `split`, `threads`, `bwd_smem_bytes`) split where
+    both sets fit, at one state a thread, else two, else unsplit at one,
+    else two; the chaining sweep (`fwd_spt`, `fwd_threads`,
+    `fwd_smem_bytes`) unsplit at one state a thread where the window's
+    threads fit, else two. Threads and shared memory within one CTA an SM
+    while every window has an SM of its own, and within half an SM once
+    windows share SMs; past two windows an SM the gamma pass tries
+    unsplit first. `shape` = (spt, split) forces one that gamma_shape_ok
+    admits, on both passes (the sweep unsplit). A chunk below 2 steps is
+    refused."""
+    return _gamma_plan(_K8, B, N, K, sm_count, shape, ch)
+
+
+def gamma_mc_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
+                         ch: int | None = None) -> EmPlan:
+    """Kernel 15's block shapes, as gamma_launch_plan gives kernel 8's:
+    the gamma pass split where both sets fit (one state a thread), else
+    unsplit at one state a thread, else two; where no window shape fits
+    half an SM, one that fits a whole SM, and where none fits at all
+    GAMMA_MC_STEP, the step body."""
+    return _gamma_plan(_K15, B, N, K, sm_count, shape, ch)
+
+
+def gamma_plan_for(B: int, N: int, K: int, device, shape=None,
+                   ch: int | None = None, mc: bool = False) -> EmPlan:
+    """`gamma_launch_plan` (`gamma_mc_launch_plan` with mc) on the card
+    holding the windows."""
+    return _gamma_plan(_K15 if mc else _K8, B, N, K, sm_count(device), shape,
+                       ch)
+
+
+def gamma_design(plan: EmPlan, N: int, K: int, ch: int,
+                 mc: bool = False) -> dict:
+    """What the card makes of kernel 8's (kernel 15's with mc) shapes: for
+    the chaining sweep and the gamma pass, states a thread, split, the
+    CTA's threads and shared bytes, the CTAs resident on an SM at once,
+    registers a thread and local (spill) bytes a thread."""
+    kern = _K15 if mc else _K8
+    attrs = _lib(kern.lib, kern.attrs, [_I] * 6 + [_P])
+    out = (ctypes.c_int * 3)()
+    res = {}
+    for part, spt, split, threads, smem, emit in (
+            ("chain", plan.fwd_spt, False, plan.fwd_threads,
+             plan.fwd_smem_bytes, 0),
+            ("gamma", plan.spt, plan.split, plan.cta_threads,
+             plan.bwd_smem_bytes, 1)):
+        err = attrs(N, K - 1, ch, spt, int(split), emit, out)
+        if err != 0:
+            raise RuntimeError(f"{kern.attrs}: CUDA error {err}")
+        res[part] = {"body": "window" if spt else "step", "spt": spt,
+                     "split": bool(split), "threads": threads,
+                     "smem_bytes": smem, "resident_ctas_per_sm": out[0],
+                     "registers": out[1], "local_bytes": out[2]}
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +486,13 @@ def _check_fits(name, c: EmConsts, L, ch):
     _check_geometry(L, ch)
 
 
+def _pass_shape(plan: EmPlan, emit_gamma: bool):
+    """(spt, split) a launch of kernel 8 or 15 runs at: the gamma pass's,
+    or the chaining sweep's (unsplit)."""
+    return ((plan.spt, int(plan.split)) if emit_gamma
+            else (plan.fwd_spt, 0))
+
+
 def gamma_fwd_mb(y_win, entry, has_init, c: EmConsts, ch: int):
     """Kernel 7: (B, L) windows, (B, S) entries, (B,) int32 has_init ->
     checkpoints (B, L/ch, S). CPU tensors take `gamma_fwd_mb_plain`."""
@@ -304,9 +522,10 @@ gamma_fwd_mb.launches = 0
 
 
 def gamma_bwd_mb(y_win, cp, entry, has_init, exits, term, ybnd, lastw,
-                 c: EmConsts, ch: int, emit_gamma: bool):
+                 c: EmConsts, ch: int, emit_gamma: bool, shape=None):
     """Kernel 8: -> (gam (B, L, N) or None, beta0 (B, S)). CPU tensors take
-    `gamma_bwd_mb_plain`."""
+    `gamma_bwd_mb_plain`. `shape` forces a block shape
+    (gamma_launch_plan); a chunk below 2 steps is refused."""
     if y_win.device.type == "cpu":
         return gamma_bwd_mb_plain(y_win, cp, entry, has_init, exits, term,
                                   ybnd, lastw, c, ch, emit_gamma)
@@ -322,16 +541,18 @@ def gamma_bwd_mb(y_win, cp, entry, has_init, exits, term, ybnd, lastw,
             or any(v.shape != (B,) for v in (has_init, term, ybnd, lastw))):
         raise ValueError("gamma_bwd_mb: shape mismatch")
     dev = y_win.device
+    spt, split = _pass_shape(gamma_plan_for(B, c.N, c.Km1 + 1, dev, shape,
+                                            ch), emit_gamma)
     gam = (torch.empty((B, L, c.N), dtype=f32, device=dev) if emit_gamma
            else None)
     beta0 = torch.empty((B, c.S), dtype=f32, device=dev)
     fn = _lib("gamma_bwd", "gamma_backward_mb",
-              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-               _P, _P, _P])
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               _P, _I, _P, _P, _P])
     err = fn(y_win.data_ptr(), cp.data_ptr(), entry.data_ptr(),
              has_init.data_ptr(), exits.data_ptr(), term.data_ptr(),
-             ybnd.data_ptr(), lastw.data_ptr(), B, L, c.N, c.Km1, ch,
-             c.fpack.data_ptr(), int(bool(emit_gamma)),
+             ybnd.data_ptr(), lastw.data_ptr(), B, L, c.N, c.Km1, ch, spt,
+             split, c.fpack.data_ptr(), int(bool(emit_gamma)),
              gam.data_ptr() if emit_gamma else None, beta0.data_ptr(),
              _stream(dev))
     if err != 0:
@@ -371,9 +592,10 @@ gamma_fwd_mb_mc.launches = 0
 
 
 def gamma_bwd_mb_mc(e, cp, entry, has_init, exits, term, lastw, c: EmConsts,
-                    ch: int, L: int, emit_gamma: bool):
+                    ch: int, L: int, emit_gamma: bool, shape=None):
     """Kernel 15: -> (gam (B, L, N) or None, beta0 (B, S)). CPU tensors take
-    `gamma_bwd_mb_mc_plain`."""
+    `gamma_bwd_mb_mc_plain`. `shape` forces a block shape
+    (gamma_mc_launch_plan); a chunk below 2 steps is refused."""
     if e.device.type == "cpu":
         return gamma_bwd_mb_mc_plain(e, cp, entry, has_init, exits, term,
                                      lastw, c, ch, L, emit_gamma)
@@ -389,17 +611,20 @@ def gamma_bwd_mb_mc(e, cp, entry, has_init, exits, term, lastw, c: EmConsts,
             or any(v.shape != (B,) for v in (has_init, term, lastw))):
         raise ValueError("gamma_bwd_mb_mc: shape mismatch")
     dev = e.device
+    spt, split = _pass_shape(gamma_plan_for(B, c.N, c.Km1 + 1, dev, shape,
+                                            ch, mc=True), emit_gamma)
     gam = (torch.empty((B, L, c.N), dtype=f32, device=dev) if emit_gamma
            else None)
     beta0 = torch.empty((B, c.S), dtype=f32, device=dev)
     fn = _lib("gamma_mc_bwd", "gamma_mc_backward_mb",
-              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
-               _P, _P])
+              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+               _I, _P, _P, _P])
     err = fn(e.data_ptr(), cp.data_ptr(), entry.data_ptr(),
              has_init.data_ptr(), exits.data_ptr(), term.data_ptr(),
-             lastw.data_ptr(), B, L, c.N, c.Km1, ch, c.fpack.data_ptr(),
-             int(bool(emit_gamma)), gam.data_ptr() if emit_gamma else None,
-             beta0.data_ptr(), _stream(dev))
+             lastw.data_ptr(), B, L, c.N, c.Km1, ch, spt, split,
+             c.fpack.data_ptr(), int(bool(emit_gamma)),
+             gam.data_ptr() if emit_gamma else None, beta0.data_ptr(),
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"gamma_bwd_mb_mc: CUDA error {err} at launch")
     gamma_bwd_mb_mc.launches += 1

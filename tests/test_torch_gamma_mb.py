@@ -92,6 +92,101 @@ def test_model_routes_to_plain_engines_on_the_cpu(monkeypatch):
     assert p.shape == (1000, 2)
 
 
+GRID = [(N, K) for K in (2, 3, 12, 33, 60, 65, 129, 513, 1024)
+        for N in (1, 2, 3, 4, 7, 8, 15, 16, 31, 64, 1023)]
+
+
+def test_gate_admits_what_it_admitted():
+    """Kernels 7-8's gate is unchanged by kernel 8's windowed design: one
+    thread a state (S <= 1024) and the old layout's shared memory, which
+    every such S fits."""
+    for N, K in GRID:
+        S = 1 + N * (K - 1)
+        ch = fb_mb.em_chunk(S)
+        ok = S <= 1024 and 4 * ((ch + 3) * S + 64) <= fb_mb.SMEM_LIMIT
+        assert gamma_mb.gamma_kernel_ok(N, K) == ok, (N, K)
+
+
+def test_gamma_launch_plan_fits_every_admitted_topology():
+    """Every topology gamma_kernel_ok admits, at any B, gets from
+    gamma_launch_plan block shapes that fit one SM: whole warps owning all
+    S states in both passes, the CTA within the launch bound of 512
+    threads, both passes' shared memory within one CTA (the sizes the
+    kernel asks for); while at most two windows share an SM, two CTAs of a
+    split on one; past that, the gamma pass unsplit where it fits half an
+    SM. Every shape gamma_shape_ok admits fits alike, and the plan refuses
+    the rest."""
+    shapes = list(gamma_mb.GAMMA_SHAPES) + [(0, 0), (3, 0), (1, 2)]
+    half = fb_mb.SMEM_SM // 2 - 1024
+    n_topo = 0
+    for N, K in GRID:
+        if not gamma_mb.gamma_kernel_ok(N, K):
+            with pytest.raises(ValueError):
+                gamma_mb.gamma_launch_plan(16, N, K, 132)
+            continue
+        n_topo += 1
+        S = 1 + N * (K - 1)
+        for B in (1, 16, 131, 132, 133, 264, 265, 512, 4096):
+            for shape in [None] + shapes:
+                if shape is not None and not gamma_mb.gamma_shape_ok(
+                        N, K, shape):
+                    with pytest.raises(ValueError, match="block shape"):
+                        gamma_mb.gamma_launch_plan(B, N, K, 132, shape)
+                    continue
+                p = gamma_mb.gamma_launch_plan(B, N, K, 132, shape)
+                for spt, nt in ((p.fwd_spt, p.fwd_threads),
+                                (p.spt, p.threads)):
+                    assert nt % 32 == 0 and spt in (1, 2)
+                    assert nt * spt >= S > (nt - 32) * spt
+                assert p.fwd_threads <= 512 and p.cta_threads <= 512
+                assert p.fwd_smem_bytes == gamma_mb.gamma_bwd_smem_bytes(
+                    N, K, None, False, False)
+                assert p.bwd_smem_bytes == gamma_mb.gamma_bwd_smem_bytes(
+                    N, K, None, p.split, True)
+                assert (p.fwd_smem_bytes <= p.bwd_smem_bytes
+                        <= fb_mb.SMEM_LIMIT)
+                if shape is None and 132 < B <= 264 and p.split:
+                    assert p.cta_threads <= 256
+                    assert 2 * (p.bwd_smem_bytes + 1024) <= fb_mb.SMEM_SM
+                if shape is None and B > 264:
+                    unsplit = [q for q in (1, 2)
+                               if fb_mb.em_window_threads(S, q) <= 256
+                               and gamma_mb.gamma_bwd_smem_bytes(
+                                   N, K, None, False) <= half]
+                    assert not p.split
+                    if unsplit:
+                        assert p.spt == unsplit[0]
+    assert n_topo >= 60
+
+
+def test_gamma_plan_at_the_posterior_shapes():
+    """On an H100's 132 SMs: kernels_gamma's 128 windows of 4096 at N=2
+    (S=119) split (two sets of 128 threads), at N=7 (S=414) unsplit at one
+    state a thread (416 threads); posterior_path_nov's 512 windows unsplit
+    (128 threads, every window resident at once), the shape measured
+    fastest there. The chaining sweep a thread a state."""
+    p = gamma_mb.gamma_launch_plan(128, 2, 60, 132)
+    assert (p.fwd_spt, p.spt, p.split, p.cta_threads) == (1, 1, True, 256)
+    p7 = gamma_mb.gamma_launch_plan(128, 7, 60, 132)
+    assert (p7.fwd_spt, p7.spt, p7.split, p7.cta_threads) == (1, 1, False,
+                                                              416)
+    p512 = gamma_mb.gamma_launch_plan(512, 2, 60, 132)
+    assert (p512.fwd_spt, p512.spt, p512.split) == (1, 1, False)
+    assert 4 * (p512.bwd_smem_bytes + 1024) <= fb_mb.SMEM_SM
+
+
+def test_gamma_plan_refuses_a_chunk_of_one():
+    """Kernel 8 walks chunks of at least two steps: its plan (which its
+    wrapper takes before launching) refuses a chunk of one at every shape,
+    and gamma_shape_ok admits none there."""
+    for shape in (None,) + gamma_mb.GAMMA_SHAPES:
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_launch_plan(128, 2, 60, 132, shape, ch=1)
+        if shape is not None:
+            assert not gamma_mb.gamma_shape_ok(2, 60, shape, ch=1)
+    assert gamma_mb.gamma_shape_ok(2, 60, (1, 1), ch=2)
+
+
 @pytest.mark.slow
 def test_plain_versions_match_jax_kernels_float32():
     """float32: the plain versions of kernels 7-8 against the JAX fused

@@ -13,7 +13,7 @@ import torch
 
 from hmmspikesorter_torch.core import posterior as tp
 from hmmspikesorter_torch.models.multichannel import HMMTemplateModelMC
-from hmmspikesorter_torch.ops import gamma_mb
+from hmmspikesorter_torch.ops import fb_mb, gamma_mb
 from hmmspikesorter_tpu.core import posterior as jp
 from hmmspikesorter_tpu.data.synthetic import (create_signal,
                                                create_spike_template)
@@ -111,6 +111,89 @@ def test_mc_routes_to_plain_engines_on_the_cpu(monkeypatch):
     monkeypatch.setattr(gamma_mb, "onset_gammas_cuda_mc", None)
     p = tp.onset_posteriors_chained_mc(tm, yc, L=256, device="cpu")
     assert p.shape == (1000, 2)
+
+
+MC_GRID = [(N, K) for K in (2, 3, 12, 33, 55, 60, 61, 64, 65, 66)
+           for N in (1, 2, 3, 4, 7, 8, 9)]
+
+
+def test_mc_gate_admits_what_it_admitted():
+    """Kernels 14-15's gate is unchanged: gamma_kernel_ok within the JAX
+    multi-channel front-end's N <= 8, K-1 <= 64."""
+    for N, K in MC_GRID:
+        S = 1 + N * (K - 1)
+        ok = N <= 8 and K <= 65 and S <= 1024
+        assert gamma_mb.gamma_mc_kernel_ok(N, K) == ok, (N, K)
+
+
+def test_mc_launch_plan_fits_every_admitted_topology():
+    """Every topology gamma_mc_kernel_ok admits, at any B, gets from
+    gamma_mc_launch_plan block shapes that fit one SM: the window body's
+    whole warps owning all S states, its CTA within 512 threads (the step
+    body a thread a state), both passes' shared memory within one CTA (the
+    sizes the kernel asks for); the step body only where no window shape
+    fits; every shape gamma_mc_shape_ok admits fits alike, and the plan
+    refuses the rest."""
+    shapes = list(gamma_mb.GAMMA_MC_SHAPES) + [(2, 1), (3, 0), (0, 1)]
+    n_topo = n_step = 0
+    for N, K in MC_GRID:
+        if not gamma_mb.gamma_mc_kernel_ok(N, K):
+            with pytest.raises(ValueError):
+                gamma_mb.gamma_mc_launch_plan(16, N, K, 132)
+            continue
+        n_topo += 1
+        S = 1 + N * (K - 1)
+        for B in (1, 16, 131, 132, 133, 264, 265, 512, 4096):
+            for shape in [None] + shapes:
+                if shape is not None and not gamma_mb.gamma_mc_shape_ok(
+                        N, K, shape):
+                    with pytest.raises(ValueError, match="block shape"):
+                        gamma_mb.gamma_mc_launch_plan(B, N, K, 132, shape)
+                    continue
+                p = gamma_mb.gamma_mc_launch_plan(B, N, K, 132, shape)
+                assert p.fwd_spt in (1, 2) and p.spt in (0, 1, 2)
+                for spt, nt in ((p.fwd_spt, p.fwd_threads),
+                                (p.spt, p.threads)):
+                    per = spt or 1
+                    assert nt % 32 == 0
+                    assert nt * per >= S > (nt - 32) * per
+                assert p.spt or not p.split
+                assert p.fwd_threads <= 512
+                assert p.cta_threads <= (512 if p.spt else 1024)
+                assert p.fwd_smem_bytes == gamma_mb.gamma_mc_bwd_smem_bytes(
+                    N, K, None, False, False)
+                assert p.bwd_smem_bytes == gamma_mb.gamma_mc_bwd_smem_bytes(
+                    N, K, None, p.split, True, p.spt)
+                assert max(p.fwd_smem_bytes,
+                           p.bwd_smem_bytes) <= fb_mb.SMEM_LIMIT
+                if shape is None and p.spt == 0:
+                    n_step += 1
+                    assert not any(gamma_mb.gamma_mc_shape_ok(N, K, s)
+                                   for s in gamma_mb.GAMMA_MC_SHAPES[:3])
+    assert n_topo >= 40
+    assert n_step > 0           # N = 7, 8 at the largest K-1 below 64
+
+
+def test_mc_plan_at_config6():
+    """Config 6 (N=3, K=60, S=178) on an H100's 132 SMs: kernels_gamma_mc's
+    128 windows of 4096 split (two sets of 192 threads, one CTA an SM), the
+    chaining sweep a thread a state; N=8 at K=60 (S=473) the step body;
+    at K=65 (S=513, chunk 16) the window body at two states a thread."""
+    p = gamma_mb.gamma_mc_launch_plan(128, 3, 60, 132)
+    assert (p.fwd_spt, p.spt, p.split, p.cta_threads) == (1, 1, True, 384)
+    assert gamma_mb.gamma_mc_launch_plan(128, 8, 60, 132).spt == 0
+    p8 = gamma_mb.gamma_mc_launch_plan(128, 8, 65, 132)
+    assert (p8.spt, p8.split) == (2, False)
+
+
+def test_mc_plan_refuses_a_chunk_of_one():
+    """Kernel 15 walks chunks of at least two steps: its plan refuses a
+    chunk of one at every shape, the step body included."""
+    for shape in (None,) + gamma_mb.GAMMA_MC_SHAPES:
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_mc_launch_plan(128, 3, 60, 132, shape, ch=1)
+        if shape is not None:
+            assert not gamma_mb.gamma_mc_shape_ok(3, 60, shape, ch=1)
 
 
 @pytest.mark.slow

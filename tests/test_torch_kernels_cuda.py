@@ -433,14 +433,31 @@ def _gamma_inputs(y, L, S, dev, seed):
     return y_win, ybnd, term, lastw, chained, rand(), rand()
 
 
-@pytest.mark.parametrize("K", [2, 12, 60, 65])
-@pytest.mark.parametrize("N", [1, 2, 3, 7, 8])
-def test_gamma_kernels_equal_plain(cuda, N, K):
-    """Kernels 7-8 on a ragged tail (T = 3L + 37) with chained and cold
-    windows and random entry/exit states: checkpoints, onset posteriors
-    and first-position betas bit for bit, both kernel-8 variants."""
-    L = 64
-    y, lp, mu = _em_problem(N, K, 3 * L + 37, seed=20 * N + K)
+def _gamma_bwd_every_shape(bwd, plain, shapes, shape_ok, N, K, ch):
+    """Kernel 8 (15) through its wrapper at the plan's block shape and at
+    every shape of `shapes` it takes here, both variants (the chaining
+    sweep, the gamma pass), against the plain version: onset posteriors
+    and first-position betas bit for bit. bwd(emit, shape), plain(emit).
+    Returns the shapes run."""
+    ran = [None] + [s for s in shapes if shape_ok(N, K, s, ch)]
+    for emit in (False, True):
+        ref = plain(emit)
+        for shape in ran:
+            got = bwd(emit, shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], ref[1]), (shape, emit)
+            if emit:
+                assert torch.equal(got[0], ref[0]), shape
+                assert torch.isfinite(got[0]).all()
+    return ran
+
+
+def _gamma_case(N, K, L, T, seed, cuda):
+    """Kernels 7-8 on a signal cut into windows of L, checked against their
+    plain versions at every block shape of kernel 8: the checkpoints, then
+    both kernel-8 variants from the plain checkpoints. Returns the shapes
+    kernel 8 ran."""
+    y, lp, mu = _em_problem(N, K, T, seed=seed)
     c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
     ch = gamma_mb.gamma_chunk(N, K)
     y_win, ybnd, term, lastw, chained, entry, exits = _gamma_inputs(
@@ -450,18 +467,48 @@ def test_gamma_kernels_equal_plain(cuda, N, K):
     pcp = gamma_mb.gamma_fwd_mb_plain(y_win, entry, chained, c, ch)
     torch.cuda.synchronize()
     assert torch.equal(cp, pcp)
-    for emit in (False, True):
-        got = gamma_mb.gamma_bwd_mb(y_win, pcp, entry, chained, exits, term,
-                                    ybnd, lastw, c, ch, emit)
-        ref = gamma_mb.gamma_bwd_mb_plain(y_win, pcp, entry, chained, exits,
-                                          term, ybnd, lastw, c, ch, emit)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], ref[1])
-        if emit:
-            assert torch.equal(got[0], ref[0])
-            assert torch.isfinite(got[0]).all()
+    ran = _gamma_bwd_every_shape(
+        lambda emit, shape: gamma_mb.gamma_bwd_mb(
+            y_win, pcp, entry, chained, exits, term, ybnd, lastw, c, ch,
+            emit, shape=shape),
+        lambda emit: gamma_mb.gamma_bwd_mb_plain(
+            y_win, pcp, entry, chained, exits, term, ybnd, lastw, c, ch,
+            emit),
+        gamma_mb.GAMMA_SHAPES, gamma_mb.gamma_shape_ok, N, K, ch)
     assert gamma_mb.gamma_fwd_mb.launches == n_f + 1
-    assert gamma_mb.gamma_bwd_mb.launches == n_b + 2
+    assert gamma_mb.gamma_bwd_mb.launches == n_b + 2 * len(ran)
+    return ran
+
+
+@pytest.mark.parametrize("N,K", [(N, K) for N in (1, 2, 3, 7, 8)
+                                 for K in (2, 12, 60, 65)]
+                         + [(9, 3), (16, 12), (31, 34)])
+def test_gamma_kernels_equal_plain(cuda, N, K):
+    """Kernels 7-8 on a ragged tail (T = 3L + 37: the last window's
+    terminal mid-chunk, its padded tail walked) with chained and cold
+    windows and random entry/exit states: checkpoints, onset posteriors
+    and first-position betas bit for bit, both kernel-8 variants, at the
+    plan's block shape and at every shape kernel 8 takes (split and
+    unsplit, one and two states a thread where they fit). N above 8 runs
+    the kernel's looped instance (its neurons not unrolled), S = 1024 at
+    N=31, K=34 the largest the gate admits."""
+    ran = _gamma_case(N, K, 64, 3 * 64 + 37, 20 * N + K, cuda)
+    assert len(ran) >= 2
+
+
+@pytest.mark.parametrize("N,K,L,nw", [
+    (2, 60, 64, 263),         # 264 windows: more than the SMs, shared
+    (7, 60, 64, 263),
+    (3, 12, 32, 40),          # windows of one chunk
+    (2, 60, 4096, 2),         # the posterior path's window length
+])
+def test_gamma_kernels_more_shapes_equal_plain(cuda, N, K, L, nw):
+    """Kernel 8 at window counts and lengths of the posterior paths: more
+    windows than SMs (two or more CTAs an SM), windows of a single
+    checkpoint chunk, and 4096-step windows; every block shape, bit for
+    bit."""
+    ran = _gamma_case(N, K, L, nw * L + 37, N + K + nw, cuda)
+    assert len(ran) >= 2
 
 
 def _ov2_every_shape(y_win, entry, chained, tmx, term, c):
@@ -1200,12 +1247,15 @@ def _gamma_mc_inputs(N, K, C, L, T, seed, cuda):
 
 @pytest.mark.parametrize("K", [2, 12, 60, 65])
 @pytest.mark.parametrize("N,C,L,nw", [(1, 1, 64, 3), (2, 3, 64, 3),
-                                      (3, 4, 64, 3), (4, 2, 32, 130)])
+                                      (3, 4, 64, 3), (4, 2, 32, 130),
+                                      (2, 3, 64, 263), (8, 2, 64, 3)])
 def test_gamma_mc_kernels_equal_plain(cuda, N, K, C, L, nw):
-    """Kernels 14-15 on a ragged tail (T = nw L + 37; 131 windows in the
-    last case) with chained and cold windows and random entry/exit states:
-    checkpoints, onset posteriors and first-position betas bit for bit,
-    both kernel-15 variants."""
+    """Kernels 14-15 on a ragged tail (T = nw L + 37; 131 and 264 windows
+    in two cases: fewer and more than the SMs) with chained and cold
+    windows and random entry/exit states: checkpoints, onset posteriors
+    and first-position betas bit for bit, both kernel-15 variants, at the
+    plan's block shape and at every shape kernel 15 takes (split and
+    unsplit, one and two states a thread where they fit)."""
     (e, term, lastw, chained, entry, exits, c, ch,
      *_) = _gamma_mc_inputs(N, K, C, L, nw * L + 37, 30 * N + K, cuda)
     n_f = gamma_mb.gamma_fwd_mb_mc.launches
@@ -1214,18 +1264,16 @@ def test_gamma_mc_kernels_equal_plain(cuda, N, K, C, L, nw):
     pcp = gamma_mb.gamma_fwd_mb_mc_plain(e, entry, chained, c, ch, L)
     torch.cuda.synchronize()
     assert torch.equal(cp, pcp)
-    for emit in (False, True):
-        got = gamma_mb.gamma_bwd_mb_mc(e, pcp, entry, chained, exits, term,
-                                       lastw, c, ch, L, emit)
-        ref = gamma_mb.gamma_bwd_mb_mc_plain(e, pcp, entry, chained, exits,
-                                             term, lastw, c, ch, L, emit)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], ref[1])
-        if emit:
-            assert torch.equal(got[0], ref[0])
-            assert torch.isfinite(got[0]).all()
+    ran = _gamma_bwd_every_shape(
+        lambda emit, shape: gamma_mb.gamma_bwd_mb_mc(
+            e, pcp, entry, chained, exits, term, lastw, c, ch, L, emit,
+            shape=shape),
+        lambda emit: gamma_mb.gamma_bwd_mb_mc_plain(
+            e, pcp, entry, chained, exits, term, lastw, c, ch, L, emit),
+        gamma_mb.GAMMA_MC_SHAPES, gamma_mb.gamma_mc_shape_ok, N, K, ch)
+    assert len(ran) >= 2
     assert gamma_mb.gamma_fwd_mb_mc.launches == n_f + 1
-    assert gamma_mb.gamma_bwd_mb_mc.launches == n_b + 2
+    assert gamma_mb.gamma_bwd_mb_mc.launches == n_b + 2 * len(ran)
 
 
 @pytest.mark.parametrize("N,C,T,L", [(2, 3, 800, 128), (2, 2, 777, 128),
@@ -1246,6 +1294,45 @@ def test_chained_mc_posteriors_run_the_kernels(cuda, N, C, T, L):
     ref = tpost.onset_posteriors_mc(tm, yc, device="cpu")
     assert p.shape == ref.shape == (T, N)
     assert np.abs(p - ref).max() < 1e-4
+
+
+def test_gamma_shared_memory_is_the_kernels(cuda):
+    """The plans' shared-memory sizes are what kernels 8 and 15 ask for at
+    launch, in both passes, split and unsplit."""
+    k8 = gamma_mb._lib("gamma_bwd", "gamma_backward_smem",
+                       [gamma_mb._I] * 5)
+    k15 = gamma_mb._lib("gamma_mc_bwd", "gamma_mc_backward_smem",
+                        [gamma_mb._I] * 6)
+    for N, K in ((1, 2), (2, 60), (3, 60), (7, 60), (8, 65), (40, 2)):
+        for ch in (gamma_mb.gamma_chunk(N, K), 2):
+            for split in (0, 1):
+                for emit in (0, 1):
+                    assert k8(N, K - 1, ch, split, emit) == \
+                        gamma_mb.gamma_bwd_smem_bytes(N, K, ch, split, emit)
+                    for spt in (0, 1):
+                        assert k15(N, K - 1, ch, spt, split, emit) == \
+                            gamma_mb.gamma_mc_bwd_smem_bytes(
+                                N, K, ch, split, emit, spt)
+
+
+def test_gamma_kernels_refuse_a_chunk_of_one(cuda):
+    """Kernels 8 and 15 walk chunks of at least two steps: their wrappers
+    refuse a chunk of one, whatever the shape."""
+    y, lp, mu = _em_problem(2, 12, 200, seed=3)
+    c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
+    y_win, ybnd, term, lastw, chained, entry, exits = _gamma_inputs(
+        y, 64, c.S, cuda, seed=3)
+    cp1 = torch.zeros((y_win.shape[0], 64, c.S), device=cuda)
+    for shape in (None, (1, 0)):
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_bwd_mb(y_win, cp1, entry, chained, exits, term,
+                                  ybnd, lastw, c, 1, True, shape=shape)
+    (e, term, lastw, chained, entry, exits, c,
+     *_) = _gamma_mc_inputs(2, 12, 3, 64, 200, 0, cuda)
+    cp1 = torch.zeros((e.shape[0] // 64, 64, c.S), device=cuda)
+    with pytest.raises(ValueError):
+        gamma_mb.gamma_bwd_mb_mc(e, cp1, entry, chained, exits, term, lastw,
+                                 c, 1, 64, False)
 
 
 def test_gamma_mc_kernels_refuse_what_they_cannot_take(cuda):
