@@ -11,9 +11,9 @@
 // (train/em_mc._mc_streams_dense: es the silent-state stream, eb = (es + d)
 // - c1, from one (T, C) x (C, N(K-1)) product outside the kernel). Window b
 // reads rows [bL, bL + L). Everything else is kernel 7's (gamma_fwd.cu):
-// where has_init is 1, step 0 is one em::alpha_step from the entry alpha
-// (the previous window's terminal, recentred); where it is 0, the
-// emission-only init. Then L-1 steps of em::alpha_step; after steps ch-1,
+// where has_init is 1, step 0 is one alpha step from the entry alpha (the
+// previous window's terminal, recentred); where it is 0, the emission-only
+// init. Then L-1 steps of em::alpha_step's arithmetic; after steps ch-1,
 // 2ch-1, ... alpha goes to the checkpoints `cp` (B, L/ch, S).
 //
 // What bounds it on an H100: bytes. The stream is S floats a step, read
@@ -23,74 +23,213 @@
 // is above the operations bound. A window's steps form a strictly
 // sequential chain, so one window a CTA leaves the card latency-bound.
 //
-// Design: kernel 7's layout reading kernel 12's stream: one CTA per window,
-// one thread per state (S <= 1024); a thread reads its state's emission at
-// step t from e[t, j], so a warp reads 32 neighbouring floats; alpha
-// double-buffered in shared memory, one __syncthreads a step.
+// Design: kernel 12's windowed forward (em_mc_fwd.cu, em_win_mc.cuh)
+// without its logsumexps, as kernel 7 is kernel 5's. One CTA a window walks
+// a chunk of ch steps into a shared alpha slab, one barrier a step; the
+// heads (silent, onsets) run one instruction stream, and for K-1 >= 2 a
+// helper warp takes their logsumexps over the ring ends a step ahead; the
+// other states are a shift. A state's emission comes from the chunk's ch
+// rows of e, staged into shared memory by cp.async a chunk ahead (two
+// buffers), so no step waits on device memory. After the chunk the
+// checkpoint row goes out from the slab's last row, and one barrier shows
+// the next chunk's rows. A
+// chained window's entry row is staged into the slab's last row, the
+// helper takes the heads' logsumexps over its ring ends, and step 0 is an
+// ordinary step from it. A thread owns one state, or two where the
+// window's threads would not fit (ops/gamma_mb.gamma_fwd_spt); the outputs
+// do not depend on the shape. Every topology kernels 14-15 admit fits: the
+// slab and the two buffers take at most 194,048 bytes (N=8, K=64, chunk
+// 32).
 
 #include <cstdint>
+#include <type_traits>
 
 #include "em_step.cuh"
+#include "em_win.cuh"
+#include "em_win_mc.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(em::kMaxThreads)
-gamma_mc_forward_kernel(const float* __restrict__ e,
-                        const float* __restrict__ entry,
-                        const int32_t* __restrict__ has_init, int L, int N,
-                        int Km1, int ch, const float* __restrict__ fpack,
-                        float* __restrict__ cp) {
-  extern __shared__ float smem[];
+// Shared floats: the onset log-probs, the alpha slab, two buffers of a
+// chunk's emission rows (ch x S each) and two rows of the heads'
+// logsumexps. Each part rounded to 16 bytes.
+__host__ __device__ inline int smem_floats(int N, int S, int ch) {
+  return emw::r4(N) + 3 * emw::r4(ch * S) + 2 * emw::r4(N + 1);
+}
+
+// NMAX > 0: the kernel for N <= NMAX (its loops over neurons unrolled),
+// 0: any N; AHEAD: K-1 >= 2, the heads' logsumexps taken a step ahead.
+template <int SPT, int NMAX, bool AHEAD>
+__global__ void __launch_bounds__(emw::kCtaThreads, 1)
+gamma_mc_forward_win(const float* __restrict__ e,
+                     const float* __restrict__ entry,
+                     const int32_t* __restrict__ has_init, int L, int N,
+                     int Km1, int ch, int nt, const float* __restrict__ fpack,
+                     float* __restrict__ cp) {
+  extern __shared__ __align__(16) float smem[];
   em::Consts c;
   c.load(fpack, N, Km1);
   const int S = c.S;
-  float* cur = smem;
-  float* nxt = smem + S;
-
-  const int j = threadIdx.x;
-  const bool active = j < S;
-  const em::Slot q(j, Km1);
+  float* lp = smem;                         // onset log-probs
+  for (int i = threadIdx.x; i < N; i += blockDim.x) lp[i] = c.lp[i];
+  const int u = threadIdx.x;
   const int b = blockIdx.x;
+  const int slab_f = emw::r4(ch * S);
+  float* slab = smem + emw::r4(N);
+  float* last = slab + (ch - 1) * S;        // the chunk's last row
+  float* ebuf = slab + slab_f;              // 2 x ch emission rows
+  float* l_cur = ebuf + 2 * slab_f;         // heads' logsumexps
+  float* l_nxt = l_cur + emw::r4(N + 1);
+  // the helper of heads uh, uh + nt, ...: a warp away from the heads
+  const int uh = (u + nt - (nt > 32 ? 32 : 0)) % nt;
   const int Wc = L / ch;
   const float* eb = e + static_cast<size_t>(b) * L * S;
   float* cpb = cp + static_cast<size_t>(b) * Wc * S;
   const bool chained = has_init[b] != 0;
+  emw::OwnedIdx<SPT> o;
+  o.load(u, nt, Km1, S);
+  auto swap = [](float*& p, float*& q) {
+    float* t = p;
+    p = q;
+    q = t;
+  };
+  // chunk cc's emission rows, into buffer cc % 2
+  auto stage = [&](int cc) {
+    emw::stage_async(ebuf + (cc & 1) * slab_f,
+                     eb + static_cast<size_t>(cc) * ch * S, ch * S, u, nt);
+    emw::async_commit();
+  };
 
-  if (chained && active) cur[j] = entry[static_cast<size_t>(b) * S + j];
-  __syncthreads();
-  float a = 0.0f;
-  for (int t = 0; t < L; ++t) {
-    if (active) {
-      const float em_j = eb[static_cast<size_t>(t) * S + j];
-      a = (t == 0 && !chained) ? em_j : em::alpha_step(cur, q, em_j, c);
-      nxt[j] = a;
-      if ((t + 1) % ch == 0) cpb[static_cast<size_t>(t / ch) * S + j] = a;
+  stage(0);
+  if (chained) {
+    // the entry row, where step 0 reads its previous alpha
+#pragma unroll
+    for (int r = 0; r < SPT; ++r) {
+      const int j = u + r * nt;
+      if (j < S) last[j] = entry[static_cast<size_t>(b) * S + j];
     }
-    // publishes this step's alpha; every read of `cur` is done
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
+  emw::async_wait<0>();
+  __syncthreads();                          // lp, chunk 0's rows, entry
+  if (chained) {
+#pragma unroll
+    for (int r = 0; r < SPT; ++r) {
+      const int h = uh + r * nt;
+      if (AHEAD && h <= N)
+        l_cur[h] = emw::lse_sel<NMAX>(
+            N, h - 1, [&](int m) { return last[(m + 1) * Km1]; });
+    }
+  } else {
+    emw::alpha_init_row<SPT, NMAX, AHEAD>(slab, ebuf, l_nxt, u, uh, nt, N,
+                                          Km1, S);
+    swap(l_cur, l_nxt);
+  }
+  emw::win_sync(0, nt);
+
+  for (int cc = 0; cc < Wc; ++cc) {
+    // the next chunk's rows: their buffer was last read a chunk ago
+    if (cc + 1 < Wc) stage(cc + 1);
+    const float* er = ebuf + (cc & 1) * slab_f;
+    // ---- the recursion alone: one barrier a step
+    for (int s = cc == 0 && !chained ? 1 : 0; s < ch; ++s) {
+      emw::alpha_step_row<SPT, NMAX, AHEAD>(
+          s == 0 ? last : slab + (s - 1) * S, slab + s * S, er + s * S,
+          l_cur, l_nxt, u, uh, nt, N, Km1, c, lp, o);
+      swap(l_cur, l_nxt);
+      emw::win_sync(0, nt);
+    }
+    // ---- the checkpoint, from the last row (rewritten only by the next
+    // chunk's last step)
+#pragma unroll
+    for (int r = 0; r < SPT; ++r) {
+      const int j = u + r * nt;
+      if (j < S) cpb[static_cast<size_t>(cc) * S + j] = last[j];
+    }
+    // the next chunk's rows have landed
+    emw::async_wait<0>();
+    emw::win_sync(0, nt);
+  }
+}
+
+template <int SPT, int NMAX, bool AHEAD>
+const void* win_fn() {
+  return reinterpret_cast<const void*>(
+      gamma_mc_forward_win<SPT, NMAX, AHEAD>);
+}
+
+// the kernel for this shape, N and K: unrolled up to 2, 4 or 8 neurons,
+// else looped; at K = 2 (a ring of one slot) the heads take their own
+// logsumexps
+const void* kernel_for(int spt, int N, int Km1) {
+  auto pick = [&](auto spt_) -> const void* {
+    constexpr int P = decltype(spt_)::value;
+    if (Km1 < 2) return win_fn<P, 0, false>();
+    if (N <= 2) return win_fn<P, 2, true>();
+    if (N <= 4) return win_fn<P, 4, true>();
+    if (N <= 8) return win_fn<P, 8, true>();
+    return win_fn<P, 0, true>();
+  };
+  return spt == 1 ? pick(std::integral_constant<int, 1>())
+                  : pick(std::integral_constant<int, 2>());
+}
+
+// threads of a CTA at this shape, or 0 for a shape the kernel does not
+// take
+int cta_threads(int S, int ch, int spt) {
+  const int nt = emw::window_threads(S, spt);
+  if (ch < 2 || (spt != 1 && spt != emw::kMaxSpt) || nt > emw::kCtaThreads)
+    return 0;
+  return nt;
 }
 
 }  // namespace
 
+// Dynamic shared memory of kernel 14 at this chunk (bytes; the same for
+// one or two states a thread).
+extern "C" int gamma_mc_forward_smem(int N, int Km1, int ch) {
+  return 4 * smem_floats(N, 1 + N * Km1, ch);
+}
+
+// What the card makes of a shape: out[0] the CTAs resident on an SM at
+// once, out[1] registers a thread, out[2] local (spill) bytes a thread.
+extern "C" int gamma_mc_forward_attrs(int N, int Km1, int ch, int spt,
+                                      int* out) {
+  const int S = 1 + N * Km1;
+  const int nt = cta_threads(S, ch, spt);
+  if (N < 1 || Km1 < 1 || S > em::kMaxThreads || nt == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = kernel_for(spt, N, Km1);
+  const int smem = gamma_mc_forward_smem(N, Km1, ch);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, nt, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// spt: states a thread (1 or 2); one window a CTA.
 extern "C" int gamma_mc_forward_mb(const float* e, const float* entry,
                                    const int32_t* has_init, int B, int L,
-                                   int N, int Km1, int ch, const float* fpack,
-                                   float* cp, void* stream) {
+                                   int N, int Km1, int ch, int spt,
+                                   const float* fpack, float* cp,
+                                   void* stream) {
   if (B <= 0 || L <= 0) return 0;
   const int S = 1 + N * Km1;
-  if (N < 1 || Km1 < 1 || S > em::kMaxThreads || ch < 1 || L % ch != 0)
+  const int nt = cta_threads(S, ch, spt);
+  if (N < 1 || Km1 < 1 || S > em::kMaxThreads || nt == 0 || L % ch != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * S * static_cast<int>(sizeof(float));
+  const void* fn = kernel_for(spt, N, Km1);
+  const int smem = gamma_mc_forward_smem(N, Km1, ch);
   cudaError_t err = cudaFuncSetAttribute(
-      gamma_mc_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gamma_mc_forward_kernel<<<B, em::threads_for(S), smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      e, entry, has_init, L, N, Km1, ch, fpack, cp);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&e,  &entry, &has_init, &L,     &N, &Km1,
+                  &ch, const_cast<int*>(&nt), &fpack, &cp};
+  return static_cast<int>(cudaLaunchKernel(fn, dim3(B), dim3(nt), args, smem,
+                                           static_cast<cudaStream_t>(stream)));
 }

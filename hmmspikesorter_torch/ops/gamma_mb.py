@@ -21,7 +21,9 @@ predecessor's exit in the backward chaining). emit_gamma=0 is the chaining
 sweep: beta only, no remat and no z_t. Kernel 8 runs kernel 6's windowed
 design (csrc/em_win.cuh, csrc/gamma_win.cuh) at a block shape from
 `gamma_launch_plan`, kernel 15 kernel 13's (csrc/em_win_mc.cuh) from
-`gamma_mc_launch_plan`; their outputs do not depend on the shape.
+`gamma_mc_launch_plan`; kernels 7 and 14 run kernels 5 and 12's windowed
+forward at the plan's `fwd_spt` (`gamma_fwd_spt`). No output depends on
+the shape.
 
 Layout: [silent | N rings of K-1] (core/state_space's non-overlap order),
 S = 1 + N(K-1). Windows are disjoint: window b covers samples [bL, bL+L)
@@ -59,8 +61,9 @@ import torch
 from ..core.posterior import _recenter, _shift_down, _shift_up
 from ..utils.device import as_float, default_dtype, resolve_device
 from .fb_mb import (MAX_THREADS, SMEM_LIMIT, EmConsts, EmPlan, _alpha_step,
-                    _beta_step, _block_lse, _emission, _r4, _window_fits,
-                    _window_plan, em_chunk, em_consts, em_consts_mc)
+                    _beta_step, _block_lse, _emission, _fwd_spt, _r4,
+                    _window_fits, _window_plan, em_chunk, em_consts,
+                    em_consts_mc)
 from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream, sm_count
 
 HBM_FRACTION = 0.5      # of the card's memory, for the checkpoints (gate)
@@ -75,11 +78,12 @@ def gamma_chunk(N: int, K: int) -> int:
 
 
 def gamma_smem_bytes(N: int, K: int) -> int:
-    """The gate's measure of shared memory (`gamma_kernel_ok`; kernel 7's
-    and the one-thread-a-state layout of kernels 8 and 15 before their
+    """The gate's measure of shared memory (`gamma_kernel_ok`; the
+    one-thread-a-state layout of kernels 7-8 and 14-15 before their
     windowed design): a remat slab, the checkpoint row, two beta+emission
     buffers and the reduction scratch, 4 bytes each. Every topology it
-    admits fits a windowed shape of kernel 8 (`gamma_launch_plan`)."""
+    admits fits a windowed shape of kernels 7 and 8 (`gamma_fwd_spt`,
+    `gamma_launch_plan`)."""
     S = 1 + N * (K - 1)
     return 4 * ((em_chunk(S) + 3) * S + 64)
 
@@ -200,6 +204,27 @@ def gamma_mc_bwd_smem_bytes(N: int, K: int, ch: int | None = None,
                 + (2 * _r4(ch * -(-S // 32)) if emit else 0))
 
 
+def gamma_fwd_smem_bytes(N: int, K: int, ch: int | None = None) -> int:
+    """Dynamic shared memory of kernel 7 (csrc/gamma_fwd.cu; the same at one
+    or two states a thread): the onset log-probs and the ring ends' means,
+    the alpha slab (ch x S), a double buffer of a chunk's samples and two
+    rows of the heads' logsumexps; 4 bytes each, each part rounded to 16
+    bytes."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    return 4 * (2 * _r4(N) + _r4(ch * S) + _r4(2 * ch) + 2 * _r4(N + 1))
+
+
+def gamma_mc_fwd_smem_bytes(N: int, K: int, ch: int | None = None) -> int:
+    """Dynamic shared memory of kernel 14 (csrc/gamma_mc_fwd.cu; the same at
+    one or two states a thread): the onset log-probs, the alpha slab and two
+    buffers of a chunk's emission rows (ch x S each), two rows of the heads'
+    logsumexps; each part rounded to 16 bytes."""
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    return 4 * (_r4(N) + 3 * _r4(ch * S) + 2 * _r4(N + 1))
+
+
 def gamma_shape_ok(N: int, K: int, shape, ch: int | None = None) -> bool:
     """Whether kernel 8 takes the block shape (spt, split) at this topology
     with a chunk of at least 2 steps: the gamma pass's CTA (two sets of
@@ -237,7 +262,9 @@ class _GammaKernel:
     gamma pass's shapes to try in order while at most two windows share an
     SM (split_first) and past that (unsplit_first), the shape where none
     fits (fallback), whether a window may then take a whole SM (whole_sm),
-    and its library and attributes entry point."""
+    and its library and attributes entry point; and of the forward beside
+    it (kernel 7 or 14), its shared bytes fwd_smem(N, K, ch), library and
+    attributes entry point."""
 
     name: str
     ok: Callable
@@ -249,6 +276,9 @@ class _GammaKernel:
     whole_sm: bool
     lib: str
     attrs: str
+    fwd_smem: Callable
+    fwd_lib: str
+    fwd_attrs: str
 
 
 _K8 = _GammaKernel(
@@ -256,12 +286,14 @@ _K8 = _GammaKernel(
     lambda N, K, ch, split, emit, spt: gamma_bwd_smem_bytes(N, K, ch, split,
                                                             emit),
     ((1, True), (2, True), (1, False)), ((1, False), (2, False)), (2, False),
-    False, "gamma_bwd", "gamma_backward_attrs")
+    False, "gamma_bwd", "gamma_backward_attrs", gamma_fwd_smem_bytes,
+    "gamma_fwd", "gamma_forward_attrs")
 _K15 = _GammaKernel(
     "kernel 15", gamma_mc_kernel_ok, gamma_mc_shape_ok,
     gamma_mc_bwd_smem_bytes,
     ((1, True), (1, False), (2, False)), ((1, False), (2, False)),
-    GAMMA_MC_STEP, True, "gamma_mc_bwd", "gamma_mc_backward_attrs")
+    GAMMA_MC_STEP, True, "gamma_mc_bwd", "gamma_mc_backward_attrs",
+    gamma_mc_fwd_smem_bytes, "gamma_mc_fwd", "gamma_mc_forward_attrs")
 
 
 def _gamma_plan(kern: _GammaKernel, B, N, K, sm_count, shape, ch) -> EmPlan:
@@ -315,6 +347,38 @@ def gamma_mc_launch_plan(B: int, N: int, K: int, sm_count: int, shape=None,
     return _gamma_plan(_K15, B, N, K, sm_count, shape, ch)
 
 
+# Kernels 7 and 14's block shapes: states a thread of the windowed forward
+GAMMA_FWD_SHAPES = (1, 2)
+
+
+def gamma_fwd_shape_ok(N: int, K: int, spt: int, ch: int | None = None,
+                       mc: bool = False) -> bool:
+    """Whether kernel 7 (kernel 14 with mc) takes `spt` states a thread at
+    this topology, under its gate (gamma_kernel_ok, gamma_mc_kernel_ok),
+    with a chunk of at least 2 steps: the window's threads within the
+    launch bound of 512 and its shared memory within one CTA."""
+    kern = _K15 if mc else _K8
+    S = 1 + N * (K - 1)
+    ch = em_chunk(S) if ch is None else ch
+    return (kern.ok(N, K) and ch >= 2 and spt in GAMMA_FWD_SHAPES
+            and _window_fits(S, spt, False, kern.fwd_smem(N, K, ch)))
+
+
+def gamma_fwd_spt(B: int, N: int, K: int, sm_count: int, shape=None,
+                  ch: int | None = None, mc: bool = False) -> int:
+    """Kernel 7's (kernel 14's with mc) states a thread for B windows on a
+    card of `sm_count` SMs: the `fwd_spt` of gamma_launch_plan
+    (gamma_mc_launch_plan), kernel 5's rule (one where the window's threads
+    fit 512 while every window has an SM of its own, and 256 once windows
+    share SMs; else two), or `shape`, 1 or 2, forced where
+    gamma_fwd_shape_ok admits it. A chunk below 2 steps is refused."""
+    spt = _fwd_spt(B, 1 + N * (K - 1), sm_count) if shape is None else shape
+    if not gamma_fwd_shape_ok(N, K, spt, ch, mc):
+        raise ValueError(f"kernel {14 if mc else 7} does not take the block "
+                         f"shape {spt} at N={N}, K={K}, chunk {ch}")
+    return spt
+
+
 def gamma_plan_for(B: int, N: int, K: int, device, shape=None,
                    ch: int | None = None, mc: bool = False) -> EmPlan:
     """`gamma_launch_plan` (`gamma_mc_launch_plan` with mc) on the card
@@ -328,11 +392,20 @@ def gamma_design(plan: EmPlan, N: int, K: int, ch: int,
     """What the card makes of kernel 8's (kernel 15's with mc) shapes: for
     the chaining sweep and the gamma pass, states a thread, split, the
     CTA's threads and shared bytes, the CTAs resident on an SM at once,
-    registers a thread and local (spill) bytes a thread."""
+    registers a thread and local (spill) bytes a thread; the same of kernel
+    7's (kernel 14's) shape, the plan's fwd_spt, as "fwd"."""
     kern = _K15 if mc else _K8
-    attrs = _lib(kern.lib, kern.attrs, [_I] * 6 + [_P])
     out = (ctypes.c_int * 3)()
-    res = {}
+    fwd_attrs = _lib(kern.fwd_lib, kern.fwd_attrs, [_I] * 4 + [_P])
+    err = fwd_attrs(N, K - 1, ch, plan.fwd_spt, out)
+    if err != 0:
+        raise RuntimeError(f"{kern.fwd_attrs}: CUDA error {err}")
+    res = {"fwd": {"body": "window", "spt": plan.fwd_spt, "split": False,
+                   "threads": plan.fwd_threads,
+                   "smem_bytes": kern.fwd_smem(N, K, ch),
+                   "resident_ctas_per_sm": out[0], "registers": out[1],
+                   "local_bytes": out[2]}}
+    attrs = _lib(kern.lib, kern.attrs, [_I] * 6 + [_P])
     for part, spt, split, threads, smem, emit in (
             ("chain", plan.fwd_spt, False, plan.fwd_threads,
              plan.fwd_smem_bytes, 0),
@@ -493,9 +566,11 @@ def _pass_shape(plan: EmPlan, emit_gamma: bool):
             else (plan.fwd_spt, 0))
 
 
-def gamma_fwd_mb(y_win, entry, has_init, c: EmConsts, ch: int):
+def gamma_fwd_mb(y_win, entry, has_init, c: EmConsts, ch: int, shape=None):
     """Kernel 7: (B, L) windows, (B, S) entries, (B,) int32 has_init ->
-    checkpoints (B, L/ch, S). CPU tensors take `gamma_fwd_mb_plain`."""
+    checkpoints (B, L/ch, S). CPU tensors take `gamma_fwd_mb_plain`.
+    `shape` forces the states a thread, 1 or 2 (gamma_fwd_spt); a chunk
+    below 2 steps is refused."""
     if y_win.device.type == "cpu":
         return gamma_fwd_mb_plain(y_win, entry, has_init, c, ch)
     B, L = y_win.shape
@@ -505,13 +580,14 @@ def gamma_fwd_mb(y_win, entry, has_init, c: EmConsts, ch: int):
                 fpack=(c.fpack, torch.float32))
     if entry.shape != (B, c.S) or has_init.shape != (B,):
         raise ValueError("gamma_fwd_mb: shape mismatch")
-    cp = torch.empty((B, L // ch, c.S), dtype=torch.float32,
-                     device=y_win.device)
+    dev = y_win.device
+    spt = gamma_fwd_spt(B, c.N, c.Km1 + 1, sm_count(dev), shape, ch)
+    cp = torch.empty((B, L // ch, c.S), dtype=torch.float32, device=dev)
     fn = _lib("gamma_fwd", "gamma_forward_mb",
-              [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
     err = fn(y_win.data_ptr(), entry.data_ptr(), has_init.data_ptr(), B, L,
-             c.N, c.Km1, ch, c.fpack.data_ptr(), cp.data_ptr(),
-             _stream(y_win.device))
+             c.N, c.Km1, ch, spt, c.fpack.data_ptr(), cp.data_ptr(),
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"gamma_fwd_mb: CUDA error {err} at launch")
     gamma_fwd_mb.launches += 1
@@ -564,10 +640,12 @@ def gamma_bwd_mb(y_win, cp, entry, has_init, exits, term, ybnd, lastw,
 gamma_bwd_mb.launches = 0
 
 
-def gamma_fwd_mb_mc(e, entry, has_init, c: EmConsts, ch: int, L: int):
+def gamma_fwd_mb_mc(e, entry, has_init, c: EmConsts, ch: int, L: int,
+                    shape=None):
     """Kernel 14: the (B*L+1, S) emission stream, (B, S) entries, (B,) int32
     has_init -> checkpoints (B, L/ch, S). CPU tensors take
-    `gamma_fwd_mb_mc_plain`."""
+    `gamma_fwd_mb_mc_plain`. `shape` forces the states a thread, 1 or 2
+    (gamma_fwd_spt); a chunk below 2 steps is refused."""
     if e.device.type == "cpu":
         return gamma_fwd_mb_mc_plain(e, entry, has_init, c, ch, L)
     _check_fits("gamma_fwd_mb_mc", c, L, ch)
@@ -577,11 +655,13 @@ def gamma_fwd_mb_mc(e, entry, has_init, c: EmConsts, ch: int, L: int):
                 fpack=(c.fpack, torch.float32))
     if entry.shape != (B, c.S) or has_init.shape != (B,):
         raise ValueError("gamma_fwd_mb_mc: shape mismatch")
-    cp = torch.empty((B, L // ch, c.S), dtype=torch.float32, device=e.device)
+    dev = e.device
+    spt = gamma_fwd_spt(B, c.N, c.Km1 + 1, sm_count(dev), shape, ch, mc=True)
+    cp = torch.empty((B, L // ch, c.S), dtype=torch.float32, device=dev)
     fn = _lib("gamma_mc_fwd", "gamma_mc_forward_mb",
-              [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
     err = fn(e.data_ptr(), entry.data_ptr(), has_init.data_ptr(), B, L, c.N,
-             c.Km1, ch, c.fpack.data_ptr(), cp.data_ptr(), _stream(e.device))
+             c.Km1, ch, spt, c.fpack.data_ptr(), cp.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"gamma_fwd_mb_mc: CUDA error {err} at launch")
     gamma_fwd_mb_mc.launches += 1

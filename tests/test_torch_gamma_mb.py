@@ -187,6 +187,88 @@ def test_gamma_plan_refuses_a_chunk_of_one():
     assert gamma_mb.gamma_shape_ok(2, 60, (1, 1), ch=2)
 
 
+def test_gamma_forward_plan_fits_every_admitted_topology():
+    """Every topology gamma_kernel_ok admits, at any B, gets kernel 7 a
+    window shape from the plan (gamma_fwd_spt is gamma_launch_plan's
+    fwd_spt): whole warps owning all S states, within the launch bound of
+    512 threads, 256 where windows share SMs and a thread a state fits
+    there; its shared memory within one CTA. Every states-a-thread that
+    gamma_fwd_shape_ok admits is taken when forced, the rest refused, and
+    the gate's refusals are the plan's."""
+    n_topo = 0
+    for N, K in GRID:
+        if not gamma_mb.gamma_kernel_ok(N, K):
+            with pytest.raises(ValueError):
+                gamma_mb.gamma_fwd_spt(16, N, K, 132)
+            assert not any(gamma_mb.gamma_fwd_shape_ok(N, K, s)
+                           for s in gamma_mb.GAMMA_FWD_SHAPES)
+            continue
+        n_topo += 1
+        S = 1 + N * (K - 1)
+        assert gamma_mb.gamma_fwd_smem_bytes(N, K) <= fb_mb.SMEM_LIMIT
+        assert gamma_mb.gamma_fwd_shape_ok(N, K, 2)
+        for B in (1, 16, 131, 132, 133, 264, 265, 512, 4096):
+            spt = gamma_mb.gamma_fwd_spt(B, N, K, 132)
+            assert spt == gamma_mb.gamma_launch_plan(B, N, K, 132).fwd_spt
+            nt = fb_mb.em_window_threads(S, spt)
+            assert nt % 32 == 0 and nt * spt >= S > (nt - 32) * spt
+            assert nt <= 512
+            if spt == 2:
+                assert fb_mb.em_window_threads(S, 1) > (512 if B <= 132
+                                                        else 256)
+            for shape in gamma_mb.GAMMA_FWD_SHAPES + (0, 3):
+                if gamma_mb.gamma_fwd_shape_ok(N, K, shape):
+                    assert gamma_mb.gamma_fwd_spt(B, N, K, 132,
+                                                  shape) == shape
+                    assert fb_mb.em_window_threads(S, shape) <= 512
+                else:
+                    with pytest.raises(ValueError, match="block shape"):
+                        gamma_mb.gamma_fwd_spt(B, N, K, 132, shape)
+    assert n_topo >= 60
+
+
+def test_gamma_forward_plan_at_the_posterior_shapes():
+    """On an H100's 132 SMs: kernels_gamma's 128 windows of 4096 run
+    kernel 7 a thread a state at N=2 (128 threads, kernel 5's 15,552
+    bytes) and at N=7 (416 threads); posterior_path_nov's 512 windows at
+    N=2 a thread a state too (128 threads, four windows resident on an
+    SM); at 512 windows N=7 takes two states a thread (224)."""
+    assert gamma_mb.gamma_fwd_spt(128, 2, 60, 132) == 1
+    assert gamma_mb.gamma_fwd_smem_bytes(2, 60) == \
+        fb_mb.em_fwd_smem_bytes(2, 60) == 15552
+    assert gamma_mb.gamma_fwd_spt(128, 7, 60, 132) == 1
+    assert fb_mb.em_window_threads(414, 1) == 416
+    assert gamma_mb.gamma_fwd_spt(512, 2, 60, 132) == 1
+    assert 4 * (gamma_mb.gamma_fwd_smem_bytes(2, 60) + 1024) \
+        <= fb_mb.SMEM_SM
+    assert gamma_mb.gamma_fwd_spt(512, 7, 60, 132) == 2
+    assert gamma_mb.gamma_fwd_shape_ok(7, 60, 1)
+
+
+@pytest.mark.parametrize("mc", [False, True])
+def test_gamma_forward_refuses_what_it_cannot_take(mc):
+    """Kernels 7 and 14 refuse a chunk below 2 steps at every shape, a
+    states-a-thread other than 1 or 2, one whose threads pass 512 (a
+    thread a state at S > 512) and a chunk whose slab passes a CTA's
+    shared memory."""
+    for shape in (None,) + gamma_mb.GAMMA_FWD_SHAPES:
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_fwd_spt(128, 2, 60, 132, shape, ch=1, mc=mc)
+        if shape is not None:
+            assert not gamma_mb.gamma_fwd_shape_ok(2, 60, shape, 1, mc)
+            assert gamma_mb.gamma_fwd_shape_ok(2, 60, shape, 2, mc)
+    for shape in (0, 3):
+        with pytest.raises(ValueError, match="block shape"):
+            gamma_mb.gamma_fwd_spt(128, 2, 60, 132, shape, mc=mc)
+    with pytest.raises(ValueError, match="block shape"):
+        gamma_mb.gamma_fwd_spt(16, 8, 65, 132, 1, mc=mc)      # S = 513
+    assert gamma_mb.gamma_fwd_spt(16, 8, 65, 132, mc=mc) == 2
+    big = 512 if mc else 2048                  # past 227 KB at S = 513
+    assert not gamma_mb.gamma_fwd_shape_ok(8, 65, 2, big, mc)
+    with pytest.raises(ValueError, match="block shape"):
+        gamma_mb.gamma_fwd_spt(16, 8, 65, 132, 2, ch=big, mc=mc)
+
+
 @pytest.mark.slow
 def test_plain_versions_match_jax_kernels_float32():
     """float32: the plain versions of kernels 7-8 against the JAX fused

@@ -186,6 +186,55 @@ def test_mc_plan_at_config6():
     assert (p8.spt, p8.split) == (2, False)
 
 
+def test_mc_forward_plan_fits_every_admitted_topology():
+    """Every topology gamma_mc_kernel_ok admits, at any B, gets kernel 14 a
+    window shape from the plan (gamma_mc_launch_plan's fwd_spt): whole
+    warps owning all S states within 512 threads and the slab and two
+    emission buffers within one CTA's shared memory, where kernel 15
+    falls back to its step body too; forced shapes as
+    gamma_fwd_shape_ok admits them."""
+    n_topo = 0
+    for N, K in MC_GRID:
+        if not gamma_mb.gamma_mc_kernel_ok(N, K):
+            with pytest.raises(ValueError):
+                gamma_mb.gamma_fwd_spt(16, N, K, 132, mc=True)
+            continue
+        n_topo += 1
+        S = 1 + N * (K - 1)
+        assert gamma_mb.gamma_mc_fwd_smem_bytes(N, K) <= fb_mb.SMEM_LIMIT
+        for B in (1, 16, 131, 132, 133, 264, 265, 512, 4096):
+            spt = gamma_mb.gamma_fwd_spt(B, N, K, 132, mc=True)
+            assert spt == gamma_mb.gamma_mc_launch_plan(B, N, K,
+                                                        132).fwd_spt
+            nt = fb_mb.em_window_threads(S, spt)
+            assert nt % 32 == 0 and nt * spt >= S > (nt - 32) * spt
+            assert nt <= 512
+            for shape in gamma_mb.GAMMA_FWD_SHAPES:
+                ok = gamma_mb.gamma_fwd_shape_ok(N, K, shape, mc=True)
+                assert ok == (fb_mb.em_window_threads(S, shape) <= 512)
+                if ok:
+                    assert gamma_mb.gamma_fwd_spt(B, N, K, 132, shape,
+                                                  mc=True) == shape
+    assert n_topo >= 40
+
+
+def test_mc_forward_plan_at_config6():
+    """Config 6 (N=3, K=60, S=178, chunk 32) on an H100's 132 SMs: kernel
+    14 a thread a state (192 threads, kernel 12's slab and buffers without
+    its logsumexp scratch: 68,400 bytes) at kernels_gamma_mc's 128 windows
+    and at 512; N=8, K=60 (S=473, where kernel 15 takes its step body) a
+    window shape within one CTA."""
+    for B in (128, 512):
+        assert gamma_mb.gamma_fwd_spt(B, 3, 60, 132, mc=True) == 1
+    assert fb_mb.em_window_threads(178, 1) == 192
+    assert gamma_mb.gamma_mc_fwd_smem_bytes(3, 60) == 68400
+    assert gamma_mb.gamma_mc_fwd_smem_bytes(3, 60) < \
+        fb_mb.em_mc_fwd_smem_bytes(3, 60)
+    assert gamma_mb.gamma_mc_launch_plan(128, 8, 60, 132).spt == 0
+    assert gamma_mb.gamma_fwd_spt(128, 8, 60, 132, mc=True) == 1
+    assert gamma_mb.gamma_mc_fwd_smem_bytes(8, 60) <= fb_mb.SMEM_LIMIT
+
+
 def test_mc_plan_refuses_a_chunk_of_one():
     """Kernel 15 walks chunks of at least two steps: its plan refuses a
     chunk of one at every shape, the step body included."""

@@ -452,21 +452,42 @@ def _gamma_bwd_every_shape(bwd, plain, shapes, shape_ok, N, K, ch):
     return ran
 
 
+def _gamma_fwd_every_shape(fwd, plain, entry, chained, N, K, ch, mc=False):
+    """Kernel 7 (14 with mc) through its wrapper at the plan's states a
+    thread and forced to each it takes here, on the launch's windows
+    (window 0 cold, the rest chained from `entry`) and on a cold sweep
+    (has_init all 0), against the plain version: checkpoints bit for bit.
+    fwd(entry, has_init, shape), plain(entry, has_init). Returns the
+    shapes run."""
+    ran = [None] + [s for s in gamma_mb.GAMMA_FWD_SHAPES
+                    if gamma_mb.gamma_fwd_shape_ok(N, K, s, ch, mc)]
+    for has_init in (chained, torch.zeros_like(chained)):
+        ref = plain(entry, has_init)
+        for shape in ran:
+            got = fwd(entry, has_init, shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (shape, has_init.tolist())
+    return ran
+
+
 def _gamma_case(N, K, L, T, seed, cuda):
     """Kernels 7-8 on a signal cut into windows of L, checked against their
-    plain versions at every block shape of kernel 8: the checkpoints, then
-    both kernel-8 variants from the plain checkpoints. Returns the shapes
-    kernel 8 ran."""
+    plain versions at every block shape of each: the checkpoints (chained
+    and cold), then both kernel-8 variants from the plain checkpoints.
+    Returns the shapes kernel 8 ran."""
     y, lp, mu = _em_problem(N, K, T, seed=seed)
     c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
     ch = gamma_mb.gamma_chunk(N, K)
     y_win, ybnd, term, lastw, chained, entry, exits = _gamma_inputs(
         y, L, c.S, cuda, seed=N + K)
     n_f, n_b = gamma_mb.gamma_fwd_mb.launches, gamma_mb.gamma_bwd_mb.launches
-    cp = gamma_mb.gamma_fwd_mb(y_win, entry, chained, c, ch)
+    ran_f = _gamma_fwd_every_shape(
+        lambda en, hi, shape: gamma_mb.gamma_fwd_mb(y_win, en, hi, c, ch,
+                                                    shape=shape),
+        lambda en, hi: gamma_mb.gamma_fwd_mb_plain(y_win, en, hi, c, ch),
+        entry, chained, N, K, ch)
+    assert len(ran_f) >= 2
     pcp = gamma_mb.gamma_fwd_mb_plain(y_win, entry, chained, c, ch)
-    torch.cuda.synchronize()
-    assert torch.equal(cp, pcp)
     ran = _gamma_bwd_every_shape(
         lambda emit, shape: gamma_mb.gamma_bwd_mb(
             y_win, pcp, entry, chained, exits, term, ybnd, lastw, c, ch,
@@ -475,7 +496,7 @@ def _gamma_case(N, K, L, T, seed, cuda):
             y_win, pcp, entry, chained, exits, term, ybnd, lastw, c, ch,
             emit),
         gamma_mb.GAMMA_SHAPES, gamma_mb.gamma_shape_ok, N, K, ch)
-    assert gamma_mb.gamma_fwd_mb.launches == n_f + 1
+    assert gamma_mb.gamma_fwd_mb.launches == n_f + 2 * len(ran_f)
     assert gamma_mb.gamma_bwd_mb.launches == n_b + 2 * len(ran)
     return ran
 
@@ -486,12 +507,14 @@ def _gamma_case(N, K, L, T, seed, cuda):
 def test_gamma_kernels_equal_plain(cuda, N, K):
     """Kernels 7-8 on a ragged tail (T = 3L + 37: the last window's
     terminal mid-chunk, its padded tail walked) with chained and cold
-    windows and random entry/exit states: checkpoints, onset posteriors
-    and first-position betas bit for bit, both kernel-8 variants, at the
-    plan's block shape and at every shape kernel 8 takes (split and
-    unsplit, one and two states a thread where they fit). N above 8 runs
-    the kernel's looped instance (its neurons not unrolled), S = 1024 at
-    N=31, K=34 the largest the gate admits."""
+    windows and random entry/exit states: checkpoints (also of a cold
+    sweep), onset posteriors and first-position betas bit for bit, both
+    kernel-8 variants, at the plan's block shapes and at every shape each
+    kernel takes (kernel 7 one and two states a thread where they fit;
+    kernel 8 split and unsplit too). K = 2 runs the windows' heads
+    without a helper. N above 8 runs the kernels' looped instances (their
+    neurons not unrolled), S = 1024 at N=31, K=34 the largest the gate
+    admits."""
     ran = _gamma_case(N, K, 64, 3 * 64 + 37, 20 * N + K, cuda)
     assert len(ran) >= 2
 
@@ -503,10 +526,10 @@ def test_gamma_kernels_equal_plain(cuda, N, K):
     (2, 60, 4096, 2),         # the posterior path's window length
 ])
 def test_gamma_kernels_more_shapes_equal_plain(cuda, N, K, L, nw):
-    """Kernel 8 at window counts and lengths of the posterior paths: more
-    windows than SMs (two or more CTAs an SM), windows of a single
-    checkpoint chunk, and 4096-step windows; every block shape, bit for
-    bit."""
+    """Kernels 7-8 at window counts and lengths of the posterior paths:
+    more windows than SMs (two or more CTAs an SM, kernel 7 at the plan's
+    256-thread rule), windows of a single checkpoint chunk, and 4096-step
+    windows; every block shape, bit for bit."""
     ran = _gamma_case(N, K, L, nw * L + 37, N + K + nw, cuda)
     assert len(ran) >= 2
 
@@ -1252,18 +1275,22 @@ def _gamma_mc_inputs(N, K, C, L, T, seed, cuda):
 def test_gamma_mc_kernels_equal_plain(cuda, N, K, C, L, nw):
     """Kernels 14-15 on a ragged tail (T = nw L + 37; 131 and 264 windows
     in two cases: fewer and more than the SMs) with chained and cold
-    windows and random entry/exit states: checkpoints, onset posteriors
-    and first-position betas bit for bit, both kernel-15 variants, at the
-    plan's block shape and at every shape kernel 15 takes (split and
-    unsplit, one and two states a thread where they fit)."""
+    windows and random entry/exit states: checkpoints (also of a cold
+    sweep), onset posteriors and first-position betas bit for bit, both
+    kernel-15 variants, at the plan's block shapes and at every shape each
+    kernel takes (kernel 14 one and two states a thread where they fit;
+    kernel 15 split and unsplit and its step body too)."""
     (e, term, lastw, chained, entry, exits, c, ch,
      *_) = _gamma_mc_inputs(N, K, C, L, nw * L + 37, 30 * N + K, cuda)
     n_f = gamma_mb.gamma_fwd_mb_mc.launches
     n_b = gamma_mb.gamma_bwd_mb_mc.launches
-    cp = gamma_mb.gamma_fwd_mb_mc(e, entry, chained, c, ch, L)
+    ran_f = _gamma_fwd_every_shape(
+        lambda en, hi, shape: gamma_mb.gamma_fwd_mb_mc(e, en, hi, c, ch, L,
+                                                       shape=shape),
+        lambda en, hi: gamma_mb.gamma_fwd_mb_mc_plain(e, en, hi, c, ch, L),
+        entry, chained, N, K, ch, mc=True)
+    assert len(ran_f) >= 2
     pcp = gamma_mb.gamma_fwd_mb_mc_plain(e, entry, chained, c, ch, L)
-    torch.cuda.synchronize()
-    assert torch.equal(cp, pcp)
     ran = _gamma_bwd_every_shape(
         lambda emit, shape: gamma_mb.gamma_bwd_mb_mc(
             e, pcp, entry, chained, exits, term, lastw, c, ch, L, emit,
@@ -1272,7 +1299,7 @@ def test_gamma_mc_kernels_equal_plain(cuda, N, K, C, L, nw):
             e, pcp, entry, chained, exits, term, lastw, c, ch, L, emit),
         gamma_mb.GAMMA_MC_SHAPES, gamma_mb.gamma_mc_shape_ok, N, K, ch)
     assert len(ran) >= 2
-    assert gamma_mb.gamma_fwd_mb_mc.launches == n_f + 1
+    assert gamma_mb.gamma_fwd_mb_mc.launches == n_f + 2 * len(ran_f)
     assert gamma_mb.gamma_bwd_mb_mc.launches == n_b + 2 * len(ran)
 
 
@@ -1313,6 +1340,47 @@ def test_gamma_shared_memory_is_the_kernels(cuda):
                         assert k15(N, K - 1, ch, spt, split, emit) == \
                             gamma_mb.gamma_mc_bwd_smem_bytes(
                                 N, K, ch, split, emit, spt)
+
+
+def test_gamma_forward_shared_memory_is_the_kernels(cuda):
+    """The wrappers' shared-memory sizes are what kernels 7 and 14 ask for
+    at launch."""
+    k7 = gamma_mb._lib("gamma_fwd", "gamma_forward_smem", [gamma_mb._I] * 3)
+    k14 = gamma_mb._lib("gamma_mc_fwd", "gamma_mc_forward_smem",
+                        [gamma_mb._I] * 3)
+    for N, K in ((1, 2), (2, 60), (3, 60), (7, 60), (8, 65), (31, 34),
+                 (40, 2)):
+        for ch in (gamma_mb.gamma_chunk(N, K), 2, 16):
+            assert k7(N, K - 1, ch) == gamma_mb.gamma_fwd_smem_bytes(N, K,
+                                                                     ch)
+            assert k14(N, K - 1, ch) == gamma_mb.gamma_mc_fwd_smem_bytes(
+                N, K, ch)
+
+
+def test_gamma_forwards_refuse_a_chunk_of_one(cuda):
+    """Kernels 7 and 14 walk chunks of at least two steps: their wrappers
+    refuse a chunk of one at every shape, and a shape they do not take,
+    before any launch."""
+    y, lp, mu = _em_problem(2, 12, 200, seed=3)
+    c = fb_mb.em_consts(lp, mu, 0.35, dtype=torch.float32, device=cuda)
+    y_win, _, _, _, chained, entry, _ = _gamma_inputs(y, 64, c.S, cuda,
+                                                      seed=3)
+    (e, _, _, chained6, entry6, _, c6,
+     *_) = _gamma_mc_inputs(2, 12, 3, 64, 200, 0, cuda)
+    n7 = gamma_mb.gamma_fwd_mb.launches
+    n14 = gamma_mb.gamma_fwd_mb_mc.launches
+    for shape in (None,) + gamma_mb.GAMMA_FWD_SHAPES:
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_fwd_mb(y_win, entry, chained, c, 1, shape=shape)
+        with pytest.raises(ValueError):
+            gamma_mb.gamma_fwd_mb_mc(e, entry6, chained6, c6, 1, 64,
+                                     shape=shape)
+    with pytest.raises(ValueError, match="block shape"):
+        gamma_mb.gamma_fwd_mb(y_win, entry, chained, c, 32, shape=3)
+    with pytest.raises(ValueError, match="block shape"):
+        gamma_mb.gamma_fwd_mb_mc(e, entry6, chained6, c6, 32, 64, shape=0)
+    assert gamma_mb.gamma_fwd_mb.launches == n7
+    assert gamma_mb.gamma_fwd_mb_mc.launches == n14
 
 
 def test_gamma_kernels_refuse_a_chunk_of_one(cuda):
