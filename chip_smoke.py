@@ -19,7 +19,18 @@ since the previous phase line):
                ops/viterbi_mb.ov2_launch_plan chose (threads, windows and
                CTAs an SM is to hold, dynamic shared memory), the CTAs the
                card holds on an SM at once and the time of a window step;
-               for kernels 1 and 16 their time at each block shape
+               for kernels 1 and 16 their time at each block shape; for
+               kernel 2 (and kernel 4 in kernels_ovn and kernels_mc, kernel
+               2 again in drift_path) the design
+               ops/bt_segments.bt_launch_plan chose (`design`: segments a
+               window, threads, shared memory, tile steps, resident CTAs an
+               SM, registers and spill bytes a thread, the time of a window
+               step, the fix-up passes and re-chased steps a window) and
+               `ms_by_shape`: every segment count forced, each exactly
+               equal to the plan's labels; `launch_ms`: each of the timed
+               launches' own device time (first, median, max) and the
+               share of the timed span between launches; `ms_again`: the
+               plan's launch timed again after the forced ones
   kernels_ov2_r1  kernel 19 (the round-1 N=2 forward in the JAX
                ov2_forward_pallas layout: kernel 1's source with its final
                state written out) on 16 of those windows: every output
@@ -127,8 +138,16 @@ since the previous phase line):
                tracked below the stationary); labels >= 0.9999 equal to the
                float64 plain twin (on the CPU, in the worker process, while
                the card runs on); kernel 16 vs its plain version on 4
-               windows at full width (W=33,248) and kernels 17-18 vs theirs
-               on 4 of model_posteriors' 512 windows of 4096, exactly equal,
+               windows at full width (W=33,248) and kernel 2 on its output
+               (`kernel2`: its plain version on the same 4 windows on the
+               CPU, in the worker; its design and every design forced),
+               kernel 2 on one window of 100,003 steps of main_path's
+               signal, across three shared-memory tiles, at every segment
+               count (`kernel2_tiles`: launched after the kernels phase,
+               exactly equal to its plain version on the CPU, in the
+               worker; passes and re-chased steps), kernels
+               17-18 vs theirs on 4 of model_posteriors' 512 windows of
+               4096, exactly equal,
                and forced to every block shape, each exactly equal to the
                plan's; timed with their block shapes there and at T=2^19
                (128 windows, their shape one of those); `seconds_by_part`;
@@ -214,9 +233,10 @@ since the previous phase line):
                (labels equal the library's); `seconds_by_part`
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
-run, and a spawned worker process computes three float64 references on
-the CPU (drift_path's twin, cli_path's seam twin and multichannel
-posteriors) while the card runs on. About 10 minutes on an H100 (the
+run, and a spawned worker process computes three float64 references and
+two plain backtraces on the CPU (drift_path's twin and its kernel 2 checks,
+cli_path's seam twin and multichannel posteriors) while the card runs on.
+About 10 minutes on an H100 (the
 wall phase prints it; each phase line carries its own phase_seconds).
 Then one {"kernels": [...]} line, the script's own wall ({"phase": "wall"},
 from the platform phase on, against its 1200 s limit), the nvidia-smi
@@ -249,6 +269,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 # plain versions take a launch-bound step at any window count and hold
 # every window (kernels 1-4) or 16 (kernels 11 + 4).
 PLAIN_WINDOWS = 4
+# launches a backtrace is timed over: at ~0.1 ms a launch, ten spanned
+# about 1 ms, and a host hiccup there doubled a reading
+BT_REPS = 100
 # template shapes of BASELINE.json config 2 (benchmarks/suite.py's first
 # three) and the fourth of that list for N=4
 OVN_SHAPES = ((3.0, 0.8, 0.2), (4.0, 0.3, 0.2), (2.5, 0.6, 0.3),
@@ -308,6 +331,18 @@ def cpu_tracked_twin(track, y):
     with torch.inference_mode():
         m = tad.decode_tracked(track, y, device="cpu", dtype=torch.float64)
     return m.ml_seq, m.ll, time.perf_counter() - t
+
+
+def cpu_ov2_backtrace(flags, rings, xT, Km1):
+    """Kernel 2's plain version on the CPU, for drift_path's check of
+    kernel 2 on kernel 16's output. Returns (labels, seconds)."""
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        labels = vmb.ov2_backtrace_mb_plain(flags, rings, xT, Km1)
+    return labels, time.perf_counter() - t
 
 
 def cpu_mc_posteriors(mu, sigmas, lp, yc):
@@ -388,6 +423,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def cuda_ms_launches(fn, reps):
+    """cuda_ms, with an event pair around each launch as well: (mean ms
+    over the span from the first launch's start to the last one's end, the
+    last output, {each launch's own device time: first, mean of the first
+    10, median, max; the share of the span between launches})."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in ev:
+        start.record()
+        out = fn()
+        end.record()
+    torch.cuda.synchronize()
+    each = sorted(s.elapsed_time(e) for s, e in ev)
+    first = [s.elapsed_time(e) for s, e in ev[:10]]
+    span = ev[0][0].elapsed_time(ev[-1][1])
+    return span / reps, out, {
+        "first_ms": first[0], "first10_mean_ms": sum(first) / len(first),
+        "median_ms": each[len(each) // 2], "max_ms": each[-1],
+        "between_launches_share": 1.0 - sum(each) / span}
+
+
 def max_abs_err(pairs):
     return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
@@ -439,6 +495,93 @@ def ovn_bt_bytes(labels, xT, Km1, N):
     g = (lab - PB).clamp(min=0) % (Km1 * Km1)
     interior = (lab >= PB) & (g >= Km1) & (g % Km1 != 0)
     return int((~interior).sum()) + xT.numel() * 4 + labels.numel() * 2
+
+
+def ov2_bt_bytes(labels, xT, flags, Km1):
+    """Bytes kernel 2 must move for these labels: the flag byte of every
+    step, one ring byte where the label is a ring slot k >= 1
+    (data-dependent: counted from the labels), the xT words in, the int16
+    labels out. Returns (bytes, ring bytes read)."""
+    lab = labels[:, 1:].long()
+    ring_reads = int((((lab >= 2) & (lab <= Km1))
+                      | ((lab >= Km1 + 2) & (lab <= 2 * Km1))).sum())
+    return (xT.numel() * 4 + flags.numel() + ring_reads
+            + labels.numel() * 2), ring_reads
+
+
+def bt_row(launch, design_of, labels, W, ms, reps):
+    """Kernel 2 or 4's design on one input (csrc/bt_chase.cuh), as the
+    plan chose it (ops/bt_segments.bt_launch_plan): `design_of(G)`
+    (segments, threads, shared bytes, tile steps, resident CTAs an SM,
+    registers and spill bytes a thread), the time of a window step, the
+    fix-up passes and re-chased steps a window (mean, max); `ms_by_shape`:
+    every segment count G forced, each exactly equal to the plan's
+    `labels`; `ms_again`: the plan's launch timed again after them.
+    launch(G, stats) is the private launcher (G None: the plan's)."""
+    from hmmspikesorter_torch.ops import bt_segments as bts
+
+    by_shape = {}
+    for G in bts.SEGMENTS:
+        run = lambda: launch(G, False)                      # noqa: E731
+        run()
+        by_shape[str(G)], got = cuda_ms(run, reps)
+        check(torch.equal(got, labels),
+              f"a backtrace design (G={G}) differs from the plan's labels")
+    ms_again, _ = cuda_ms(lambda: launch(None, False), reps)
+    B = labels.shape[0]
+    G = bts.bt_launch_plan(B, W, torch.cuda.get_device_properties(
+        labels.device).multi_processor_count)
+    plan_labels, st = launch(None, True)
+    check(torch.equal(plan_labels, labels),
+          "the backtrace's statistics run differs from its labels")
+    passes, fixed = st[:, 0].double(), st[:, 1].double()
+    return {"design": {**design_of(G), "us_per_window_step": ms * 1e3 / W,
+                       "fixup_passes_mean": float(passes.mean()),
+                       "fixup_passes_max": int(passes.max()),
+                       "rechased_steps_mean": float(fixed.mean()),
+                       "rechased_steps_max": int(fixed.max())},
+            "ms_by_shape": by_shape, "ms_again": ms_again}
+
+
+def kernel2_tiles_start(vmb, cpu, y, c):
+    """Kernel 2 across shared-memory tiles: kernel 1's choices on one
+    window of y of two whole tiles and a ragged third, kernel 2 forced to
+    every segment count; its plain version on the CPU, in the worker, while
+    the card runs on. Returns what kernel2_tiles_check reads."""
+    from hmmspikesorter_torch.ops import bt_segments as bts
+
+    dev = c.means.device
+    W = 2 * bts.TILE_MAX + 1699
+    f, r, x = vmb._forward_launch(
+        "ov2_forward_mb", torch.as_tensor(y[None, :W], dtype=torch.float32,
+                                          device=dev),
+        torch.ones(1, dtype=torch.bool, device=dev), c)
+    plain = cpu.submit(cpu_ov2_backtrace, f.cpu(), r.cpu(), x.cpu(), c.Km1)
+    labels, stats = {}, {}
+    for G in bts.SEGMENTS:
+        lab, st = vmb._bt_launch(f, r, x, c.Km1, segments=G, stats=True)
+        labels[G] = lab.cpu()
+        stats[str(G)] = [int(v) for v in st[0]]
+    return W, plain, labels, stats
+
+
+def kernel2_tiles_check(tiles):
+    """drift_path's `kernel2_tiles`: every segment count's labels exactly
+    the plain version's, and at least one fix-up pass a tile."""
+    from hmmspikesorter_torch.ops import bt_segments as bts
+
+    W, plain, labels, stats = tiles
+    ref, secs = plain.result()
+    n = -(-W // bts.TILE_MAX)
+    for G, lab in labels.items():
+        check(torch.equal(lab, ref.to(torch.int16)),
+              f"kernel 2 across {n} tiles (G={G}) differs from its plain "
+              "version")
+        check(stats[str(G)][0] >= n,
+              f"kernel 2 ran fewer passes than tiles (G={G})")
+    return {"B": 1, "W": W, "tiles": n, "match": True,
+            "plain_seconds": secs, "plain_device": "cpu",
+            "passes_rechased_by_segments": stats}
 
 
 def em_fwd_ops(B, W, N, S, la_steps=None, emit=4):
@@ -769,7 +912,7 @@ def ovn_kernels(vomb, y_win, sil, c, ref, fwd_reps, bt_reps):
     del got
     bt = lambda: vomb.ovn_backtrace_mb(*plain, c)             # noqa: E731
     bt()
-    bt_ms, labels = cuda_ms(bt, reps=bt_reps)
+    bt_ms, labels, bt_each = cuda_ms_launches(bt, reps=bt_reps)
     bt_plain_ms, plain_labels = ref["bt_ms"], ref["labels"]
     bt_err = max_abs_err([(labels, plain_labels)])
     check(torch.equal(labels, plain_labels.to(torch.int16)),
@@ -790,7 +933,18 @@ def ovn_kernels(vomb, y_win, sil, c, ref, fwd_reps, bt_reps):
                           "bound_bytes_ms": ovn_bt_bytes(labels, xT, c.Km1,
                                                          c.N)
                           / HBM_BYTES_PER_S * 1e3,
-                          "max_abs_err": bt_err, "match": True}}
+                          "max_abs_err": bt_err, "match": True,
+                          "launch_ms": bt_each,
+                          **ovn_bt_row(vomb, plain, labels, c, bt_ms,
+                                          bt_reps)}}
+
+
+def ovn_bt_row(vomb, packed, labels, c, ms, reps):
+    """`bt_row` of kernel 4 on the packed choices `packed`."""
+    return bt_row(
+        lambda G, st: vomb._bt_launch(*packed, c, segments=G, stats=st),
+        lambda G: vomb.ovn_bt_design(labels.shape[1], c, G), labels,
+        labels.shape[1], ms, reps)
 
 
 def ovn_mc_design(vomb, es_win, d_win, sil, c, ms, reps):
@@ -844,7 +998,7 @@ def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
           f"kernel 11 differs from its plain version at N={c.N}")
     bt = lambda: vomb.ovn_backtrace_mb(*got, c)               # noqa: E731
     bt()
-    bt_ms, labels = cuda_ms(bt, reps=bt_reps)
+    bt_ms, labels, bt_each = cuda_ms_launches(bt, reps=bt_reps)
     bt_plain_ms, plain_labels = cuda_ms(
         lambda: vomb.ovn_backtrace_mb_plain(*plain, c), reps=1)
     bt_err = max_abs_err([(labels[:P], plain_labels)])
@@ -870,7 +1024,10 @@ def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
                          "bound_bytes_ms": ovn_bt_bytes(labels, xT, c.Km1,
                                                         c.N)
                          / HBM_BYTES_PER_S * 1e3,
-                         "max_abs_err": bt_err, "match": True}}
+                         "max_abs_err": bt_err, "match": True,
+                         "launch_ms": bt_each,
+                         **ovn_bt_row(vomb, got, labels, c, bt_ms,
+                                         bt_reps)}}
     row["forward"]["bound_ms"], row["forward"]["bound_by"] = bound_of(
         row["forward"])
     return row
@@ -979,7 +1136,7 @@ def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
         es_w, d_w, sil_w, c11 = mc_windows(
             tab6 if n_m == 3 else MCTables(mu6[:, :2], sg6), L_w)
         mc_rows[f"n{n_m}"] = ovn_mc_kernels(vomb, es_w, d_w, sil_w, c11,
-                                            fwd_reps=3, bt_reps=10,
+                                            fwd_reps=3, bt_reps=BT_REPS,
                                             P=plain_windows)
         del es_w, d_w
     emit({"phase": "kernels_mc", "dtype": "float32", "card": card, "T": T6,
@@ -1738,8 +1895,8 @@ def with_pack_bytes(row, B, S):
     return row
 
 
-def drift_path(dev, card, cpu, temps, lp, sigma, T=1 << 21, Tg=1 << 19,
-               Lg=4096, P16=4, P17=PLAIN_WINDOWS):
+def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
+               Tg=1 << 19, Lg=4096, P16=4, P17=PLAIN_WINDOWS):
     """The drift-adaptive path at full width: bench.py's N=2, K=60,
     sigma=0.3 topology on a drifting recording (create_drifting_signal,
     T=2^21, template scale 1.0 -> 2.0, default_rng(1234)).
@@ -1751,6 +1908,7 @@ def drift_path(dev, card, cpu, temps, lp, sigma, T=1 << 21, Tg=1 << 19,
     labels against decode_tracked through the plain versions in float64
     (on the CPU, in the worker `cpu`, while the card runs the rest);
     kernel 16 against its plain version on P16 windows at full width;
+    kernel 2 after it, and `tiles` (kernel2_tiles_start) checked;
     kernels 17-18 against theirs on P17 windows at T, L=Lg, and forced to
     every block shape there, then timed alone at T=Tg; then the
     --confidence --qc composition (model_posteriors through kernels 17-18,
@@ -1843,8 +2001,27 @@ def drift_path(dev, card, cpu, temps, lp, sigma, T=1 << 21, Tg=1 << 19,
                               "ov2_forward_mb_tracked", y_win, sil, c16,
                               shape=shape))}
     row16["bound_ms"], row16["bound_by"] = bound_of(row16)
-    del y_win, f16, r16, pf, pr
-    secs["kernel16"] = time.perf_counter() - t_part
+    # kernel 2 on kernel 16's output, every design forced; its plain
+    # version on the same P16 windows on the CPU, in the worker (submitted
+    # after the timed launches, so that handing the worker its inputs does
+    # not stall them)
+    run2 = lambda: vmb.ov2_backtrace_mb(f16, r16, x16, K - 1)  # noqa
+    run2()
+    k2_ms, lab2, k2_each = cuda_ms_launches(run2, reps=BT_REPS)
+    k2_bytes, _ = ov2_bt_bytes(lab2, x16, f16, K - 1)
+    row2 = {"ms": k2_ms, "launch_ms": k2_each, "plain_windows": P16,
+            "plain_device": "cpu",
+            "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            **bt_row(lambda G, st: vmb._bt_launch(
+                f16, r16, x16, K - 1, segments=G, stats=st),
+                lambda G: vmb.ov2_bt_design(W, K - 1, G), lab2, W, k2_ms,
+                reps=BT_REPS)}
+    bt2_plain = cpu.submit(cpu_ov2_backtrace,
+                           *(t[sub_d].cpu() for t in (f16, r16, x16)), K - 1)
+    lab2_sub = lab2[sub_d].cpu()
+    del y_win, f16, r16, x16, pf, pr, lab2
+    secs["kernels16_2"] = time.perf_counter() - t_part
 
     # ---- kernels 17-18 at model_posteriors' T=2^21 (512 windows, two CTAs
     # an SM) vs their plain versions on the first P17 windows and forced to
@@ -1935,7 +2112,12 @@ def drift_path(dev, card, cpu, temps, lp, sigma, T=1 << 21, Tg=1 << 19,
     secs["posteriors_and_f64_piecewise"] = time.perf_counter() - t_part
     t = time.perf_counter()
     labels64, ll64, twin_s = twin.result()
-    secs["f64_twin_wait"] = time.perf_counter() - t
+    plab2, row2["plain_seconds"] = bt2_plain.result()
+    row_tiles = kernel2_tiles_check(tiles)
+    secs["cpu_worker_wait"] = time.perf_counter() - t
+    row2["max_abs_err"] = max_abs_err([(lab2_sub, plab2)])
+    check(torch.equal(lab2_sub, plab2),
+          "kernel 2 differs from its plain version on kernel 16's output")
     agree = float((m.ml_seq == labels64).mean())
     emit({"phase": "drift_path", "N": 2, "K": K, "S": S, "T": T,
           "chunk": tr.chunk, "forget": tr.forget, "B": B, "W": W,
@@ -1952,7 +2134,7 @@ def drift_path(dev, card, cpu, temps, lp, sigma, T=1 << 21, Tg=1 << 19,
           "agreement_vs_f64": agree, "ll": m.ll, "ll_f64": ll64,
           "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
                                    float(np.abs(tr.mu[-1]).max())],
-          "kernel16": row16,
+          "kernel16": row16, "kernel2": row2, "kernel2_tiles": row_tiles,
           "kernels17_18": {"T": Tg, **rows17["t19"]},
           "kernels17_18_512": rows17["w512"],
           # model_posteriors launches the forward twice, the backward once
@@ -2303,7 +2485,7 @@ def main():
           and torch.equal(xT, px), "kernel 1 differs from its plain version")
     bt = lambda: vmb.ov2_backtrace_mb(pf, pr, px, c.Km1)     # noqa: E731
     bt()
-    bt_ms, labels = cuda_ms(bt, reps=20)
+    bt_ms, labels, bt_each = cuda_ms_launches(bt, reps=BT_REPS)
     bt_err = max_abs_err([(labels, plain_labels)])
     check(torch.equal(labels, plain_labels),
           "kernel 2 differs from its plain version")
@@ -2317,10 +2499,7 @@ def main():
                  + rings.numel() + B * 4)
     fwd_bound_ops = fwd_ops(B, W, Km1) / FP32_OPS_PER_S * 1e3
     fwd_bound_bytes = fwd_bytes / HBM_BYTES_PER_S * 1e3
-    lab = labels[:, 1:].long()
-    ring_reads = int((((lab >= 2) & (lab <= Km1))
-                      | ((lab >= Km1 + 2) & (lab <= 2 * Km1))).sum())
-    bt_bytes = B * 4 + flags.numel() + ring_reads + labels.numel() * 2
+    bt_bytes, ring_reads = ov2_bt_bytes(labels, px, flags, Km1)
     bt_bound = bt_bytes / HBM_BYTES_PER_S * 1e3
     emit({"phase": "kernels", "B": B, "W": W, "K": K, "dtype": "float32",
           "ov2_forward_mb": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
@@ -2335,17 +2514,24 @@ def main():
           "ov2_backtrace_mb": {"ms": bt_ms, "plain_ms": bt_plain_ms,
                                "bound_bytes_ms": bt_bound,
                                "ring_bytes_read": ring_reads,
-                               "match": True}})
+                               "match": True, "launch_ms": bt_each,
+                               **bt_row(
+                                   lambda G, st: vmb._bt_launch(
+                                       pf, pr, px, Km1, segments=G,
+                                       stats=st),
+                                   lambda G: vmb.ov2_bt_design(W, Km1, G),
+                                   labels, W, bt_ms, reps=BT_REPS)}})
     r1 = kernels_ov2_r1(vmb, y_win[:16].contiguous(), lp, temps, sigma,
                         labels[:16], card)
     del flags, rings, xT, pf, pr, px, labels, plain_labels, y_win
+    tiles = kernel2_tiles_start(vmb, cpu, y, c)
 
     # ---- kernels 3-4 vs plain versions: N=3 at its main path's shapes,
     # N=4 at 32 windows of the same width -------------------------------
     ovn3 = ovn_kernels(vomb, y3_win, sil3, c3, ovn3_plain, fwd_reps=3,
-                       bt_reps=10)
+                       bt_reps=BT_REPS)
     ovn4 = ovn_kernels(vomb, y4_win, sil4, c4, ovn4_plain, fwd_reps=2,
-                       bt_reps=5)
+                       bt_reps=BT_REPS)
     del y3_win, y4_win, ovn3_plain, ovn4_plain
     emit({"phase": "kernels_ovn", "dtype": "float32", "card": card,
           "n3": ovn3, "n4": ovn4})
@@ -2858,7 +3044,7 @@ def main():
         (gamma_mb.gamma_fwd_mb, gamma_mb.gamma_bwd_mb), card,
         nov_ms["path"], {"kernels7_8_512": nov_ms})
 
-    drift = drift_path(dev, card, cpu, temps, lp, sigma)
+    drift = drift_path(dev, card, cpu, temps, lp, sigma, tiles)
     mc = mc_phases(dev, card)
     mcp = mc_posterior_phases(dev, card, mc["config6"])
     cli_path(dev, card, cpu, (tm, y, decoded_n2, temps), mc["config6"],

@@ -1,114 +1,101 @@
 // Backtrace of the N=2 pairwise-overlap Viterbi over a batch of windows
 // (kernel 2 of the decode path): a per-window pointer chase over the packed
-// choices that ov2_forward_mb wrote.
+// choices that ov2_forward_mb (kernels 1 and 16) wrote, on the chase
+// machine of csrc/bt_chase.cuh with the N=2 step decoder below.
 //
 // Replaces: hmmspikesorter_tpu/ops/pallas_viterbi_mb.py
 // `_make_backtrace_kernel` (launched by `_backtrace_mb_pallas`). The
 // decision tree mirrors that kernel's and ring_viterbi_ov2's `back`.
 //
 // Inputs: flags (B, W) u8, rings (B, W, K-1) u8, xT (B,) i32.
-// Output: labels (B, W) i16 (S <= 32767 whenever K-1 <= 64).
+// Output: labels (B, W) i16 (S <= 32767 whenever K-1 <= 64); optionally
+//         (B, 2) i32 statistics: fix-up passes, re-chased steps.
 //
 // What bounds it on an H100: latency, not bytes. The chase needs about two
-// bytes per step in and writes two, ~4 bytes per window step in all, but
-// step t-1 depends on the label at step t: W dependent reads per window.
-// Read straight from HBM, that is W global-load latencies per window.
-//
-// Design: one CTA per window. The CTA stages a chunk of kChunk steps of
-// flags and ring bytes into shared memory with coalesced loads from all its
-// threads; one thread then chases through the chunk in shared memory
-// (a dependent shared-memory read per step instead of a global one) and
-// the CTA writes the chunk's labels back coalesced. Chunks run from the
-// window's end to its start; the label crossing a chunk edge stays in the
-// chasing thread's register.
+// bytes a step in and writes two, but step t-1 depends on the label at
+// step t. Staging a step's K bytes in shared memory (the first port) moves
+// ~133 MB at 256 windows of 8672; the segment design reads one 32-byte
+// sector a step (the flag stream's lines serve many silent steps) and
+// spreads a window's W dependent steps over G lanes, so what is left
+// is the load latency of W/G steps plus the fix-up passes' re-chases.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "bt_chase.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 256;
+// The N=2 step decoder. Streams: 0 flags (bp_sil | b0_on << 2 |
+// b1_on << 3), 1 rings (K-1: bit 0 neuron 0's, bit 1 neuron 1's choice).
+struct Ov2Policy : bt::Flat {
+  struct Params {
+    const uint8_t* flags;
+    const uint8_t* rings;
+    int Km1;
+  };
 
-// the state at t-1 given the state x at t and step t's packed choices
-__device__ __forceinline__ int prev_state(int x, int f, const uint8_t* r,
-                                          int Km1) {
-  const int SGL1 = 1 + Km1;
-  const int PAIR = 1 + 2 * Km1;
-  if (x == 0) {
-    const int bp = f & 3;
-    return bp == 0 ? 0 : bp == 1 ? Km1 : bp == 2 ? 2 * Km1
-                                                 : PAIR + Km1 * Km1 - 1;
+  static __host__ __device__ int table_ints_padded(const Params&) {
+    return 0;
   }
-  if (x < SGL1) {                     // neuron 0 at slot j0
-    const int j0 = x - 1;
-    if (j0 == 0) return ((f >> 2) & 1) ? 2 * Km1 : 0;
-    return (r[j0] & 1) ? PAIR + (j0 - 1) * Km1 + (Km1 - 1) : x - 1;
+  __device__ void init(const Params& p, int*) { Flat::init(2, p.Km1); }
+  __device__ bt::Rows rows(const Params& p, size_t b, int W) const {
+    bt::Rows r;
+    r.w[0] = 1;
+    r.w[1] = p.Km1;
+    r.w[2] = 0;
+    r.p[0] = p.flags + b * W;
+    r.p[1] = p.rings + b * W * p.Km1;
+    r.p[2] = nullptr;
+    return r;
   }
-  if (x < PAIR) {                     // neuron 1 at slot j1
-    const int j1 = x - SGL1;
-    if (j1 == 0) return ((f >> 3) & 1) ? Km1 : 0;
-    return ((r[j1] >> 1) & 1) ? PAIR + (Km1 - 1) * Km1 + (j1 - 1) : x - 1;
+
+  // the choice byte state s needs at step t, or none (a pair cell)
+  __device__ __forceinline__ const uint8_t* where(const bt::State& s,
+                                                  const bt::Rows& r,
+                                                  int t) const {
+    if (s.kind == 0 || (s.kind == 1 && s.a == 0))
+      return r.p[0] + static_cast<size_t>(t) * r.w[0];
+    if (s.kind == 1)
+      return r.p[1] + static_cast<size_t>(t) * r.w[1] + s.a;
+    return nullptr;
   }
-  const int jp = x - PAIR;            // pair cell (a, q)
-  const int a = jp / Km1;
-  const int q = jp - a * Km1;
-  if (a == 0 && q == 0) return 0;
-  if (q == 0) return a;               // single 0 at slot a-1
-  if (a == 0) return SGL1 + q - 1;    // single 1 at slot q-1
-  return x - Km1 - 1;                 // diagonal
-}
-
-__global__ void __launch_bounds__(kThreads)
-ov2_backtrace_kernel(const uint8_t* __restrict__ flags,
-                     const uint8_t* __restrict__ rings,
-                     const int32_t* __restrict__ xT, int W, int Km1,
-                     int16_t* __restrict__ labels) {
-  extern __shared__ unsigned char sm[];
-  int16_t* l_s = reinterpret_cast<int16_t*>(sm);           // kChunk labels
-  uint8_t* f_s = sm + kChunk * sizeof(int16_t);            // kChunk flags
-  uint8_t* r_s = f_s + kChunk;                             // kChunk * Km1
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const uint8_t* fb = flags + static_cast<size_t>(b) * W;
-  const uint8_t* rb = rings + static_cast<size_t>(b) * W * Km1;
-  int16_t* lb = labels + static_cast<size_t>(b) * W;
-
-  int x = xT[b];                      // live in thread 0 only
-  for (int t1 = W; t1 > 0; t1 -= kChunk) {
-    const int t0 = t1 > kChunk ? t1 - kChunk : 0;
-    const int n = t1 - t0;
-    for (int i = tid; i < n; i += blockDim.x) f_s[i] = fb[t0 + i];
-    for (int i = tid; i < n * Km1; i += blockDim.x)
-      r_s[i] = rb[static_cast<size_t>(t0) * Km1 + i];
-    __syncthreads();
-    if (tid == 0) {
-      for (int t = t1 - 1; t >= t0; --t) {
-        l_s[t - t0] = static_cast<int16_t>(x);
-        if (t > 0) x = prev_state(x, f_s[t - t0], r_s + (t - t0) * Km1, Km1);
-      }
+  // the state at t-1 given s at t and the byte `where` named (v)
+  __device__ __forceinline__ bt::State next(const bt::State& s, int v) const {
+    const int e = Km1 - 1;
+    if (s.kind == 0) {
+      const int bp = v & 3;
+      return bp == 0 ? bt::silent()
+           : bp == 1 ? bt::single(0, e)
+           : bp == 2 ? bt::single(1, e)
+                     : bt::pair(0, e, e);
     }
-    __syncthreads();
-    for (int i = tid; i < n; i += blockDim.x) lb[t0 + i] = l_s[i];
-    __syncthreads();                  // l_s, f_s, r_s are reused next chunk
+    if (s.kind == 1) {
+      if (s.a == 0)                   // onset: the other neuron's ring end
+        return ((v >> (2 + s.m)) & 1) ? bt::single(1 - s.m, e) : bt::silent();
+      if (!((v >> s.m) & 1)) return bt::single(s.m, s.a - 1);
+      return s.m == 0 ? bt::pair(0, s.a - 1, e) : bt::pair(0, e, s.a - 1);
+    }
+    if (s.a == 0 && s.b == 0) return bt::silent();
+    if (s.b == 0) return bt::single(0, s.a - 1);
+    if (s.a == 0) return bt::single(1, s.b - 1);
+    return bt::pair(0, s.a - 1, s.b - 1);                     // diagonal
   }
-}
+};
 
 }  // namespace
 
+// segments: the lanes a window (ops/bt_segments.bt_launch_plan); stats:
+// (B, 2) int32, zeroed by the caller, or null.
 extern "C" int ov2_backtrace_mb(const uint8_t* flags, const uint8_t* rings,
                                 const int32_t* xT, int B, int W, int Km1,
-                                int16_t* labels, void* stream) {
-  if (B <= 0 || W <= 0) return 0;
-  const int smem = kChunk * static_cast<int>(sizeof(int16_t)) + kChunk +
-                   kChunk * Km1;
-  cudaError_t err = cudaFuncSetAttribute(
-      ov2_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ov2_backtrace_kernel<<<B, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      flags, rings, xT, W, Km1, labels);
-  return static_cast<int>(cudaGetLastError());
+                                int16_t* labels, int segments,
+                                int32_t* stats, void* stream) {
+  if (Km1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bt::launch<Ov2Policy>({flags, rings, Km1}, xT, B, W, segments,
+                               labels, stats,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// out: {threads, shared bytes, tile steps, resident CTAs an SM, registers,
+// spill bytes} of the design for windows of W steps.
+extern "C" int ov2_backtrace_attrs(int W, int Km1, int segments, int* out) {
+  return bt::attrs<Ov2Policy>({nullptr, nullptr, Km1}, W, segments, out);
 }

@@ -428,18 +428,14 @@ def ovn_forward(y, sil, m: OvnModel):
     return flags, rings, rowcol, torch.argmax(v, dim=1).to(torch.int32)
 
 
-def ovn_backtrace(flags, rings, rowcol, xT, tab: OvnTables):
-    """Pointer chase over the packed choices -> (B, W) labels, int16 when
-    the state space fits (the JAX `_ovn_core`'s `back`)."""
-    B, W, _ = flags.shape
-    dev = flags.device
+def ovn_back_step(x, f, r, rc, tab: OvnTables):
+    """One step of the pointer chase: the (R,) states at t-1 given the
+    (R,) states x at t and step t's choices f (R, 1+N+P), r (R, N, K-1),
+    rc (R, 2P, K-1), all long (the JAX `_ovn_core`'s `back`)."""
     N, K1, P = tab.N, tab.Km1, tab.P
     G2 = K1 * K1
     PB = tab.PB
-    labels = torch.empty((B, W), dtype=labels_dtype(tab.S), device=dev)
-    x = xT.long()
-    labels[:, W - 1] = x
-    rows = torch.arange(B, device=dev)
+    rows = torch.arange(x.shape[0], device=x.device)
 
     def handback(q, is_i, pos):
         """Source cell of a pair q whose staying member is at pos."""
@@ -447,44 +443,53 @@ def ovn_backtrace(flags, rings, rowcol, xT, tab: OvnTables):
         return torch.where(is_i, base + pos * K1 + (K1 - 1),
                            base + (K1 - 1) * K1 + pos)
 
+    from_sil = tab.src[f[:, 0]]
+    # single block: neuron n at slot k (clamped where x is elsewhere)
+    n = torch.div(x - 1, K1, rounding_mode="floor").clamp(0, N - 1)
+    k = (x - 1 - n * K1).clamp(0, K1 - 1)
+    from_on = tab.src[f[rows, 1 + n]]
+    rf = r[rows, n, k]
+    cr = (rf - 1).clamp(min=0)
+    from_ring = torch.where(
+        rf == 0, x - 1,
+        handback(tab.ring_q[n, cr], tab.ring_i[n, cr], k - 1))
+    from_sgl = torch.where(k == 0, from_on, from_ring)
+    # pair block: pair q at grid (a, b)
+    xp = (x - PB).clamp(min=0)
+    q = torch.div(xp, G2, rounding_mode="floor").clamp(max=P - 1)
+    g = xp - q * G2
+    a = torch.div(g, K1, rounding_mode="floor").clamp(max=K1 - 1)
+    b = g - a * K1
+    from_corner = tab.src[f[rows, 1 + N + q]]
+
+    def edge(flag, pos, adv, src_q, src_i):
+        if src_q.shape[1] == 0:                  # N = 2: no third member
+            return 1 + adv[q] * K1 + (pos - 1)
+        cs = (flag - 1).clamp(min=0)
+        return torch.where(flag == 0, 1 + adv[q] * K1 + (pos - 1),
+                           handback(src_q[q, cs], src_i[q, cs], pos - 1))
+
+    from_row = edge(rc[rows, q, b], b, tab.pj, tab.row_q, tab.row_i)
+    from_col = edge(rc[rows, P + q, a], a, tab.pi, tab.col_q, tab.col_i)
+    from_pair = torch.where(
+        (a == 0) & (b == 0), from_corner,
+        torch.where(a == 0, from_row,
+                    torch.where(b == 0, from_col, x - K1 - 1)))
+    return torch.where(x == 0, from_sil,
+                       torch.where(x < PB, from_sgl, from_pair))
+
+
+def ovn_backtrace(flags, rings, rowcol, xT, tab: OvnTables):
+    """Pointer chase over the packed choices -> (B, W) labels, int16 when
+    the state space fits (the JAX `_ovn_core`'s `back`)."""
+    B, W, _ = flags.shape
+    labels = torch.empty((B, W), dtype=labels_dtype(tab.S),
+                         device=flags.device)
+    x = xT.long()
+    labels[:, W - 1] = x
     for t in range(W - 1, 0, -1):
-        f = flags[:, t].long()
-        r = rings[:, t].long()
-        rc = rowcol[:, t].long()
-        from_sil = tab.src[f[:, 0]]
-        # single block: neuron n at slot k (clamped where x is elsewhere)
-        n = torch.div(x - 1, K1, rounding_mode="floor").clamp(0, N - 1)
-        k = (x - 1 - n * K1).clamp(0, K1 - 1)
-        from_on = tab.src[f[rows, 1 + n]]
-        rf = r[rows, n, k]
-        cr = (rf - 1).clamp(min=0)
-        from_ring = torch.where(
-            rf == 0, x - 1,
-            handback(tab.ring_q[n, cr], tab.ring_i[n, cr], k - 1))
-        from_sgl = torch.where(k == 0, from_on, from_ring)
-        # pair block: pair q at grid (a, b)
-        xp = (x - PB).clamp(min=0)
-        q = torch.div(xp, G2, rounding_mode="floor").clamp(max=P - 1)
-        g = xp - q * G2
-        a = torch.div(g, K1, rounding_mode="floor").clamp(max=K1 - 1)
-        b = g - a * K1
-        from_corner = tab.src[f[rows, 1 + N + q]]
-
-        def edge(flag, pos, adv, src_q, src_i):
-            if src_q.shape[1] == 0:                  # N = 2: no third member
-                return 1 + adv[q] * K1 + (pos - 1)
-            cs = (flag - 1).clamp(min=0)
-            return torch.where(flag == 0, 1 + adv[q] * K1 + (pos - 1),
-                               handback(src_q[q, cs], src_i[q, cs], pos - 1))
-
-        from_row = edge(rc[rows, q, b], b, tab.pj, tab.row_q, tab.row_i)
-        from_col = edge(rc[rows, P + q, a], a, tab.pi, tab.col_q, tab.col_i)
-        from_pair = torch.where(
-            (a == 0) & (b == 0), from_corner,
-            torch.where(a == 0, from_row,
-                        torch.where(b == 0, from_col, x - K1 - 1)))
-        x = torch.where(x == 0, from_sil,
-                        torch.where(x < PB, from_sgl, from_pair))
+        x = ovn_back_step(x, flags[:, t].long(), rings[:, t].long(),
+                          rowcol[:, t].long(), tab)
         labels[:, t - 1] = x
     return labels
 

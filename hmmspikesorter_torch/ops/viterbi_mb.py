@@ -12,10 +12,13 @@ Kernel 16, `ov2_forward_mb_tracked` (the same source), replaces
 (the drift-tracked decode, train/adaptive.py), its constants and means read
 from its own row. Kernel 2, `ov2_backtrace_mb` (csrc/viterbi_ov2_bt.cu),
 replaces `_make_backtrace_kernel` (launched by `_backtrace_mb_pallas`): the
-per-window pointer chase, which needs no model. The .cu files say what
-bounds each kernel on the card and what its design does about it; the
-forward's block shape and cell map, fixed per launch, are chosen here
-(`ov2_launch_plan`, `ov2_cell_map`) so that the CPU tests can hold them.
+per-window pointer chase, which needs no model, on the chase machine that
+it shares with kernel 4 (csrc/bt_chase.cuh; its segments a window from
+ops/bt_segments.bt_launch_plan; `_bt_launch` forces a count).
+The .cu files say what bounds each kernel on the card and what its design
+does about it; the forward's block shape and cell map, fixed per launch,
+are chosen here (`ov2_launch_plan`, `ov2_cell_map`) so that the CPU tests
+can hold them.
 
 Each kernel and its plain version produce the same packed outputs, so each
 can be checked on its own:
@@ -42,6 +45,7 @@ import torch
 from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
 from . import _build
+from . import bt_segments as bts
 
 KP = 64          # largest K-1 the kernels take (the JAX kernel's padded ring)
 CH = 32          # kernel 1's steps per sample chunk and per choice flush
@@ -312,47 +316,51 @@ def ov2_forward_state_plain(y_win, sil, c: Ov2Consts):
     return flags, rings, v
 
 
+def ov2_back_step(x, f, r, Km1: int):
+    """One step of the pointer chase: the (R,) states at t-1 given the
+    (R,) states x at t and step t's packed choices f (R,), r (R, K-1),
+    all long (decision tree of the JAX `_make_backtrace_kernel`)."""
+    SGL1, PAIR = 1 + Km1, 1 + 2 * Km1
+    end0, end1 = Km1, 2 * Km1
+    pair_end = PAIR + Km1 * Km1 - 1
+    top = max(Km1 - 1, 0)
+    bp_s = f & 3
+    from_sil = torch.where(
+        bp_s == 0, 0,
+        torch.where(bp_s == 1, end0,
+                    torch.where(bp_s == 2, end1, pair_end)))
+    j0 = x - 1
+    c0 = torch.gather(r, 1, j0.clamp(0, top)[:, None])[:, 0] & 1
+    from_s0 = torch.where(
+        j0 == 0, torch.where((f >> 2) & 1 == 0, 0, end1),
+        torch.where(c0 == 0, x - 1, PAIR + (j0 - 1) * Km1 + (Km1 - 1)))
+    j1 = x - SGL1
+    c1 = (torch.gather(r, 1, j1.clamp(0, top)[:, None])[:, 0] >> 1) & 1
+    from_s1 = torch.where(
+        j1 == 0, torch.where((f >> 3) & 1 == 0, 0, end0),
+        torch.where(c1 == 0, x - 1, PAIR + (Km1 - 1) * Km1 + (j1 - 1)))
+    jp = x - PAIR
+    a = torch.div(jp, Km1, rounding_mode="floor")
+    q = jp - a * Km1
+    from_p = torch.where(
+        (a == 0) & (q == 0), 0,
+        torch.where(q == 0, a,
+                    torch.where(a == 0, SGL1 + q - 1, x - Km1 - 1)))
+    return torch.where(x == 0, from_sil,
+                       torch.where(x < SGL1, from_s0,
+                                   torch.where(x < PAIR, from_s1, from_p)))
+
+
 def ov2_backtrace_mb_plain(flags, rings, xT, Km1: int):
     """Plain version of kernel 2: the pointer chase over packed choices
     (decision tree of the JAX `_make_backtrace_kernel`)."""
     B, W = flags.shape
-    dev = flags.device
-    SGL1, PAIR = 1 + Km1, 1 + 2 * Km1
-    end0, end1 = Km1, 2 * Km1
-    pair_end = PAIR + Km1 * Km1 - 1
-    labels = torch.empty((B, W), dtype=labels_dtype(PAIR + Km1 * Km1),
-                         device=dev)
+    labels = torch.empty((B, W), dtype=labels_dtype(1 + 2 * Km1 + Km1 * Km1),
+                         device=flags.device)
     x = xT.long()
     labels[:, W - 1] = x
-    top = max(Km1 - 1, 0)
     for t in range(W - 1, 0, -1):
-        f = flags[:, t].long()
-        r = rings[:, t].long()
-        bp_s = f & 3
-        from_sil = torch.where(
-            bp_s == 0, 0,
-            torch.where(bp_s == 1, end0,
-                        torch.where(bp_s == 2, end1, pair_end)))
-        j0 = x - 1
-        c0 = torch.gather(r, 1, j0.clamp(0, top)[:, None])[:, 0] & 1
-        from_s0 = torch.where(
-            j0 == 0, torch.where((f >> 2) & 1 == 0, 0, end1),
-            torch.where(c0 == 0, x - 1, PAIR + (j0 - 1) * Km1 + (Km1 - 1)))
-        j1 = x - SGL1
-        c1 = (torch.gather(r, 1, j1.clamp(0, top)[:, None])[:, 0] >> 1) & 1
-        from_s1 = torch.where(
-            j1 == 0, torch.where((f >> 3) & 1 == 0, 0, end0),
-            torch.where(c1 == 0, x - 1, PAIR + (Km1 - 1) * Km1 + (j1 - 1)))
-        jp = x - PAIR
-        a = torch.div(jp, Km1, rounding_mode="floor")
-        q = jp - a * Km1
-        from_p = torch.where(
-            (a == 0) & (q == 0), 0,
-            torch.where(q == 0, a,
-                        torch.where(a == 0, SGL1 + q - 1, x - Km1 - 1)))
-        x = torch.where(x == 0, from_sil,
-                        torch.where(x < SGL1, from_s0,
-                                    torch.where(x < PAIR, from_s1, from_p)))
+        x = ov2_back_step(x, flags[:, t].long(), rings[:, t].long(), Km1)
         labels[:, t - 1] = x
     return labels
 
@@ -485,11 +493,31 @@ def ov2_forward_mb_tracked(y_win, sil, c: Ov2Consts):
 ov2_forward_mb_tracked.launches = 0
 
 
-def ov2_backtrace_mb(flags, rings, xT, Km1: int):
-    """Kernel 2: packed choices -> (B, W) labels. CPU tensors take
-    `ov2_backtrace_mb_plain`."""
-    if flags.device.type == "cpu":
-        return ov2_backtrace_mb_plain(flags, rings, xT, Km1)
+def bt_design(lib: str, fn: str, args, segments: int) -> dict:
+    """What the card makes of a backtrace design (csrc/bt_chase.cuh, the
+    `*_backtrace_attrs` entry `fn` of `lib` given its leading args): threads,
+    dynamic shared bytes, tile steps, resident CTAs an SM, registers and
+    spill bytes a thread."""
+    f = _lib(lib, fn, [_I] * (len(args) + 1) + [_P])
+    out = (ctypes.c_int * 6)()
+    err = f(*args, segments, out)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+    keys = ("threads", "dynamic_smem_bytes", "tile_steps",
+            "resident_ctas_per_sm", "registers", "local_bytes")
+    return {"segments": segments, **dict(zip(keys, out))}
+
+
+def ov2_bt_design(W: int, Km1: int, segments: int) -> dict:
+    """`bt_design` of kernel 2 for windows of W steps."""
+    return bt_design("viterbi_ov2_bt", "ov2_backtrace_attrs", (W, Km1),
+                     segments)
+
+
+def _bt_launch(flags, rings, xT, Km1: int, segments=None, stats=False):
+    """Kernel 2 on CUDA tensors: (B, W) int16 labels with the segments of
+    `bt_segments.bt_launch_plan`, or forced `segments`; with `stats`, also
+    (B, 2) int32 [fix-up passes, re-chased steps] a window."""
     B, W = flags.shape
     if Km1 > KP:
         raise ValueError(f"ov2_backtrace_mb supports K-1 <= {KP}")
@@ -498,13 +526,25 @@ def ov2_backtrace_mb(flags, rings, xT, Km1: int):
     if rings.shape != (B, W, Km1) or xT.shape != (B,):
         raise ValueError("ov2_backtrace_mb: shape mismatch")
     dev = flags.device
+    G = bts.bt_launch_plan(B, W, sm_count(dev), segments)
     labels = torch.empty((B, W), dtype=torch.int16, device=dev)
+    st = torch.zeros((B, 2), dtype=torch.int32, device=dev) if stats else None
     fn = _lib("viterbi_ov2_bt", "ov2_backtrace_mb",
-              [_P, _P, _P, _I, _I, _I, _P, _P])
+              [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P])
     err = fn(flags.data_ptr(), rings.data_ptr(), xT.data_ptr(), B, W, Km1,
-             labels.data_ptr(), _stream(dev))
+             labels.data_ptr(), G,
+             None if st is None else st.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"ov2_backtrace_mb: CUDA error {err} at launch")
+    return (labels, st) if stats else labels
+
+
+def ov2_backtrace_mb(flags, rings, xT, Km1: int):
+    """Kernel 2: packed choices -> (B, W) labels. CPU tensors take
+    `ov2_backtrace_mb_plain`."""
+    if flags.device.type == "cpu":
+        return ov2_backtrace_mb_plain(flags, rings, xT, Km1)
+    labels = _bt_launch(flags, rings, xT, Km1)
     ov2_backtrace_mb.launches += 1
     return labels
 

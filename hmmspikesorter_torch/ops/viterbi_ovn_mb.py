@@ -11,7 +11,9 @@ Gaussian emission + max-plus forward on the flat state
 silent start, strict first-max tie-breaks, and the termination argmax.
 Kernel 4, `ovn_backtrace_mb` (csrc/viterbi_ovn_bt.cu), replaces
 `_make_bt_kernel` (launched by `_backtrace_native`): the per-window pointer
-chase. Both take any N >= 2 whose state fits one CTA's shared memory
+chase, on the chase machine it shares with kernel 2 (csrc/bt_chase.cuh; its
+segments a window from ops/bt_segments.bt_launch_plan; `_bt_launch` forces a
+count). Both take any N >= 2 whose state fits one CTA's shared memory
 (`ovn_kernel_ok`).
 Kernel 11, `ovn_mc_forward_mb` (csrc/viterbi_ovn_mc_fwd.cu), replaces the
 multi-channel front-end `_forward_native_mc`: the same dynamics (kernel
@@ -51,8 +53,10 @@ import dataclasses
 
 import torch
 
+from . import bt_segments as bts
 from . import ring_viterbi_ovn as rvo
-from .viterbi_mb import KP, _I, _P, _check_cuda, _lib, _stream, sm_count
+from .viterbi_mb import (KP, _I, _P, _check_cuda, _lib, _stream, bt_design,
+                         sm_count)
 
 # Shared memory one CTA may opt into on an H100 (227 KB), less what the
 # forward kernel declares statically (its argmax scratch).
@@ -654,11 +658,17 @@ def ovn_forward_mb(y_win, sil, c: OvnConsts):
 ovn_forward_mb.launches = 0
 
 
-def ovn_backtrace_mb(flags, rings, rowcol, xT, c: OvnConsts):
-    """Kernel 4: packed choices -> (B, W) int16 labels. CPU tensors take
-    `ovn_backtrace_mb_plain`."""
-    if flags.device.type == "cpu":
-        return ovn_backtrace_mb_plain(flags, rings, rowcol, xT, c)
+def ovn_bt_design(W: int, c: OvnConsts, segments: int) -> dict:
+    """`viterbi_mb.bt_design` of kernel 4 for windows of W steps."""
+    return bt_design("viterbi_ovn_bt", "ovn_backtrace_attrs",
+                     (W, c.N, c.Km1, c.ipack.numel()), segments)
+
+
+def _bt_launch(flags, rings, rowcol, xT, c: OvnConsts, segments=None,
+               stats=False):
+    """Kernel 4 on CUDA tensors: (B, W) int16 labels with the segments of
+    `bt_segments.bt_launch_plan`, or forced `segments`; with `stats`, also
+    (B, 2) int32 [fix-up passes, re-chased steps] a window."""
     _check_fits("ovn_backtrace_mb", c)
     B, W, F = flags.shape
     N, K1, P = c.N, c.Km1, c.P
@@ -669,14 +679,26 @@ def ovn_backtrace_mb(flags, rings, rowcol, xT, c: OvnConsts):
             or rowcol.shape != (B, W, 2 * P, K1) or xT.shape != (B,)):
         raise ValueError("ovn_backtrace_mb: shape mismatch")
     dev = flags.device
+    G = bts.bt_launch_plan(B, W, sm_count(dev), segments)
     labels = torch.empty((B, W), dtype=torch.int16, device=dev)
+    st = torch.zeros((B, 2), dtype=torch.int32, device=dev) if stats else None
     fn = _lib("viterbi_ovn_bt", "ovn_backtrace_mb",
-              [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P])
+              [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P])
     err = fn(flags.data_ptr(), rings.data_ptr(), rowcol.data_ptr(),
              xT.data_ptr(), B, W, N, K1, c.ipack.data_ptr(), c.ipack.numel(),
-             labels.data_ptr(), _stream(dev))
+             labels.data_ptr(), G,
+             None if st is None else st.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"ovn_backtrace_mb: CUDA error {err} at launch")
+    return (labels, st) if stats else labels
+
+
+def ovn_backtrace_mb(flags, rings, rowcol, xT, c: OvnConsts):
+    """Kernel 4: packed choices -> (B, W) int16 labels. CPU tensors take
+    `ovn_backtrace_mb_plain`."""
+    if flags.device.type == "cpu":
+        return ovn_backtrace_mb_plain(flags, rings, rowcol, xT, c)
+    labels = _bt_launch(flags, rings, rowcol, xT, c)
     ovn_backtrace_mb.launches += 1
     return labels
 

@@ -23,10 +23,13 @@ from hmmspikesorter_torch.core import posterior as tpost
 from hmmspikesorter_torch.data.synthetic import (create_signal_fast,
                                                  create_spike_template)
 from hmmspikesorter_torch.models import api
+from hmmspikesorter_torch.ops import bt_segments as bts
 from hmmspikesorter_torch.ops import fb_mb, gamma_mb, gamma_ov2
 from hmmspikesorter_torch.ops import viterbi_mb as vmb
+from hmmspikesorter_torch.ops import ring_viterbi_ovn as rvo
 from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
 from hmmspikesorter_torch.train import em as tem
+from tests.bt_schedule import emulate_segments
 
 pytestmark = pytest.mark.cuda
 
@@ -191,6 +194,205 @@ def test_auto_runs_ovn_kernels_for_n3(cuda):
                                        dtype=torch.float32)
     np.testing.assert_array_equal(m.ml_seq, plain.ml_seq)
     assert m.ll == plain.ll
+
+
+# ---------------------------------------------------------------------------
+# kernels 2 and 4 (csrc/bt_chase.cuh): every design, forced
+
+
+def _bt_signal(N, K, B, W, seed, every, end_pair):
+    """(B, W) windows of N templates; with `every`, two spikes of a pair
+    forced to overlap every `every` samples (the path rarely silent, the
+    segments' guesses wrong, several fix-up passes); with `end_pair`, two
+    overlapping spikes cut off by each row's end (a pair state at W-1)."""
+    temps = np.stack([create_spike_template(K, *PARAMS[n % 4])
+                      for n in range(N)], axis=1)
+    pp = np.resize([0.02, 0.015, 0.01, 0.01, 0.01], N)
+    rng = np.random.default_rng(seed)
+    y = np.stack([create_signal_fast(W, 0.3, pp, temps, rng=rng)[0]
+                  for _ in range(B)])
+    if every:
+        for b in range(B):
+            for s, t in enumerate(range(3 + b % 7, W - K - 3, every)):
+                i, j = s % N, (s + 1) % N
+                y[b, t:t + K - 1] += temps[1:, i]
+                y[b, t + 3:t + 3 + K - 1] += temps[1:, j]
+    if end_pair:
+        a = min(K - 1, 30)
+        y[:, W - a:] += temps[1:a + 1, 0]
+        y[:, W - 2 * a // 3:] += temps[1:2 * a // 3 + 1, 1]
+    return y, temps, np.log(pp)
+
+
+def _bt_every_design(run, prev, xT, plain, W):
+    """Every segment count of kernels 2 / 4 (bt_segments.SEGMENTS), forced:
+    labels exactly the plain version's; fix-up passes and re-chased steps a
+    window exactly the emulation's (tests/bt_schedule.py) on the same
+    choices (`prev`, `xT` and `plain` on the card or on the CPU), and at
+    least one pass a shared-memory tile."""
+    ref = plain.to(torch.int16).cpu()
+    tiles = -(-W // bts.TILE_MAX)
+    for G in bts.SEGMENTS:
+        labels, st = run(G, True)
+        _, passes, fixed = emulate_segments(prev, xT, W, G)
+        st = st.long().cpu()
+        assert torch.equal(labels.cpu(), ref), G
+        assert torch.equal(st[:, 0], passes.cpu()), G
+        assert torch.equal(st[:, 1], fixed.cpu()), G
+        assert bool((st[:, 0] >= tiles).all()), G
+
+
+# B = 1 and B above the SM count; W off every segment length, shorter than
+# one segment of the plan's and than one lane a step; overlaps forced
+# every ~K samples; windows ending in a pair state; one window of two
+# shared-memory tiles (TILE_MAX steps) with a ragged second, and of two
+# whole tiles and a third (the tile loop's hand-off and write-back)
+BT_CASES = [
+    (12, 3, 301, None, False),
+    (60, 1, 700, 61, True),
+    (60, 140, 97, None, True),
+    (65, 4, 1500, 30, False),
+    (5, 2, 20, None, False),
+    (60, 2, 8672, 200, True),   # the main path's window
+    (60, 1, 50021, 61, True),
+    (60, 1, 2 * bts.TILE_MAX + 1699, 127, True),
+]
+
+
+@pytest.mark.parametrize("K,B,W,every,end_pair", BT_CASES)
+def test_ov2_backtrace_every_design_equal_plain(cuda, K, B, W, every,
+                                               end_pair):
+    y, temps, lp = _bt_signal(2, K, B, W, K + W, every, end_pair)
+    c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+    sil = torch.arange(B, device=cuda) % 2 == 0
+    flags, rings, xT = vmb.ov2_forward_mb(
+        torch.as_tensor(y, dtype=torch.float32, device=cuda), sil, c)
+    # the plain version and the emulation on a CPU copy
+    f, r, x = flags.cpu(), rings.cpu(), xT.cpu()
+    plain = vmb.ov2_backtrace_mb_plain(f, r, x, c.Km1)
+    if end_pair:
+        assert bool((x >= 1 + 2 * c.Km1).any())
+
+    def prev(s, b, t):
+        return vmb.ov2_back_step(s, f[b, t].long(), r[b, t].long(), c.Km1)
+
+    n = vmb.ov2_backtrace_mb.launches
+    assert torch.equal(vmb.ov2_backtrace_mb(flags, rings, xT, c.Km1).cpu(),
+                       plain.to(torch.int16))
+    assert vmb.ov2_backtrace_mb.launches == n + 1
+    _bt_every_design(lambda G, st: vmb._bt_launch(flags, rings, xT, c.Km1,
+                                                   segments=G, stats=st),
+                     prev, x, plain, W)
+    assert vmb.ov2_backtrace_mb.launches == n + 1
+
+
+def test_ov2_backtrace_at_the_drift_shape_equal_plain(cuda):
+    """Kernel 2 after the drift decode's forward: 64 windows of 33,248
+    steps (chunk 32768, halo 240), every design."""
+    K, B, W = 60, 64, 33248
+    y, temps, lp = _problem(K, 1, B * W, seed=16)
+    c = vmb.ov2_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+    y_win = torch.as_tensor(y.reshape(B, W), dtype=torch.float32,
+                            device=cuda)
+    sil = torch.arange(B, device=cuda) == 0
+    flags, rings, xT = vmb.ov2_forward_mb(y_win, sil, c)
+    plain = vmb.ov2_backtrace_mb_plain(flags, rings, xT, c.Km1)
+
+    def prev(x, b, t):
+        return vmb.ov2_back_step(x, flags[b, t].long(), rings[b, t].long(),
+                                 c.Km1)
+
+    _bt_every_design(lambda G, st: vmb._bt_launch(flags, rings, xT, c.Km1,
+                                                   segments=G, stats=st),
+                     prev, xT, plain, W)
+
+
+def _ovn_bt_check(packed, c, ref, tab, plain, W):
+    """_bt_every_design of kernel 4 on `packed` (flags, rings, rowcol, xT
+    on the card), emulated on `ref`, the same choices (on the card or a
+    CPU copy) with their topology `tab`."""
+    flags, rings, rowcol, xT = ref
+
+    def prev(x, b, t):
+        return rvo.ovn_back_step(x, flags[b, t].long(), rings[b, t].long(),
+                                 rowcol[b, t].long(), tab)
+
+    _bt_every_design(lambda G, st: vomb._bt_launch(*packed, c, segments=G,
+                                                    stats=st),
+                     prev, xT, plain, W)
+
+
+@pytest.mark.parametrize("N,K,B,W,every,end_pair", [
+    (3, 12, 3, 301, None, False),
+    (3, 60, 1, 1301, 62, True),
+    (3, 60, 140, 97, 61, True),
+    (4, 60, 3, 1000, 61, True),
+    (4, 7, 1, 20, None, False),
+    (2, 60, 2, 600, 61, True),
+    (5, 30, 2, 300, 31, False),
+    (3, 60, 2, 8704, 300, True),  # the N=3 main path's window
+    (3, 60, 1, 50021, 61, True),  # past one shared-memory tile
+    (4, 60, 1, 55001, 97, True),
+])
+def test_ovn_backtrace_every_design_equal_plain(cuda, N, K, B, W, every,
+                                               end_pair):
+    y, temps, lp = _bt_signal(N, K, B, W, N * 100 + K + W, every, end_pair)
+    c = vomb.ovn_consts(lp, temps, 0.3, dtype=torch.float32, device=cuda)
+    sil = torch.arange(B, device=cuda) % 2 == 0
+    packed = vomb.ovn_forward_mb(
+        torch.as_tensor(y, dtype=torch.float32, device=cuda), sil, c)
+    # the plain version and the emulation on a CPU copy
+    ref = tuple(t.cpu() for t in packed)
+    c_cpu = vomb.ovn_consts(lp, temps, 0.3, dtype=torch.float32,
+                            device="cpu")
+    plain = vomb.ovn_backtrace_mb_plain(*ref, c_cpu)
+    if end_pair:
+        assert bool((ref[3] >= c.tab.PB).any())
+    n = vomb.ovn_backtrace_mb.launches
+    assert torch.equal(vomb.ovn_backtrace_mb(*packed, c).cpu(),
+                       plain.to(torch.int16))
+    assert vomb.ovn_backtrace_mb.launches == n + 1
+    _ovn_bt_check(packed, c, ref, c_cpu.tab, plain, W)
+    assert vomb.ovn_backtrace_mb.launches == n + 1
+
+
+@pytest.mark.parametrize("N,K,C,B,W", [(3, 60, 4, 3, 1200), (2, 60, 2, 2, 500),
+                                       (4, 60, 4, 2, 700)])
+def test_ovn_backtrace_on_kernel_11_every_design_equal_plain(cuda, N, K, C,
+                                                            B, W):
+    """Kernel 4 on kernel 11's output (the multichannel decode)."""
+    from hmmspikesorter_torch.core.emission_mc import MCTables, mc_streams
+    from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
+
+    yc, mu, sigmas, lp = _mc_windows(N, K, C, B, W, seed=N * 10 + C)
+    tables = MCTables(mu, sigmas)
+    es, d = mc_streams(torch.as_tensor(yc, dtype=torch.float32, device=cuda),
+                       tables)
+    c = vomb.ovn_mc_consts(lp, tables.c1, c2_stack(tables),
+                           dtype=torch.float32, device=cuda)
+    sil = torch.arange(B, device=cuda) == 0
+    packed = vomb.ovn_mc_forward_mb(es, d, sil, c)
+    plain = vomb.ovn_backtrace_mb_plain(*packed, c)
+    _ovn_bt_check(packed, c, packed, c.tab, plain, W)
+
+
+def test_backtrace_designs_the_card_takes(cuda):
+    """Each segment count's shared memory and block as the card reports
+    them, at the main paths' windows and past one tile."""
+    c = vomb.ovn_consts(np.log([0.003, 0.002, 0.001]), np.zeros((60, 3)),
+                        0.3, dtype=torch.float32, device=cuda)
+    for W in (20, 8704, 33248, 100000):
+        for G in bts.SEGMENTS:
+            for d in (vmb.ov2_bt_design(W, 59, G), vomb.ovn_bt_design(W, c,
+                                                                      G)):
+                assert d["resident_ctas_per_sm"] >= 1, (W, G, d)
+                assert d["threads"] == G
+                assert d["tile_steps"] == min(W, bts.TILE_MAX)
+    for bad in (1, 48):
+        with pytest.raises(ValueError):
+            vmb._bt_launch(*(torch.zeros(s, dtype=t, device=cuda) for s, t in
+                             (((2, 8), torch.uint8), ((2, 8, 4), torch.uint8),
+                              ((2,), torch.int32))), 4, segments=bad)
 
 
 def test_kernel_refuses_float64(cuda):
