@@ -217,6 +217,23 @@ since the previous phase line):
                that non-overlap multichannel decode, through kernels 14-15;
                their kernel time (from kernels_gamma_mc, the same 128
                windows) and its share of model_posteriors
+  events_path  the events transfer and the channel-batched decode on inputs
+               and dense labels the earlier phases checked (no plain
+               version runs): the N=2 one-shot events decode on main_path's
+               recording equals its dense labels bit for bit (every seam
+               ok, the events branch, kernels 1 and 2 once a call), timed
+               as bench.py:97-110 times it (one warm-up, 6 calls two deep,
+               the oldest call's blob copied to pinned memory behind its
+               decode and rebuilt on the host while the card works) beside
+               the dense one-shot timed the same way; the blob's and the
+               dense labels' bytes, the device-to-host seconds of each and
+               the host rebuild's; the streaming events decode; N=3 on
+               main_path_n3's recording (kernels 3 and 4), config 6 (kernels
+               11 and 4) and drift_path's track (kernels 16 and 2), each
+               equal to its dense labels; 4 channels x 2^19 samples of the
+               bench.py signal through fit_spiking_models_fast_batched (256
+               windows, one launch each of kernels 1 and 2), equal to each
+               channel's own decode, dense and events
   cli_path     the CLI's body on arrays (cli._sort_loaded, everything after
                the HDF5 loaders; the MAT file written with scipy.io.savemat
                under build/cli_path/ and read back): --engine fast
@@ -230,7 +247,11 @@ since the previous phase line):
                the float32 posteriors' error against a float64 run on the
                CPU);
                --adaptive --confidence --qc on drift_path's recording
-               (labels equal the library's); `seconds_by_part`
+               (labels equal the library's); --transfer events on the
+               production run's recording (the dense run's MAT dict);
+               --channels all --engine fast on 2 rows of 2^19 samples (one
+               launch each of kernels 1 and 2, the library decodes' labels
+               and ll); `seconds_by_part`
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
 run, and a spawned worker process computes three float64 references and
@@ -1336,7 +1357,7 @@ def mc_phases(dev, card, T6=1 << 19, L6=8192, H6=256, plain_windows=16,
 
     return {"fwd": mc_rows["n3"]["forward"], "one_launches": one6_launches,
             "em": emmc, "em_launches": em6_launches,
-            "config6": (yc6, truth6, mu6, sg6, lp6)}
+            "config6": (yc6, truth6, mu6, sg6, lp6), "decoded": one6}
 
 
 def mc_posterior_phases(dev, card, config6_, Lg=4096,
@@ -2180,6 +2201,267 @@ def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
             "post_launches": post_launches, "cli": (tm0, y, m)}
 
 
+def events_path(dev, card, sc, n3, mc6, drift, L=8192, H6=256, R=6,
+                Tb=1 << 19, Cb=4):
+    """The events transfer (core/events.py) and the channel-batched decode
+    on the card, on inputs and dense labels that earlier phases already
+    held to the plain versions and the float64 twin (no plain version runs
+    here):
+      - N=2 one-shot on the bench.py problem (main_path's recording, T=2^21,
+        L=8192): decode_events_overlap_save's labels equal main_path's dense
+        labels bit for bit (bench.py:94's assert), every seam ok, the events
+        branch taken, kernels 1 and 2 once a call; timed as bench.py:97-110
+        times it (one warm-up, then R calls two deep, the oldest call's
+        blob copied to pinned memory behind its decode and its labels
+        rebuilt on the host while the card works), and the dense one-shot
+        timed the same way; the blob's and the dense labels' bytes, the
+        device-to-host seconds of each and the host rebuild's;
+      - streaming: fit_spiking_model_fast(streaming=True, transfer="events")
+        gives the same labels;
+      - N=3 (main_path_n3's recording): the one-shot events labels equal the
+        dense ones, kernels 3 and 4 launched;
+      - multichannel (config 6): the one-shot events decode (kernels 11 and
+        4) equals main_path_mc's dense labels;
+      - tracked: drift_path's track decoded with transfer="events" (kernels
+        16 and 2) equals its dense tracked labels;
+      - batched: Cb channels of Tb samples of the bench.py signal (Cb*Tb/L
+        windows, main_path's B) through fit_spiking_models_fast_batched:
+        one launch each of kernels 1 and 2, labels and seam flags equal to
+        each channel's own fit_spiking_model_fast; the batched events labels
+        equal the batched dense ones.
+    Returns the per-channel library decodes of the first two channels for
+    cli_path."""
+    from hmmspikesorter_torch.core import events as tev
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.parallel.overlap_save import (
+        resolve_block_engine, ring_overlap_save)
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    f32 = torch.float32
+    tm, y, decoded = sc
+    K, N = tm.mu.shape
+    T = len(y)
+    H = max(4 * K, 64)
+    B = -(-T // L)
+    wr2 = (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb)
+    out, secs, t_part = {}, {}, time.perf_counter()
+
+    def branch(dense_model):
+        """The branch an events decode takes where the dense decode of the
+        same recording repaired no seam (events) or some (dense)."""
+        ev = dense_model.seams_repaired == 0
+        return {"events": int(ev), "dense": int(not ev)}
+
+    def counted(wrappers, fn):
+        for w in wrappers:
+            w.launches = 0
+        tev.BRANCHES.update(events=0, dense=0)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {w.__name__: w.launches for w in wrappers}, dict(
+            tev.BRANCHES)
+
+    # ---- N=2 one-shot on the bench problem ------------------------------
+    y_d = torch.as_tensor(y, dtype=f32, device=dev)
+    be = resolve_block_engine("auto", True, K, N, dev)
+    kw = dict(L=L, H=H, overlaps=True, device=dev, dtype=f32)
+    tev.decode_events_overlap_save(y_d, tm.lp, tm.mu, tm.sigma,
+                                   **kw)                   # warm-up
+    (on2, x2, ok2), l2, br2 = counted(wr2, lambda: (
+        tev.decode_events_overlap_save(y_d, tm.lp, tm.mu, tm.sigma, **kw)))
+    check(np.array_equal(x2, decoded.ml_seq),
+          "events_path: N=2 events labels differ from main_path's dense "
+          "labels")
+    check(ok2.all() and br2 == {"events": 1, "dense": 0},
+          f"events_path: N=2 took {br2}, seams ok {bool(ok2.all())}")
+    check(l2 == {"ov2_forward_mb": 1, "ov2_backtrace_mb": 1},
+          f"events_path: N=2 launches {l2}")
+
+    def decode_on_card(dense):
+        """The dense labels or the event blob of one call, on the card."""
+        if dense:
+            return ring_overlap_save(y_d, tm.lp, tm.mu, tm.sigma,
+                                     block_engine=be, **kw)[0]
+        return tev._ring_overlap_save_events_impl(
+            y_d, tm.lp, tm.mu, tm.sigma, block_engine=be, **kw)[0]
+
+    def run_async(dense, host):
+        """One call with its result's copy into the pinned buffer `host`
+        queued behind it; (host, event) without waiting."""
+        host.copy_(decode_on_card(dense), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def labels_of(item, dense):
+        host, done = item
+        done.synchronize()
+        if dense:
+            return host.numpy().astype(np.int32)
+        pk, cn, x0, ok = tev._parse_event_blob(host.numpy(), T=T, N=N, K=K,
+                                               B=B)
+        return tev.labels_from_onsets(tev.onsets_from_packed(pk, cn, K=K),
+                                      x0, T=T, N=N, K=K, overlaps=True)
+
+    def pipelined(dense):
+        """bench.py:97-110: R calls two deep, the oldest rebuilt while the
+        card works; three pinned buffers, allocated before the timed loop,
+        taken in turn. Returns (samples/s, launches, the last labels, host
+        seconds: enqueueing the calls, and waiting for and rebuilding the
+        labels)."""
+        res = decode_on_card(dense)                           # warm-up
+        ring = [torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+                for _ in range(3)]
+        check(np.array_equal(labels_of(run_async(dense, ring[0]), dense),
+                             decoded.ml_seq),
+              f"events_path: pipelined {'dense' if dense else 'events'} "
+              "labels differ")
+        del res
+        for w in wr2:
+            w.launches = 0
+        host = {"enqueue": 0.0, "wait_and_labels": 0.0}
+
+        def timed(part, fn, *a):
+            t = time.perf_counter()
+            res = fn(*a)
+            host[part] += time.perf_counter() - t
+            return res
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = [timed("enqueue", run_async, dense, ring[0]),
+             timed("enqueue", run_async, dense, ring[1])]
+        for i in range(2, R):
+            q.append(timed("enqueue", run_async, dense, ring[i % 3]))
+            timed("wait_and_labels", labels_of, q.pop(0), dense)
+        for item in q:
+            last = timed("wait_and_labels", labels_of, item, dense)
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wr2}
+        check(np.array_equal(last, decoded.ml_seq)
+              and all(v == R for v in launches.values()),
+              f"events_path: pipelined {'dense' if dense else 'events'}: "
+              f"labels differ or launches {launches}, expected {R}")
+        return R * T / wall, {"wall": wall, **host}
+
+    # in turns, events, dense, dense, events: two readings of each
+    turns = [pipelined(dense) for dense in (False, True, True, False)]
+    ev_runs, de_runs = [turns[0], turns[3]], [turns[1], turns[2]]
+    # the transfers apart: each copy after a synchronize, and the rebuild
+    blob, x_dense = tev._ring_overlap_save_events_impl(
+        y_d, tm.lp, tm.mu, tm.sigma, block_engine=be, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    blob_h = blob.cpu().numpy()
+    blob_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dense_h = x_dense.cpu().numpy()
+    dense_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pk, cn, x0, _ = tev._parse_event_blob(blob_h, T=T, N=N, K=K, B=B)
+    x_rb = tev.labels_from_onsets(tev.onsets_from_packed(pk, cn, K=K), x0,
+                                  T=T, N=N, K=K, overlaps=True)
+    rebuild_s = time.perf_counter() - t
+    check(np.array_equal(x_rb, dense_h), "events_path: rebuild differs")
+    out["n2"] = {"T": T, "L": L, "H": H, "B": B, "launches": l2,
+                 "branches": br2, "seams_ok": bool(ok2.all()),
+                 "onsets": [len(o) for o in on2],
+                 "pipelined_calls": R, "pipelined_order":
+                 "events, dense, dense, events",
+                 "events_samples_per_s": [r[0] for r in ev_runs],
+                 "dense_samples_per_s": [r[0] for r in de_runs],
+                 "events_host_seconds": [r[1] for r in ev_runs],
+                 "dense_host_seconds": [r[1] for r in de_runs],
+                 "blob_bytes": int(blob.numel()),
+                 "dense_bytes": int(x_dense.numel()
+                                    * x_dense.element_size()),
+                 "blob_d2h_seconds": blob_s, "dense_d2h_seconds": dense_s,
+                 "host_rebuild_seconds": rebuild_s}
+    del blob, x_dense, y_d
+    secs["n2_oneshot"] = time.perf_counter() - t_part
+
+    # ---- streaming with the event blob as each call's copy --------------
+    t_part = time.perf_counter()
+    st, l_st, br_st = counted(wr2, lambda: api.fit_spiking_model_fast(
+        tm, y, L=L, streaming=True, transfer="events"))
+    check(np.array_equal(st.ml_seq, decoded.ml_seq) and st.seam_ok.all(),
+          "events_path: streaming events labels differ")
+    check(all(l_st.values()), f"events_path: streaming launches {l_st}")
+    out["streaming"] = {"launches": l_st,
+                        "onsets": [len(o) for o in st.spike_onsets]}
+    secs["streaming"] = time.perf_counter() - t_part
+
+    # ---- N=3: main_path_n3's recording ---------------------------------
+    t_part = time.perf_counter()
+    tm3, y3, dec3, H3 = n3
+    wr3 = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+    m3, l3, br3 = counted(wr3, lambda: api.fit_spiking_model_fast(
+        tm3, y3, L=L, H=H3, transfer="events"))
+    check(np.array_equal(m3.ml_seq, dec3.ml_seq),
+          "events_path: N=3 events labels differ from the dense ones")
+    check(all(v == 1 for v in l3.values()) and br3 == branch(dec3),
+          f"events_path: N=3 launches {l3}, branches {br3}")
+    out["n3"] = {"T": len(y3), "launches": l3, "branches": br3}
+    secs["n3"] = time.perf_counter() - t_part
+
+    # ---- multichannel: config 6 (kernels 11 and 4) ----------------------
+    t_part = time.perf_counter()
+    (yc6, _, mu6, sg6, lp6), dec6 = mc6
+    tm6 = mcm.HMMTemplateModelMC(mu=mu6, sigmas=sg6, lp=lp6,
+                                 allow_overlaps=True)
+    wr11 = (vomb.ovn_mc_forward_mb, vomb.ovn_backtrace_mb)
+    m6, l6, br6 = counted(wr11, lambda: mcm.fit_spiking_model_mc_fast(
+        tm6, yc6, L=L, H=H6, transfer="events"))
+    check(np.array_equal(m6.ml_seq, dec6.ml_seq),
+          "events_path: MC events labels differ from main_path_mc's")
+    check(all(v == 1 for v in l6.values()) and br6 == branch(dec6),
+          f"events_path: MC launches {l6}, branches {br6}")
+    out["mc"] = {"T": len(yc6), "launches": l6, "branches": br6}
+    secs["mc"] = time.perf_counter() - t_part
+
+    # ---- tracked: drift_path's track (kernels 16 and 2) ----------------
+    t_part = time.perf_counter()
+    _, y_dr, dec_dr = drift
+    wr16 = (vmb.ov2_forward_mb_tracked, vmb.ov2_backtrace_mb)
+    md, ld, brd = counted(wr16, lambda: tad.decode_tracked(
+        dec_dr.track, y_dr, transfer="events"))
+    check(np.array_equal(md.ml_seq, dec_dr.ml_seq),
+          "events_path: tracked events labels differ from the dense ones")
+    check(all(v == 1 for v in ld.values()) and brd == branch(dec_dr),
+          f"events_path: tracked launches {ld}, branches {brd}")
+    out["tracked"] = {"T": len(y_dr), "launches": ld, "branches": brd}
+    secs["tracked"] = time.perf_counter() - t_part
+
+    # ---- batched: Cb channels of the bench signal -----------------------
+    t_part = time.perf_counter()
+    ys = np.asarray(y[:Cb * Tb]).reshape(Cb, Tb)
+    per = [api.fit_spiking_model_fast(tm, row, L=L) for row in ys]
+    mb, lb, _ = counted(wr2, lambda: api.fit_spiking_models_fast_batched(
+        tm, ys, L=L))
+    mbe, lbe, bre = counted(wr2, lambda: api.fit_spiking_models_fast_batched(
+        tm, ys, L=L, transfer="events"))
+    check(lb == lbe == {"ov2_forward_mb": 1, "ov2_backtrace_mb": 1},
+          f"events_path: batched launches {lb} {lbe}, expected one each")
+    check(all(np.array_equal(a.ml_seq, b.ml_seq)
+              and np.array_equal(a.seam_ok, b.seam_ok)
+              for a, b in zip(mb, per)),
+          "events_path: batched labels differ from the per-channel decodes")
+    check(all(np.array_equal(a.ml_seq, b.ml_seq) for a, b in zip(mbe, mb))
+          and bre["events"] == sum(m.seams_repaired == 0 for m in mb),
+          f"events_path: batched events differ from dense ({bre})")
+    out["batched"] = {"channels": Cb, "T": Tb, "windows": Cb * (Tb // L),
+                      "launches": lb, "events_launches": lbe,
+                      "branches": bre,
+                      "seams_ok": [bool(m.seam_ok.all()) for m in mb]}
+    secs["batched"] = time.perf_counter() - t_part
+    emit({"phase": "events_path", "card": card, "seconds_by_part": secs,
+          **out})
+    return ys[:2], per[:2]
+
+
 def dense_seams(y, temps, L, halfwidth):
     """Back-to-back spikes of the first two neurons, staggered by K//2,
     over [s - halfwidth, s + halfwidth) around every seam s = L, 2L, ...
@@ -2196,7 +2478,8 @@ def dense_seams(y, temps, L, halfwidth):
                 t += K
 
 
-def cli_path(dev, card, cpu, sc, config6_, drift, T_mc=1 << 14, L=8192):
+def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
+             L=8192):
     """The CLI's body on arrays (hmmspikesorter_torch.cli._sort_loaded, all
     of sort_data after the HDF5 loaders), writing the MAT file with
     scipy.io.savemat under build/cli_path/ and reading it back:
@@ -2215,7 +2498,13 @@ def cli_path(dev, card, cpu, sc, config6_, drift, T_mc=1 << 14, L=8192):
           on the CPU (in the worker `cpu`, beside (a') and (b));
       (c) --adaptive --confidence --qc on drift_path's drifting recording
           (T=2^21; kernels 5-6, 16 + 2 and 17-18); labels equal the
-          library's fit_spiking_model_adaptive decode."""
+          library's fit_spiking_model_adaptive decode;
+      (d) --engine fast --transfer events on (a)'s recording: the MAT
+          dict's mlseq, ll, waveforms, lp and sigma equal (a)'s;
+      (e) --channels all --engine fast on a 2-row recording (`rows2`: the
+          rows and their per-channel library decodes from events_path):
+          one launch each of kernels 1 and 2, mlseq and ll equal the
+          library decodes'."""
     import pathlib
 
     import scipy.io
@@ -2311,6 +2600,20 @@ def cli_path(dev, card, cpu, sc, config6_, drift, T_mc=1 << 14, L=8192):
          gamma_ov2.gamma_ov2_fwd_tracked, gamma_ov2.gamma_ov2_bwd_tracked))
     ref_d = unroll_mlseq(lib_d.ml_seq, tm_d.state_space.states) + 1
     secs["adaptive_cli"] = time.perf_counter() - t_part
+    # ---- (d) the events transfer, (e) the batched channels -------------
+    t_part = time.perf_counter()
+    out_e, wall_e, la_e = run(tm, y, "events",
+                              cli._options(engine="fast", transfer="events"),
+                              (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb))
+    secs["events_cli"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    ys2, lib2 = rows2
+    out_f, wall_f, la_f = run(tm, ys2, "channels_all",
+                              cli._options(engine="fast", channels="all"),
+                              (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb))
+    ref_f = np.stack([unroll_mlseq(m.ml_seq, tm.state_space.states) + 1
+                      for m in lib2])
+    secs["channels_all_cli"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
     lib_b = mcm.fit_spiking_model_mc_fast(tm6, yc_b, L=L)
     ref_b = unroll_mlseq(lib_b.ml_seq, tm6.state_space.states) + 1
@@ -2334,6 +2637,10 @@ def cli_path(dev, card, cpu, sc, config6_, drift, T_mc=1 << 14, L=8192):
                     "f64_twin_seconds": twin_s_s, "f64_twin_device": "cpu",
                     "agreement_vs_f64": float((out_s["mlseq"]
                                                == ref_s).mean())},
+          "events": {"T": len(y), "seconds": wall_e,
+                     "samples_per_s": len(y) / wall_e, "launches": la_e},
+          "channels_all": {"channels": len(ys2), "T": ys2.shape[1],
+                           "seconds": wall_f, "launches": la_f},
           "adaptive": {"T": len(y_d), "seconds": wall_d,
                        "samples_per_s": len(y_d) / wall_d,
                        "launches": la_d, "keys": sorted(out_d),
@@ -2362,8 +2669,19 @@ def cli_path(dev, card, cpu, sc, config6_, drift, T_mc=1 << 14, L=8192):
         check(conf_ok(out, out["qc"]["n_spikes"])
               and all(v == 0 for v in out["qc"]["isi_invariant_violations"]),
               f"cli_path {name}: confidence or qc malformed")
-    check(all(la_a.values()) and all(la_b.values()) and all(la_d.values()),
-          f"cli_path: a kernel did not run: {la_a} {la_b} {la_d}")
+    check(all(la_a.values()) and all(la_b.values()) and all(la_d.values())
+          and all(la_e.values()),
+          f"cli_path: a kernel did not run: {la_a} {la_b} {la_d} {la_e}")
+    check(set(out_e) == keys - {"confidence", "qc"}
+          and all(np.array_equal(out_e[k], out_a[k])
+                  for k in ("mlseq", "ll", "waveforms", "lp", "sigma")),
+          "cli_path events: the MAT dict differs from the dense run's")
+    check(np.array_equal(out_f["mlseq"], ref_f)
+          and np.array_equal(out_f["ll"], [m.ll for m in lib2]),
+          "cli_path channels_all: labels or ll differ from the library "
+          "decodes")
+    check(la_f == {"ov2_forward_mb": 1, "ov2_backtrace_mb": 1},
+          f"cli_path channels_all: launches {la_f}, expected one each")
     check(lib_s.seams_repaired > 0,
           f"cli_path: no seam was repaired ({lib_s.seams_repaired})")
     check(np.array_equal(out_s["mlseq"], ref_s),
@@ -2682,7 +3000,7 @@ def main():
         fwd_ms + bt_ms, H, {}, fwd_ms)
     # streaming in batches of 64 windows (two calls in flight), not one
     # batch padded to the default 256
-    one3_launches, _ = main_path(
+    one3_launches, decoded_n3 = main_path(
         "main_path_n3", tm3, y3, truth3,
         (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb),
         ovn3["forward"]["ms"] + ovn3["backtrace"]["ms"], H3,
@@ -3047,8 +3365,11 @@ def main():
     drift = drift_path(dev, card, cpu, temps, lp, sigma, tiles)
     mc = mc_phases(dev, card)
     mcp = mc_posterior_phases(dev, card, mc["config6"])
+    rows2 = events_path(dev, card, (tm, y, decoded_n2),
+                        (tm3, y3, decoded_n3, H3),
+                        (mc["config6"], mc["decoded"]), drift["cli"])
     cli_path(dev, card, cpu, (tm, y, decoded_n2, temps), mc["config6"],
-             drift["cli"])
+             drift["cli"], rows2)
     cpu.close()
 
     def gamma_entry(name, source, line, launches, row):

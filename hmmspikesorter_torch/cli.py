@@ -20,8 +20,11 @@ keeps it:
 * exit code 23 when input files don't exist (hmmsort.jl:110-113).
 
 Extensions, as in the JAX CLI: `--engine fast` (parallel overlap-save on
-the card), `--channels all` (every channel of a 2-D recording decoded
-independently), `--multichannel` (one spike train from all channels
+the card), `--transfer events` (the fast decodes copy the packed spike
+onsets to the host instead of the dense labels and rebuild the labels
+exactly there), `--channels all` (every channel of a 2-D recording decoded
+independently; with `--engine fast` every channel's windows in one batch),
+`--multichannel` (one spike train from all channels
 jointly), `--train` (learn the templates from the recording first;
 `--save-templates` exports them), `--confidence` and `--qc` (per-spike
 posterior confidence and per-unit quality control), `--adaptive` with
@@ -29,10 +32,8 @@ posterior confidence and per-unit quality control), `--adaptive` with
 through the recording by online EM, each chunk decoded and scored under its
 own; one channel or `--channels all`, train/adaptive.py).
 
-Not ported yet, and raising NotImplementedError: `--transfer events`
-(ROADMAP §1 item 3), `--channels all --engine fast` without `--train` or
-`--adaptive` (the batched decode, §1 item 4) and `--adaptive
---multichannel` (§1 item 5, the multichannel half).
+Not ported yet, and raising NotImplementedError: `--adaptive
+--multichannel` (ROADMAP §1 item 5, the multichannel half).
 
 `--device cuda` (the default) runs on the GPU and raises without one;
 `--device cpu` runs the plain PyTorch versions on the CPU in float64.
@@ -277,16 +278,6 @@ def _options(config=None, *, engine=None, chunksize=None, max_templates=None,
             "--adaptive --multichannel needs the multichannel drift tracking "
             "(track_drift_mc, fit_spiking_model_adaptive_mc), ROADMAP §1 "
             "item 5, not yet ported")
-    if o.transfer == "events" and (o.engine == "fast" or o.adaptive):
-        raise NotImplementedError(
-            "--transfer events needs the events-transfer decode "
-            "(core/events.py), ROADMAP §1 item 3, not yet ported")
-    if (o.channels == "all" and o.engine == "fast" and not train
-            and not o.adaptive):
-        raise NotImplementedError(
-            "--channels all --engine fast needs the batched decode "
-            "(models/api.fit_spiking_models_fast_batched), ROADMAP §1 item "
-            "4 (step 7), not yet ported; use --engine reference")
     return o
 
 
@@ -315,10 +306,10 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
 
     channels=1 (default) decodes channel 1 only — the reference contract
     (hmmsort.jl:66-78). channels="all" decodes every channel of a 2-D
-    recording against the shared templates, one after another (engine
-    "reference"; the batched fast decode is ROADMAP §1 item 4). The
-    output keeps the same keys with a leading channel axis: mlseq
-    (C, N, T) and ll (C,).
+    recording against the shared templates: one after another with engine
+    "reference", every channel's windows in one batch with engine "fast"
+    (models/api.fit_spiking_models_fast_batched). The output keeps the
+    same keys with a leading channel axis: mlseq (C, N, T) and ll (C,).
 
     multichannel=True (beyond reference) decodes ONE spike train from ALL
     channels jointly (models/multichannel): waveforms is (K, N, C) and
@@ -343,9 +334,9 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
     confidence (each spike scored under its chunk's parameters) and
     channels="all" (independent per-channel tracks,
     train/adaptive.track_drift_batched). With multichannel=True it raises
-    NotImplementedError (ROADMAP §1 item 5), as transfer="events" does
-    (item 3). A config.Config supplies defaults for anything not passed
-    explicitly.
+    NotImplementedError (ROADMAP §1 item 5). The config's decode.transfer
+    ("events": the sparse onset transfer) reaches every fast decode. A
+    config.Config supplies defaults for anything not passed explicitly.
     """
     from .utils.device import resolve_device
 
@@ -446,7 +437,8 @@ def _sort_loaded(tm, data, outputfile: str, o, *, dosave: bool = True,
             # the output entries are per-channel cells (object arrays)
             models = [
                 (fit_spiking_model_fast(m, row, streaming=True,
-                                        config=config, **kw)
+                                        transfer=o.transfer, config=config,
+                                        **kw)
                  if engine == "fast" else
                  fit_spiking_model(m, row, chunksize=o.chunksize,
                                    progress=progress, **kw))
@@ -489,6 +481,11 @@ def _sort_loaded(tm, data, outputfile: str, o, *, dosave: bool = True,
                                          forget=o.forget, **kw)
             models = [decode_tracked(trk, rows64[c], transfer=o.transfer,
                                      **kw) for c, trk in enumerate(tracks)]
+        elif engine == "fast":
+            from .models.api import fit_spiking_models_fast_batched
+
+            models = fit_spiking_models_fast_batched(
+                tm, data, transfer=o.transfer, config=config, **kw)
         else:
             models = [fit_spiking_model(tm, row, chunksize=o.chunksize,
                                         progress=progress, **kw)
@@ -507,6 +504,7 @@ def _sort_loaded(tm, data, outputfile: str, o, *, dosave: bool = True,
                 forget=o.forget, transfer=o.transfer, **kw)
         elif engine == "fast":
             model = fit_spiking_model_fast(tm, data, streaming=True,
+                                           transfer=o.transfer,
                                            config=config, **kw)
         else:
             model = fit_spiking_model(tm, data, chunksize=o.chunksize,
@@ -642,11 +640,13 @@ def main(argv=None) -> int:
                    help="'1' = channel 1 only (reference contract); "
                         "'all' = decode every channel of a 2-D recording "
                         "(output mlseq/ll gain a leading channel axis; "
-                        "with --engine reference, or with --train)")
+                        "with --engine fast every channel's windows "
+                        "decode in one batch)")
     p.add_argument("--transfer", choices=["dense", "events"],
                    default="dense",
-                   help="'events' (the sparse onset transfer) is not "
-                        "ported yet and raises")
+                   help="'events' = the fast decodes copy the packed spike "
+                        "onsets to the host instead of the dense labels "
+                        "and rebuild the labels exactly there")
     p.add_argument("--multichannel", action="store_true",
                    help="decode ONE spike train from ALL channels jointly, "
                         "using every channel of spikeForms (the reference "

@@ -83,6 +83,16 @@ def _backtrack(v, bps, scores):
     return x, incs.sum()
 
 
+def viterbi_decode_batched(y, in_idx, in_w, state_mu, sigma, *,
+                           silent_start=True):
+    """viterbi_decode of each row of y: (B, T) -> (B, T) int64 labels and
+    (B,) ll, the rows decoded one after another."""
+    out = [viterbi_decode(yy, in_idx, in_w, state_mu, sigma,
+                          silent_start=silent_start) for yy in y]
+    return (torch.stack([x for x, _ in out]),
+            torch.stack([ll for _, ll in out]))
+
+
 def viterbi_decode_em(em, in_idx, in_w, *, silent_start=True):
     """Decode from precomputed per-state emissions em (T, S) — the same
     dynamics, tie-break and ll as viterbi_decode with the Gaussian emission

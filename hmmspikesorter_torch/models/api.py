@@ -8,7 +8,9 @@ half): the reference's StatsBase verbs for a known template model
 * `fit_spiking_model` — Viterbi decode, whole-signal or chunked
   (fit.jl:6-9 and the chunked variant fit.jl:11-42), plain engines.
 * `fit_spiking_model_fast` — the production decode: parallel overlap-save
-  with the CUDA kernels on the card.
+  with the CUDA kernels on the card, dense or events transfer
+  (core/events.py); `fit_spiking_models_fast_batched` — the same for a
+  (C, T) channel batch, every channel's windows in one batch.
 * `fit_template_model` — EM training from random templates (fit.jl:44-47
   -> train/em.train_model); `refit_template_model` — warm-start EM
   (fit!, fit.jl:49-52); `fit` — train then decode (fit.jl:1-4). On a CUDA
@@ -31,12 +33,15 @@ import math
 import numpy as np
 
 from ..config import UNSET, _section, pick
+from ..core.events import (_onsets_dense, decode_events_overlap_save,
+                           decode_events_overlap_save_batched)
 from ..core.path_score import path_cumulative_ll, path_cumulative_ll_mc
 from ..core.reconstruction import reconstruct_signal
 from ..core.state_space import StateSpace, build_state_space
 from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..parallel.overlap_save import (overlap_save_decode_long,
-                                     resolve_block_engine, ring_overlap_save)
+                                     resolve_block_engine, ring_overlap_save,
+                                     ring_overlap_save_batched)
 from ..parallel.seam_repair import make_window_decoder, repair_seams
 from ..train.em import TrainResult, _em_phase, train_model
 from ..utils.device import as_float, default_dtype, numpy_dtype, resolve_device
@@ -138,12 +143,14 @@ def refit_template_model(model: HMMTemplateModel, y, nsteps: int, *,
                             allow_overlaps=model.allow_overlaps)
 
 
-def _all_silent_model(templates, y) -> HMMSpikingModel:
+def _all_silent_model(templates, y,
+                      transfer: str = "dense") -> HMMSpikingModel:
     """Degenerate pure-noise decode for n_neurons == 0 (training can prune
     every template; the reference CLI returns a null model,
     hmmsort.jl:40-45). ll keeps the cumulative-score contract through the
     telescoped path score; a (T, C) recording takes the multi-channel score
-    with the model's per-channel sigmas."""
+    with the model's per-channel sigmas. The events transfer's
+    `spike_onsets` is an empty list."""
     y = np.asarray(y)
     x = np.zeros(len(y), np.int32)
     states = templates.state_space.states
@@ -156,7 +163,7 @@ def _all_silent_model(templates, y) -> HMMSpikingModel:
     model = HMMSpikingModel(templates, x, float(ll), y)
     model.seam_ok = np.ones(0, bool)
     model.seams_repaired = 0
-    model.spike_onsets = None
+    model.spike_onsets = [] if transfer == "events" else None
     return model
 
 
@@ -265,8 +272,12 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
     `seam_ok` reflects the post-repair state, `seams_repaired` counts the
     flagged seams.
 
-    transfer="events" (the sparse onset transfer, core/events.py) belongs
-    to a later slice and raises NotImplementedError.
+    transfer="events" copies the packed spike-onset grid to the host
+    instead of the dense labels and rebuilds the labels exactly there
+    (core/events.py; one-shot: decode_events_overlap_save, streaming: the
+    `event_spec` of overlap_save_decode_long). Labels, ll and seam
+    handling are identical; the decoded onsets are also exposed as
+    `model.spike_onsets`.
     """
     dev, dt = _resolve(device, dtype)
     dc = _section(config, "decode")
@@ -284,16 +295,12 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
     transfer = arg(transfer, "transfer", "dense")
     if transfer not in ("dense", "events"):
         raise ValueError(f"unknown transfer mode {transfer!r}")
-    if transfer == "events":
-        raise NotImplementedError(
-            "transfer='events' needs core/events.py (ROADMAP §1 step 6), "
-            "which a later slice of the port adds")
 
     y_raw = np.asarray(y)
     int_input = np.issubdtype(y_raw.dtype, np.integer)
     y = y_raw.astype(np.float64)
     if templates.n_neurons == 0:
-        return _all_silent_model(templates, y)
+        return _all_silent_model(templates, y, transfer=transfer)
     if H is None:
         H = max(4 * templates.K, 64)
     if streaming is None:
@@ -309,33 +316,134 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
                                  overlaps=templates.allow_overlaps,
                                  block_engine=block_engine, device=dev,
                                  dtype=dt)
+        espec = ((templates.n_neurons, templates.K,
+                  templates.allow_overlaps) if transfer == "events" else None)
         x, seam_ok = overlap_save_decode_long(
             y_dev, L=L, H=H, blocks_per_call=blocks_per_call,
             block_decoder=dec, prefetch=prefetch, device=dev,
-            window_dtype=y_raw.dtype if int_input else numpy_dtype(dt))
+            window_dtype=y_raw.dtype if int_input else numpy_dtype(dt),
+            event_spec=espec)
+        spike_onsets = None
+    elif transfer == "events":
+        spike_onsets, x, seam_ok = decode_events_overlap_save(
+            y_dev, templates.lp, templates.mu, templates.sigma, L=L, H=H,
+            overlaps=templates.allow_overlaps, block_engine=block_engine,
+            device=dev, dtype=dt)
     else:
         x, seam_ok = ring_overlap_save(
             y_dev, templates.lp, templates.mu, templates.sigma, L=L, H=H,
             overlaps=templates.allow_overlaps, block_engine=block_engine,
             device=dev, dtype=dt)
         x, seam_ok = x.cpu().numpy(), seam_ok.cpu().numpy()
-    n_repaired = 0
-    if repair and not seam_ok.all():
-        dec = make_window_decoder(templates.lp, templates.mu,
-                                  templates.sigma,
-                                  overlaps=templates.allow_overlaps,
-                                  device=dev, dtype=dt)
-        failed = (np.nonzero(~seam_ok)[0] + 1) * L
-        x, _ = repair_seams(y, x, failed, dec, H=H)
-        n_repaired = int((~seam_ok).sum())
-        seam_ok = np.ones_like(seam_ok)
+        spike_onsets = None
+    x, seam_ok, n_repaired, spike_onsets = _repair_and_onsets(
+        templates, y, x, seam_ok, spike_onsets, L=L, H=H, repair=repair,
+        transfer=transfer, device=dev, dtype=dt)
     ll = path_cumulative_ll(y, x, templates.state_space.states,
                             templates.mu, templates.sigma, templates.lp)
     model = HMMSpikingModel(templates, x, ll, y)
     model.seam_ok = seam_ok
     model.seams_repaired = n_repaired
-    model.spike_onsets = None
+    model.spike_onsets = spike_onsets
     return model
+
+
+def _repair_and_onsets(templates, y, x, seam_ok, spike_onsets, *, L, H,
+                       repair, transfer, device, dtype):
+    """The fast paths' tail before the ll: re-decode the flagged seams
+    (repair=True; that rewrites labels, so event onsets are dropped) and,
+    for the events transfer, take the onsets from the dense labels where
+    the decode gave none. Returns (x, seam_ok, n_repaired,
+    spike_onsets)."""
+    n_repaired = 0
+    if repair and not seam_ok.all():
+        dec = make_window_decoder(templates.lp, templates.mu,
+                                  templates.sigma,
+                                  overlaps=templates.allow_overlaps,
+                                  device=device, dtype=dtype)
+        failed = (np.nonzero(~seam_ok)[0] + 1) * L
+        x, _ = repair_seams(y, x, failed, dec, H=H)
+        n_repaired = int((~seam_ok).sum())
+        seam_ok = np.ones_like(seam_ok)
+        spike_onsets = None          # repair rewrote labels; recompute below
+    if spike_onsets is None and transfer == "events":
+        spike_onsets = _onsets_dense(x, N=templates.n_neurons, K=templates.K,
+                                     overlaps=templates.allow_overlaps)
+    return x, seam_ok, n_repaired, spike_onsets
+
+
+def fit_spiking_models_fast_batched(templates: HMMTemplateModel, ys, *,
+                                    L: int | None = None,
+                                    H: int | None = None,
+                                    repair: bool | None = None,
+                                    block_engine: str | None = None,
+                                    transfer: str | None = None,
+                                    config=None, device=None,
+                                    dtype=None) -> list[HMMSpikingModel]:
+    """Channel-batched production decode: (C, T) recordings, one shared
+    template model, every channel's windows in one batch
+    (parallel/overlap_save.ring_overlap_save_batched: one launch each of
+    kernels 1-2 or 3-4 on the card; the reference CLI only ever decodes
+    channel 1, hmmsort.jl:56). transfer="events" copies one event blob for
+    the batch (core/events.decode_events_overlap_save_batched).
+
+    Returns a list of C HMMSpikingModel with per-channel seam flags,
+    repair and the telescoped ll, identical to fit_spiking_model_fast per
+    channel. Recordings shorter than one window decode channel by channel
+    through fit_spiking_model_fast."""
+    dev, dt = _resolve(device, dtype)
+    dc = _section(config, "decode")
+
+    def arg(v, field, default):
+        return pick(UNSET if v is None else v, dc(field), default)
+
+    L = arg(L, "L", 8192)
+    H = arg(H, "H", None)
+    repair = arg(repair, "repair", True)
+    block_engine = arg(block_engine, "block_engine", "auto")
+    transfer = arg(transfer, "transfer", "dense")
+    if transfer not in ("dense", "events"):
+        raise ValueError(f"unknown transfer mode {transfer!r}")
+    if H is None:
+        H = max(4 * templates.K, 64)
+    ys_raw = np.asarray(ys)
+    int_input = np.issubdtype(ys_raw.dtype, np.integer)
+    ys = ys_raw.astype(np.float64)
+    if ys.shape[1] < L + 2 * H:
+        # shorter than one window: per-channel one-shot exact decode
+        return [fit_spiking_model_fast(templates, row, L=L, H=H,
+                                       repair=repair,
+                                       block_engine=block_engine,
+                                       transfer=transfer, device=dev,
+                                       dtype=dt)
+                for row in ys]
+    ys_dev = ys_raw if int_input else ys    # raw ints: cast on the device
+    all_onsets = None
+    if transfer == "events":
+        all_onsets, xs, oks = decode_events_overlap_save_batched(
+            ys_dev, templates.lp, templates.mu, templates.sigma, L=L, H=H,
+            overlaps=templates.allow_overlaps, block_engine=block_engine,
+            device=dev, dtype=dt)
+    else:
+        xs, oks = ring_overlap_save_batched(
+            ys_dev, templates.lp, templates.mu, templates.sigma, L=L, H=H,
+            overlaps=templates.allow_overlaps, block_engine=block_engine,
+            device=dev, dtype=dt)
+        xs, oks = xs.cpu().numpy(), oks.cpu().numpy()
+    models = []
+    for c in range(len(ys)):
+        x, ok, n_rep, onsets = _repair_and_onsets(
+            templates, ys[c], xs[c], oks[c],
+            None if all_onsets is None else all_onsets[c], L=L, H=H,
+            repair=repair, transfer=transfer, device=dev, dtype=dt)
+        ll = path_cumulative_ll(ys[c], x, templates.state_space.states,
+                                templates.mu, templates.sigma, templates.lp)
+        m = HMMSpikingModel(templates, x, ll, ys[c])
+        m.seam_ok = ok
+        m.seams_repaired = n_rep
+        m.spike_onsets = onsets
+        models.append(m)
+    return models
 
 
 def fit(y, n_neurons: int = 3, K: int = 60, nsteps: int = 10, *,
@@ -369,9 +477,8 @@ def fit_spiking_model_adaptive(templates: HMMTemplateModel, y, *,
     if templates.n_neurons == 0:
         # training can prune every template; keep the stationary paths'
         # degenerate-null contract (valid all-silent model, finite ll)
-        model = _all_silent_model(templates, np.asarray(y, np.float64))
-        model.spike_onsets = []
-        return model
+        return _all_silent_model(templates, np.asarray(y, np.float64),
+                                 transfer="events")
     dev, dt = _resolve(device, dtype)
     tr = track_drift(templates, y, chunk=chunk, forget=forget,
                      inner_steps=inner_steps, fb_mode=fb_mode, device=dev,

@@ -11,8 +11,9 @@ joint per-channel Gaussian evidence (core/emission_mc.py).
 * `fit_spiking_model_mc` — whole-signal / chunked Viterbi decode (the
   reference chunk protocol, fit.jl:11-42, through api._chunked_decode).
 * `fit_spiking_model_mc_fast` — parallel overlap-save decode, one-shot or
-  streaming, with seam repair; on a CUDA device with overlaps the blocks
-  decode through kernels 11 and 4 (ops/viterbi_ovn_mb.py).
+  streaming, dense or events transfer, with seam repair; on a CUDA device
+  with overlaps the blocks decode through kernels 11 and 4
+  (ops/viterbi_ovn_mb.py).
 * `predict_mc` — per-channel reconstruction.
 * `refit_template_model_mc`, `fit_mc` — MC Baum-Welch (train/em_mc.py).
 
@@ -27,6 +28,7 @@ import dataclasses
 import numpy as np
 
 from ..core.emission_mc import state_means_mc
+from ..core.events import _onsets_dense, decode_events_mc_overlap_save
 from ..core.path_score import path_cumulative_ll_mc
 from ..core.state_space import StateSpace, build_state_space
 from ..ops.ring_viterbi_mc import mc_block_decoder, mc_ring_engine
@@ -154,18 +156,15 @@ def fit_spiking_model_mc_fast(templates: HMMTemplateModelMC, yc, *,
     ops/ring_viterbi_mc.mc_block_decoder); True/False force either path.
     Labels are identical either way.
 
-    transfer="events" (the sparse onset transfer, core/events.py) belongs
-    to a later slice and raises NotImplementedError."""
+    transfer="events" copies the packed spike-onset grid to the host
+    instead of the dense labels (core/events.py: an exact host rebuild,
+    the decoded onsets exposed as model.spike_onsets), on both the one-shot
+    and the streaming path."""
     if transfer not in ("dense", "events"):
         raise ValueError(f"unknown transfer mode {transfer!r}")
-    if transfer == "events":
-        raise NotImplementedError(
-            "transfer='events' needs the events-transfer decode of "
-            "core/events.py (ROADMAP §1 step 6), which a later slice of the "
-            "port adds")
     yc = _check_yc(templates, yc).astype(np.float64)
     if templates.n_neurons == 0:
-        return _all_silent_model(templates, yc)
+        return _all_silent_model(templates, yc, transfer=transfer)
     dev, dt = _resolve(device, dtype)
     if H is None:
         H = max(4 * templates.K, 64)
@@ -175,7 +174,10 @@ def fit_spiking_model_mc_fast(templates: HMMTemplateModelMC, yc, *,
         m = fit_spiking_model_mc(templates, yc, device=dev, dtype=dt)
         m.seam_ok = np.ones(0, bool)
         m.seams_repaired = 0
-        m.spike_onsets = None
+        m.spike_onsets = (_onsets_dense(np.asarray(m.ml_seq, np.int32),
+                                        N=templates.n_neurons, K=templates.K,
+                                        overlaps=templates.allow_overlaps)
+                          if transfer == "events" else None)
         return m
     if streaming is None:
         streaming = len(yc) > MAX_ONESHOT_BLOCKS * L
@@ -184,10 +186,18 @@ def fit_spiking_model_mc_fast(templates: HMMTemplateModelMC, yc, *,
                                overlaps=templates.allow_overlaps,
                                block_engine=block_engine, device=dev,
                                dtype=dt)
+        espec = ((templates.n_neurons, templates.K,
+                  templates.allow_overlaps) if transfer == "events" else None)
         x, seam_ok = overlap_save_decode_long(
             yc, L=L, H=H, blocks_per_call=blocks_per_call,
             block_decoder=dec, prefetch=prefetch, device=dev,
-            window_dtype=numpy_dtype(dt))
+            window_dtype=numpy_dtype(dt), event_spec=espec)
+        spike_onsets = None
+    elif transfer == "events":
+        spike_onsets, x, seam_ok = decode_events_mc_overlap_save(
+            yc, templates.lp, templates.mu, templates.sigmas, L=L, H=H,
+            overlaps=templates.allow_overlaps, block_engine=block_engine,
+            device=dev, dtype=dt)
     else:
         x, seam_ok = mc_overlap_save(yc, templates.lp, templates.mu,
                                      templates.sigmas, L=L, H=H,
@@ -195,6 +205,7 @@ def fit_spiking_model_mc_fast(templates: HMMTemplateModelMC, yc, *,
                                      block_engine=block_engine, device=dev,
                                      dtype=dt)
         x, seam_ok = x.cpu().numpy(), seam_ok.cpu().numpy()
+        spike_onsets = None
     n_repaired = 0
     if repair and not seam_ok.all():
         failed = (np.nonzero(~seam_ok)[0] + 1) * L
@@ -202,12 +213,16 @@ def fit_spiking_model_mc_fast(templates: HMMTemplateModelMC, yc, *,
                             _mc_repair_decoder(templates, dev, dt), H=H)
         n_repaired = int((~seam_ok).sum())
         seam_ok = np.ones_like(seam_ok)
+        spike_onsets = None          # repair rewrote labels; recompute below
     ll = path_cumulative_ll_mc(yc, x, templates.state_space.states,
                                templates.mu, templates.sigmas, templates.lp)
     model = HMMSpikingModel(templates, x, ll, yc)
     model.seam_ok = seam_ok
     model.seams_repaired = n_repaired
-    model.spike_onsets = None
+    if spike_onsets is None and transfer == "events":
+        spike_onsets = _onsets_dense(x, N=templates.n_neurons, K=templates.K,
+                                     overlaps=templates.allow_overlaps)
+    model.spike_onsets = spike_onsets
     return model
 
 

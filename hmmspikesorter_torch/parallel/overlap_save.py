@@ -19,8 +19,9 @@ decodes agree on silence:
   cut falls at p; parallel/seam_repair.py can re-decode it).
 
 `ring_overlap_save` is the one-shot path (all windows in one batch on the
-device); `overlap_save_decode_long` streams fixed-size window batches and
-stitches on the host.
+device); `ring_overlap_save_batched` the same for a (Ch, T) channel batch,
+every channel's windows in one batch; `overlap_save_decode_long` streams
+fixed-size window batches and stitches on the host.
 """
 
 from __future__ import annotations
@@ -202,9 +203,60 @@ def ring_overlap_save(y, lp, mu, sigma, *, L: int, H: int, overlaps: bool,
     return x.to(out_dtype), seam_ok
 
 
+def _build_windows_arrays(ys, *, T, L, H, B, W):
+    """The halo windows of every row of a (Ch, T) batch: (Ch, B, W)
+    (_build_windows over the channel axis kept as a trailing axis)."""
+    y_win, _ = _build_windows(ys.T, T=T, L=L, H=H, B=B, W=W)
+    return y_win.permute(2, 0, 1)
+
+
+def ring_overlap_save_batched(ys, lp, mu, sigma, *, L: int, H: int,
+                              overlaps: bool, block_engine: str = "auto",
+                              device, dtype):
+    """Channel-batched one-shot decode on `device`: (Ch, T) recordings ->
+    (Ch, T) labels. Every channel's overlap-save windows fold into one
+    batch of Ch*B windows, so kernels 1-2 (N=2) or 3-4 (N >= 3) decode all
+    channels in one launch each on the card; the plain engines elsewhere.
+    Same per-channel seam protocol and edge handling as ring_overlap_save.
+    Returns (x (Ch, T) int16/int32 tensor, seam_ok (Ch, B-1) bool tensor),
+    both on `device`."""
+    if L < 2 * H:
+        raise ValueError("need L >= 2H so seam cuts are monotone")
+    K, N = np.shape(mu)
+    if np.shape(ys)[1] < L + 2 * H:
+        raise ValueError("signal shorter than one window; decode directly")
+    block_engine = resolve_block_engine(block_engine, overlaps, K, N, device)
+    return _ring_overlap_save_batched_impl(
+        ys, lp, mu, sigma, L=L, H=H, overlaps=overlaps,
+        block_engine=block_engine, device=device, dtype=dtype)
+
+
+def _ring_overlap_save_batched_impl(ys, lp, mu, sigma, *, L, H, overlaps,
+                                    block_engine, device, dtype):
+    mu_t = as_float(mu, dtype, device)
+    K, N = mu_t.shape
+    ys = _to_device(ys, device, dtype)
+    Ch, T = ys.shape
+    B = -(-T // L)
+    W = L + 2 * H
+    out_dtype = labels_dtype(n_states(N, K, overlaps))
+    y_win = _build_windows_arrays(ys, T=T, L=L, H=H, B=B, W=W)
+    edge_rows = _edge_rows(T, L, H, B, W)
+    sil = (torch.arange(B, device=device) == 0).repeat(Ch)
+    dec = ring_block_decoder(lp, mu_t, sigma, overlaps=overlaps,
+                             block_engine=block_engine, device=device,
+                             dtype=dtype)
+    xb = dec(y_win.reshape(Ch * B, W), sil).reshape(Ch, B, W)
+    del y_win
+    rows = [_snap_and_stitch(xb[c], T=T, L=L, H=H, B=B, edge_rows=edge_rows)
+            for c in range(Ch)]
+    return (torch.stack([x for x, _ in rows]).to(out_dtype),
+            torch.stack([ok for _, ok in rows]))
+
+
 def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
                              blocks_per_call: int = 8, prefetch: int = 2,
-                             window_dtype, device):
+                             window_dtype, device, event_spec=None):
     """Host-driven overlap-save decode of arbitrarily long signals.
 
     Streams batches of `blocks_per_call` halo windows through
@@ -221,8 +273,13 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
     are fetched (CUDA launches are asynchronous; the fetch is the blocking
     point). prefetch=1 is the strictly serial loop.
 
-    The JAX function's generic-engine branch (no block_decoder) and its
-    `event_spec` transfer are not part of this port yet.
+    `event_spec=(N, K, overlaps)` switches each call's device-to-host copy
+    to the packed spike-event blob (core/events.make_events_block_decoder,
+    about 16x smaller at K=60); the labels are rebuilt exactly on the host:
+    each window's decode is a valid path, so no fallback is needed.
+
+    The JAX function's generic-engine branch (no block_decoder) is not part
+    of this port.
 
     Returns (x (T,) int32 numpy, seam_ok (B-1,) bool numpy).
     """
@@ -240,11 +297,23 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
     starts = np.clip(np.arange(B) * L - H, 0, T - W)
     starts[-1] = T - W                     # real termination at T, not pad
     labels = np.empty((B, W), np.int32)
-    pending = deque()                      # (c0, c1, device labels)
+    if event_spec is not None:
+        from ..core.events import (make_events_block_decoder,
+                                   unpack_window_blob)
+
+        eN, eK, eov = event_spec
+        block_decoder = make_events_block_decoder(block_decoder, N=eN,
+                                                  K=eK, overlaps=eov)
+    pending = deque()                      # (c0, c1, device labels or blob)
 
     def fetch_oldest():
-        p0, p1, dev_labels = pending.popleft()
-        labels[p0:p1] = dev_labels[: p1 - p0].cpu().numpy()
+        p0, p1, out = pending.popleft()
+        if event_spec is not None:
+            lab = unpack_window_blob(out.cpu().numpy(), B=blocks_per_call,
+                                     W=W, N=eN, K=eK, overlaps=eov)
+        else:
+            lab = out[: p1 - p0].cpu().numpy()
+        labels[p0:p1] = lab[: p1 - p0]
 
     for c0 in range(0, B, blocks_per_call):
         c1 = min(c0 + blocks_per_call, B)

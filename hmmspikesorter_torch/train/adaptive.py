@@ -29,8 +29,9 @@ decode (state 0 means "no template playing" under any parameters), and a
 flagged seam is re-decoded with its left chunk's parameters
 (parallel/seam_repair.py).
 
-The multichannel mirror (track_drift_mc, decode_tracked_mc) and the events
-transfer are not ported yet (ROADMAP §1 items 5 and 3). Entry points run on
+decode_tracked(transfer="events") copies one packed onset blob instead of
+the dense labels (core/events.py). The multichannel mirror (track_drift_mc,
+decode_tracked_mc) is not ported yet (ROADMAP §1 item 5). Entry points run on
 `cuda` unless `device="cpu"` is passed; the working dtype is float32 on
 cuda and float64 on the CPU unless `dtype` is given.
 """
@@ -317,6 +318,21 @@ def _tracked_overlap_save(y, lp_all, mu_all, sg_all, *, L: int, H: int,
     return x.to(out_dtype), seam_ok
 
 
+def _tracked_overlap_save_events(y, lp_all, mu_all, sg_all, *, L: int,
+                                 H: int, overlaps: bool, device, dtype):
+    """The tracked decode and the event extraction on `device`, the
+    per-window-parameter mirror of core/events._ring_overlap_save_events_impl:
+    (blob, x), the dense labels x left there for the fallback (kernels 16
+    and 2 on the card for the N=2 overlap topology)."""
+    from ..core.events import _event_blob
+
+    x, seam_ok = _tracked_overlap_save(y, lp_all, mu_all, sg_all, L=L, H=H,
+                                       overlaps=overlaps, device=device,
+                                       dtype=dtype)
+    K, N = np.shape(mu_all)[1:]
+    return _event_blob(x, seam_ok, N=N, K=K, overlaps=overlaps), x
+
+
 def _piecewise_path_ll(y, x, track: DriftTrack, ss) -> float:
     """Reference cumulative-score ll of the stitched path, each step's
     transition + emission increment charged under the parameters of the
@@ -400,20 +416,19 @@ def decode_tracked(track: DriftTrack, y, *, H: int | None = None,
     fast path's extras (`seam_ok`, `seams_repaired`, `spike_onsets`), the
     piecewise cumulative-score ll and `track`.
 
+    transfer="events" copies only the packed spike-onset events to the
+    host and rebuilds the labels exactly there (core/events.py), as the
+    stationary fast path does; flagged seams fall back to the dense labels.
+
     Flagged seams (no common silence within +-H) are re-decoded with the
     seam's left-chunk parameters over widening windows
-    (parallel/seam_repair.py). transfer="events" (the sparse onset
-    transfer) is not ported yet and raises NotImplementedError."""
-    from ..core.events import _onsets_dense
+    (parallel/seam_repair.py)."""
+    from ..core.events import _decode_from_blob, _onsets_dense
     from ..models.api import HMMSpikingModel, _decoder_for
     from ..parallel.seam_repair import make_window_decoder, repair_seams
 
     if transfer not in ("dense", "events"):
         raise ValueError(f"unknown transfer mode {transfer!r}")
-    if transfer == "events":
-        raise NotImplementedError(
-            "transfer='events' needs the events-transfer decode "
-            "(core/events.py), ROADMAP §1 item 3, not yet ported")
     dev = resolve_device(device)
     dt = default_dtype(dev) if dtype is None else dtype
     if track.is_mc:
@@ -435,6 +450,7 @@ def decode_tracked(track: DriftTrack, y, *, H: int | None = None,
         raise ValueError(f"chunk={L} < 2H={2 * H}; track with a larger "
                          "chunk (or pass a smaller decode halo H)")
 
+    onsets = None
     if B > 1 and T < L + 2 * H:
         # too short to window but multi-chunk: the one-shot branch would
         # decode the tail with chunk 0's parameters; the sequential
@@ -442,6 +458,13 @@ def decode_tracked(track: DriftTrack, y, *, H: int | None = None,
         x = _protocol_decode_tracked(
             track, y, lambda tm: _decoder_for(tm, dev, dt))
         seam_ok = np.ones(0, bool)
+    elif transfer == "events" and B > 1:
+        blob, x_dense = _tracked_overlap_save_events(
+            y, track.lp, track.mu, track.sigma, L=L, H=H,
+            overlaps=track.allow_overlaps, device=dev, dtype=dt)
+        onsets, x, seam_ok = _decode_from_blob(
+            blob, x_dense, T=T, N=N, K=K, B=B,
+            overlaps=track.allow_overlaps, return_labels=True)
     else:
         x, seam_ok = _tracked_overlap_save(
             y, track.lp, track.mu, track.sigma, L=L, H=H,
@@ -458,13 +481,15 @@ def decode_tracked(track: DriftTrack, y, *, H: int | None = None,
             x, _ = repair_seams(y, x, [(int(s) + 1) * L], dec, H=H)
         n_repaired = int((~seam_ok).sum())
         seam_ok = np.ones_like(seam_ok)
+        onsets = None                    # labels changed under the repair
 
     ss = build_state_space(N, K, track.allow_overlaps)
     ll = _piecewise_path_ll(y, x, track, ss)
     model = HMMSpikingModel(track.model_at(B - 1), x, ll, y)
     model.seam_ok = seam_ok
     model.seams_repaired = n_repaired
-    model.spike_onsets = _onsets_dense(x, N=N, K=K,
-                                       overlaps=track.allow_overlaps)
+    model.spike_onsets = (onsets if onsets is not None else
+                          _onsets_dense(x, N=N, K=K,
+                                        overlaps=track.allow_overlaps))
     model.track = track
     return model

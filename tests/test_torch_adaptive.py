@@ -123,8 +123,13 @@ def test_auto_fb_mode_and_guards():
                          device="cpu")
     with pytest.raises(ValueError, match="does not cover"):
         tad.decode_tracked(tr, y[:-10], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tad.decode_tracked(tr, y, transfer="events", device="cpu")
+    # the events transfer of a one-chunk track: the dense decode's labels
+    # and onsets
+    ev = tad.decode_tracked(tr, y, transfer="events", device="cpu")
+    de = tad.decode_tracked(tr, y, device="cpu")
+    np.testing.assert_array_equal(ev.ml_seq, de.ml_seq)
+    for a, b in zip(ev.spike_onsets, de.spike_onsets):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("T,chunk,overlaps,H", [

@@ -104,19 +104,22 @@ def test_zero_neuron_model_matches():
 def test_not_yet_ported_paths_raise():
     y, temps, lp = signal(5 * L, K, N=3, seed=2)
     _, tt = model_pair(temps, 0.3, lp, True)
-    # N >= 3 with overlaps decodes (ring_viterbi_ovn and kernels 3-4);
-    # the sparse event transfer is still to come, for every N
+    # N >= 3 with overlaps decodes (ring_viterbi_ovn and kernels 3-4), and
+    # the sparse event transfer gives the dense labels at every N
     fast = tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu")
     whole = tapi.fit_spiking_model(tt, y, device="cpu")
     assert fast.ml_seq.shape == whole.ml_seq.shape == (5 * L,)
     assert fast.seam_ok.all() and np.isfinite(fast.ll)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu",
-                                    transfer="events")
+    ev = tapi.fit_spiking_model_fast(tt, y, L=L, H=H, device="cpu",
+                                     transfer="events")
+    np.testing.assert_array_equal(ev.ml_seq, fast.ml_seq)
+    assert len(ev.spike_onsets) == 3
     _, t2 = model_pair(temps[:, :2], 0.3, lp[:2], True)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        tapi.fit_spiking_model_fast(t2, y, L=L, H=H, device="cpu",
-                                    transfer="events")
+    ev2 = tapi.fit_spiking_model_fast(t2, y, L=L, H=H, device="cpu",
+                                      transfer="events")
+    np.testing.assert_array_equal(
+        ev2.ml_seq, tapi.fit_spiking_model_fast(t2, y, L=L, H=H,
+                                                device="cpu").ml_seq)
     with pytest.raises(ValueError):
         tapi.fit_spiking_model_fast(t2, y, L=L, H=H, device="cpu",
                                     transfer="sparse")

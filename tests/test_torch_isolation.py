@@ -114,6 +114,39 @@ def test_drift_slice_modules_are_covered(mod):
     test_posterior_slice_modules_are_covered(mod)
 
 
+@pytest.mark.parametrize("mod", ["core.events", "core.viterbi",
+                                 "parallel.overlap_save", "models.api"])
+def test_events_and_batched_slice_modules_are_covered(mod):
+    """The events transfer's and the channel-batched decode's modules are
+    among the files the source scan reads and import on their own with
+    torch, numpy and scipy only."""
+    test_posterior_slice_modules_are_covered(mod)
+
+
+def test_events_and_batched_functions_are_in_the_port():
+    """The functions of the events transfer and the batched decode live in
+    the scanned modules (none of them reaches the JAX package)."""
+    from hmmspikesorter_torch.core import events, viterbi
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.parallel import overlap_save
+    from hmmspikesorter_torch.train import adaptive
+
+    for mod, names in (
+            (events, ("labels_from_onsets", "unpack_window_blob",
+                      "_parse_event_blob", "decode_events_overlap_save",
+                      "decode_events_mc_overlap_save",
+                      "decode_events_overlap_save_batched",
+                      "make_events_block_decoder")),
+            (overlap_save, ("ring_overlap_save_batched",)),
+            (viterbi, ("viterbi_decode_batched",)),
+            (api, ("fit_spiking_models_fast_batched",)),
+            (adaptive, ("_tracked_overlap_save_events",))):
+        for name in names:
+            fn = getattr(mod, name)
+            assert fn.__module__ == mod.__name__, name
+            assert pathlib.Path(mod.__file__) in _port_files()
+
+
 def test_cli_imports_h5py_only_in_a_loader(tmp_path):
     """Importing hmmspikesorter_torch.cli loads no h5py (the GPU host has
     none); a loader imports it when it runs."""

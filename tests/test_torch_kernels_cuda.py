@@ -1619,3 +1619,99 @@ def test_gamma_mc_kernels_refuse_what_they_cannot_take(cuda):
                                  64)
     with pytest.raises(ValueError, match="multiple"):
         gamma_mb.gamma_fwd_mb_mc(e, entry, chained, c, ch, 48)
+
+
+# ---------------------------------------------------------------------------
+# the events transfer and the channel-batched decode on the kernels
+
+
+@pytest.mark.parametrize("N", [2, 3])
+def test_events_oneshot_equals_dense(cuda, N):
+    """decode_events_overlap_save on the card (kernels 1-2 at N=2, 3-4 at
+    N=3, one launch each) rebuilds the dense one-shot labels bit for bit
+    from its blob, through the events branch."""
+    from hmmspikesorter_torch.core import events as tev
+    from hmmspikesorter_torch.parallel.overlap_save import ring_overlap_save
+
+    K, L, H = 20, 512, 80
+    pp = (0.006, 0.004, 0.003)[:N]
+    temps = np.stack([create_spike_template(K, *PARAMS[n])
+                      for n in range(N)], axis=1)
+    y, _ = create_signal_fast(6 * L + 77, 0.3, pp, temps,
+                              rng=np.random.default_rng(11))
+    y[100:100 + K - 1] += temps[1:, 0]          # a pair state
+    y[104:104 + K - 1] += temps[1:, 1]
+    y, lp = y[None], np.log(pp)
+    wr = ((vmb.ov2_forward_mb, vmb.ov2_backtrace_mb) if N == 2 else
+          (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb))
+    before = [w.launches for w in wr]
+    ev = dict(tev.BRANCHES)
+    on, x, ok = tev.decode_events_overlap_save(y[0], lp, temps, 0.3, L=L,
+                                               H=H, overlaps=True)
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+    assert tev.BRANCHES["events"] == ev["events"] + 1 and ok.all()
+    xd, okd = ring_overlap_save(y[0], lp, temps, 0.3, L=L, H=H,
+                                overlaps=True, device=cuda,
+                                dtype=torch.float32)
+    np.testing.assert_array_equal(x, xd.cpu().numpy())
+    np.testing.assert_array_equal(ok, okd.cpu().numpy())
+    ref = tev._onsets_dense(x, N=N, K=K, overlaps=True)
+    for a, b in zip(on, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_events_mc_oneshot_equals_dense(cuda):
+    """The multichannel events decode (kernels 11 and 4) gives the dense
+    multichannel labels."""
+    from hmmspikesorter_torch.models import multichannel as mcm
+
+    K, L, H, C = 20, 512, 80, 3
+    yc, mu, sigmas, lp = _mc_windows(3, K, C, 1, 6 * L + 77, seed=5)
+    tm = mcm.HMMTemplateModelMC(mu=mu, sigmas=sigmas, lp=lp,
+                                allow_overlaps=True)
+    n_fwd = vomb.ovn_mc_forward_mb.launches
+    m = mcm.fit_spiking_model_mc_fast(tm, yc[0], L=L, H=H,
+                                      transfer="events")
+    assert vomb.ovn_mc_forward_mb.launches == n_fwd + 1
+    d = mcm.fit_spiking_model_mc_fast(tm, yc[0], L=L, H=H)
+    np.testing.assert_array_equal(m.ml_seq, d.ml_seq)
+    assert m.ll == d.ll and len(m.spike_onsets) == 3
+
+
+@pytest.mark.parametrize("transfer", ["dense", "events"])
+def test_batched_decode_is_one_launch_and_the_per_channel_decodes(
+        cuda, transfer):
+    """fit_spiking_models_fast_batched launches kernels 1 and 2 once for
+    every channel's windows together and gives each channel's own
+    fit_spiking_model_fast labels and seam flags."""
+    K, L, H, Ch = 20, 512, 80, 3
+    ys, temps, lp = _problem(K, Ch, 6 * L + 77, seed=21)
+    tm = api.HMMTemplateModel(mu=temps, sigma=0.3, lp=lp,
+                              allow_overlaps=True)
+    wr = (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb)
+    before = [w.launches for w in wr]
+    ms = api.fit_spiking_models_fast_batched(tm, ys, L=L, H=H,
+                                             transfer=transfer)
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+    for c in range(Ch):
+        one = api.fit_spiking_model_fast(tm, ys[c], L=L, H=H)
+        np.testing.assert_array_equal(ms[c].ml_seq, one.ml_seq)
+        np.testing.assert_array_equal(ms[c].seam_ok, one.seam_ok)
+        assert ms[c].ll == one.ll
+
+
+def test_streaming_event_spec_equals_dense_streaming(cuda):
+    """The streaming decode with the event blob as its copy gives the dense
+    streaming decode's labels, at N=2 (kernels 1-2) and N=3 (3-4)."""
+    K, L, H = 20, 512, 80
+    for N, (y, temps, lp) in ((2, _problem(K, 1, 9 * L + 5, seed=31)),
+                              (3, _ovn_problem(3, K, 1, 9 * L + 5,
+                                               seed=31))):
+        tm = api.HMMTemplateModel(mu=temps, sigma=0.3, lp=lp,
+                                  allow_overlaps=True)
+        kw = dict(L=L, H=H, streaming=True, blocks_per_call=4)
+        ev = api.fit_spiking_model_fast(tm, y[0], transfer="events", **kw)
+        de = api.fit_spiking_model_fast(tm, y[0], **kw)
+        np.testing.assert_array_equal(ev.ml_seq, de.ml_seq)
+        np.testing.assert_array_equal(ev.seam_ok, de.seam_ok)
+        assert ev.ll == de.ll and len(ev.spike_onsets) == N

@@ -146,8 +146,11 @@ def test_contracts():
     mu, sigmas, lp = mc_model(K, 2, 3, seed=99)
     _, tt = pair(mu, sigmas, lp, True)
     yc = mc_signal(3 * L, mu, sigmas, lp, seed=100)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        tmc.fit_spiking_model_mc_fast(tt, yc, transfer="events", **CPU)
+    # the events transfer gives the dense decode's labels
+    np.testing.assert_array_equal(
+        tmc.fit_spiking_model_mc_fast(tt, yc, L=L, H=H, transfer="events",
+                                      **CPU).ml_seq,
+        tmc.fit_spiking_model_mc_fast(tt, yc, L=L, H=H, **CPU).ml_seq)
     with pytest.raises(ValueError):
         tmc.fit_spiking_model_mc_fast(tt, yc, transfer="sparse", **CPU)
     with pytest.raises(ValueError, match=r"yc must be \(T, 3\)"):
