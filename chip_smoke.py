@@ -154,7 +154,11 @@ since the previous phase line):
                then model_posteriors (kernels 17-18, 2 + 2), confidence and
                unit_qc: within 1e-4 of the float64 plain chained piecewise
                run (or of the plain float32 chain's own error where larger,
-               at most 1e-3), median confidence above 0.9
+               at most 1e-3), median confidence above 0.9; and
+               `tracked_n3`: a single-channel N=3 tracked decode (K=60, 3
+               windows of a 512-sample chunk) through kernels 3 and 4,
+               one launch each a window, labels exactly equal to the same
+               decode through their plain versions
   kernels_mc   the multichannel configuration (BASELINE.json config 6,
                benchmarks/suite.py config6: N=3, C=4, K=60, S=10,621,
                T=2^19, per-channel gains 0.3 + U, sigma_c = 0.25 + 0.1 U,
@@ -217,6 +221,22 @@ since the previous phase line):
                that non-overlap multichannel decode, through kernels 14-15;
                their kernel time (from kernels_gamma_mc, the same 128
                windows) and its share of model_posteriors
+  drift_path_mc  the multichannel drift-adaptive path: config 6 with a
+               linear 1x -> 2x amplitude ramp over T=2^20;
+               models/multichannel.fit_spiking_model_adaptive_mc at the CLI
+               defaults (chunk 32768, forget 0.3): tracking through kernels
+               12-13 on every chunk, decode through kernel 11's per-window
+               mode and kernel 4 (one launch each; 32 windows of W=33,248),
+               the tracking, decode and host ll walls; onset errors of the
+               tracked and of a stationary decode against the truth (the
+               tracked below); kernel 11's per-window mode timed at that
+               shape, exactly equal to 32 one-window shared launches under
+               each window's constants (packed outputs and kernel 4's
+               labels) and, on 4 windows cut to 1200 steps, to its batched
+               plain version; a constant track's labels equal to the
+               stationary kernel-11 decode's; the tracked posteriors with
+               overlaps off (S=178) on the first two chunks against a
+               float64 run on the CPU (in the worker), within 1e-3
   events_path  the events transfer and the channel-batched decode on inputs
                and dense labels the earlier phases checked (no plain
                version runs): the N=2 one-shot events decode on main_path's
@@ -251,7 +271,8 @@ since the previous phase line):
                production run's recording (the dense run's MAT dict);
                --channels all --engine fast on 2 rows of 2^19 samples (one
                launch each of kernels 1 and 2, the library decodes' labels
-               and ll); `seconds_by_part`
+               and ll); --multichannel --adaptive on drift_path_mc's
+               recording (the library's labels and ll); `seconds_by_part`
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
 run, and a spawned worker process computes three float64 references and
@@ -379,6 +400,20 @@ def cpu_mc_posteriors(mu, sigmas, lp, yc):
     t = time.perf_counter()
     with torch.inference_mode():
         p = tpost.onset_posteriors_chained_mc(tm, yc, device="cpu",
+                                              dtype=torch.float64)
+    return p, time.perf_counter() - t
+
+
+def cpu_tracked_mc_posteriors(track, yc):
+    """onset_posteriors_tracked_mc of (T, C) samples under a multichannel
+    track in float64 on the CPU (drift_path_mc's reference). Returns
+    (posteriors, seconds)."""
+    from hmmspikesorter_torch.core import posterior as tpost
+
+    torch.set_num_threads(CPU_THREADS)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        p = tpost.onset_posteriors_tracked_mc(track, yc, device="cpu",
                                               dtype=torch.float64)
     return p, time.perf_counter() - t
 
@@ -1054,13 +1089,16 @@ def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
     return row
 
 
-def config6(T, create_signal, create_spike_template):
+def config6(T, create_signal, create_spike_template, scale_end=None):
     """BASELINE.json config 6 (benchmarks/suite.py config6): N=3 templates
     of benchmarks/suite.py's first three shapes at K=60 seen on C=4
     channels with gains 0.3 + U (default_rng(7)), noise sigma_c = 0.25 +
     0.1 U, onset probabilities (0.01, 0.005, 0.008); the spike train is the
-    generator's (default_rng(1234)). Returns (yc (T, C) float32, truth
-    (N, T), mu (K, N, C), sigmas (C,), lp (N,))."""
+    generator's (default_rng(1234)). scale_end: a drifting recording, each
+    sample of a spike scaled by 1 + (scale_end - 1) t / T (a linear
+    amplitude ramp from 1x to scale_end x). Returns (yc (T, C) float32,
+    truth (N, T), mu (K, N, C), sigmas (C,), lp (N,)): mu the templates at
+    the start."""
     K, N, C = 60, 3, 4
     pp = np.array([0.01, 0.005, 0.008])
     temps = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES[:3]],
@@ -1071,10 +1109,15 @@ def config6(T, create_signal, create_spike_template):
     mu = (temps[:, :, None] * (0.3 + rng.random((N, C)))).astype(np.float32)
     sg = (0.25 + 0.1 * rng.random(C)).astype(np.float32)
     yc = (sg * rng.standard_normal((T, C))).astype(np.float32)
+    ramp = (None if scale_end is None else
+            (1.0 + (scale_end - 1.0) * np.arange(T) / T).astype(np.float32))
     for n in range(N):
         k = truth[n]
         m = k > 0
-        yc[m] += mu[k[m] - 1, n]
+        if ramp is None:
+            yc[m] += mu[k[m] - 1, n]
+        else:
+            yc[m] += ramp[m, None] * mu[k[m] - 1, n]
     return yc, truth, mu.astype(np.float64), sg.astype(np.float64), np.log(pp)
 
 
@@ -1916,6 +1959,60 @@ def with_pack_bytes(row, B, S):
     return row
 
 
+def tracked_n3(dev, K=60, chunk=512, B=3):
+    """A short single-channel N=3 tracked decode on the card (config 2's
+    templates, ROADMAP's main_path_n3 shapes, a gain ramp of 15% a chunk,
+    B chunks of `chunk` samples, overlapping spikes forced): launches of
+    kernels 3 and 4 (one each a window, each window under its own
+    constants) and the labels, exactly equal to the same decode through
+    their plain versions on the card (ovn_kernel_ok held false for it).
+    Returns the row."""
+    from hmmspikesorter_torch.data.synthetic import (create_signal_fast,
+                                                     create_spike_template)
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    temps = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES[:3]],
+                     axis=1)
+    lp = np.log([0.01, 0.006, 0.004])
+    y, _ = create_signal_fast(B * chunk - 100, 0.3, np.exp(lp), temps,
+                              rng=np.random.default_rng(3))
+    force_overlaps(y, temps, every=400)
+    T = len(y)
+    g = 1.0 + 0.15 * np.arange(B)
+    tr = dict(lp_all=np.tile(lp, (B, 1)), mu_all=temps[None] * g[:, None,
+                                                                 None],
+              sg_all=np.full(B, 0.3))
+    kw = dict(L=chunk, H=max(4 * K, 64), overlaps=True, device=dev,
+              dtype=torch.float32)
+    wr = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+    for w in wr:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, _ = tad._tracked_overlap_save(y, **tr, **kw)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    launches = {w.__name__: w.launches for w in wr}
+    ok = vomb.ovn_kernel_ok
+    vomb.ovn_kernel_ok = lambda *a: False
+    try:
+        t = time.perf_counter()
+        x_plain, _ = tad._tracked_overlap_save(y, **tr, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    finally:
+        vomb.ovn_kernel_ok = ok
+    equal = bool(torch.equal(x, x_plain))
+    check(launches == {"ovn_forward_mb": B, "ovn_backtrace_mb": B},
+          f"drift_path: the N=3 tracked decode's launches {launches}")
+    check(equal, "drift_path: the N=3 tracked decode through kernels 3-4 "
+          "differs from the plain versions'")
+    return {"N": 3, "K": K, "T": T, "chunk": chunk, "windows": B,
+            "launches": launches, "seconds": kernel_s,
+            "plain_seconds": plain_s, "labels_equal_plain": equal}
+
+
 def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
                Tg=1 << 19, Lg=4096, P16=4, P17=PLAIN_WINDOWS):
     """The drift-adaptive path at full width: bench.py's N=2, K=60,
@@ -2131,6 +2228,9 @@ def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
         del p32
     post_tol = min(1e-3, max(1e-4, plain32_err or 0.0))
     secs["posteriors_and_f64_piecewise"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    row_n3 = tracked_n3(dev)
+    secs["tracked_n3"] = time.perf_counter() - t_part
     t = time.perf_counter()
     labels64, ll64, twin_s = twin.result()
     plab2, row2["plain_seconds"] = bt2_plain.result()
@@ -2156,6 +2256,7 @@ def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
           "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
                                    float(np.abs(tr.mu[-1]).max())],
           "kernel16": row16, "kernel2": row2, "kernel2_tiles": row_tiles,
+          "tracked_n3": row_n3,
           "kernels17_18": {"T": Tg, **rows17["t19"]},
           "kernels17_18_512": rows17["w512"],
           # model_posteriors launches the forward twice, the backward once
@@ -2199,6 +2300,217 @@ def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
           "drift_path: ISI invariant violated")
     return {"row16": row16, "rows17": rows17, "fit_launches": fit_launches,
             "post_launches": post_launches, "cli": (tm0, y, m)}
+
+
+def drift_path_mc(dev, card, cpu, T=1 << 20, chunk=32768, P11=4,
+                  W11=1200, post_chunks=2):
+    """The multichannel drift-adaptive path at config 6's full width: N=3,
+    K=60, C=4 (config6 with a linear 1x -> 2x amplitude ramp over T=2^20).
+    models/multichannel.fit_spiking_model_adaptive_mc at the CLI defaults
+    (chunk 32768, forget 0.3: 32 chunks, decode windows of W=33,248 at
+    H=240) with the launch counts of kernels 12-13 (tracking) and kernel 11's
+    per-window mode + kernel 4 (decode) set to 0 just before and read just
+    after; the tracking, decode and host ll timed apart; onset errors of the
+    tracked and of a stationary fit_spiking_model_mc_fast decode against
+    the truth. Kernel 11's per-window mode on the decode's own inputs (each
+    window's streams and constants from train/adaptive._mc_win_streams):
+    timed, and exactly equal to B one-window shared launches under each
+    window's constants (flags, rings, rowcol, xT, and kernel 4's labels on
+    each); on the first P11 windows cut to W11 steps (pairwise different
+    constants) exactly equal to its batched plain version. A constant
+    track's labels equal the stationary kernel-11 decode's at the same
+    windows. The tracked posteriors with overlaps off (S=178) on the first
+    `post_chunks` chunks (float32 plain engines on the card) against a
+    float64 run on the CPU (in the worker `cpu`). Returns the kernel row,
+    the launches and (model template, signal, decoded model) for
+    cli_path."""
+    import dataclasses
+
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.data.synthetic import (create_signal,
+                                                     create_spike_template)
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.parallel.overlap_save import _build_windows
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    f32 = torch.float32
+    secs, t_part = {}, time.perf_counter()
+    yc, truth, mu, sg, lp = config6(T, create_signal, create_spike_template,
+                                    scale_end=2.0)
+    K, N, C = mu.shape
+    tm0 = mcm.HMMTemplateModelMC(mu=mu, sigmas=sg, lp=lp,
+                                 allow_overlaps=True)
+    wr_fit = (fb_mb.em_forward_mb_mc, fb_mb.em_backward_mb_mc,
+              vomb.ovn_mc_forward_mb_tracked, vomb.ovn_backtrace_mb)
+    mcm.fit_spiking_model_adaptive_mc(tm0, yc, chunk=chunk)   # warm-up
+    for w in wr_fit:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = mcm.fit_spiking_model_adaptive_mc(tm0, yc, chunk=chunk)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    fit_launches = {w.__name__: w.launches for w in wr_fit}
+    tr = m.track
+    # the posterior reference on the CPU meanwhile: overlaps off, the first
+    # post_chunks chunks
+    Tp = post_chunks * chunk
+    tr_p = dataclasses.replace(
+        tr, lp=tr.lp[:post_chunks], mu=tr.mu[:post_chunks],
+        sigma=tr.sigma[:post_chunks], lls=tr.lls[:post_chunks],
+        bounds=tr.bounds[:post_chunks], allow_overlaps=False)
+    ref_p = cpu.submit(cpu_tracked_mc_posteriors, tr_p, yc[:Tp])
+    t = time.perf_counter()
+    tr2 = tad.track_drift_mc(tm0, yc, chunk=chunk)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t
+    t = time.perf_counter()
+    m2 = tad.decode_tracked_mc(tr2, yc)
+    decode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tad._piecewise_path_ll_mc(yc, m2.ml_seq, tr2, tm0.state_space)
+    host_ll_s = time.perf_counter() - t
+    check(np.array_equal(m2.ml_seq, m.ml_seq) and np.array_equal(tr2.mu,
+                                                                  tr.mu),
+          "drift_path_mc: a second run gave another track or other labels")
+    m_static = mcm.fit_spiking_model_mc_fast(tm0, yc)
+    e_tracked = onset_errors(m.spike_onsets, truth)
+    e_static = onset_errors(tevents._onsets_dense(m_static.ml_seq, N=N, K=K,
+                                                  overlaps=True), truth)
+    secs["fits_and_decodes"] = time.perf_counter() - t_part
+
+    # ---- kernel 11's per-window mode on the decode's own inputs ---------
+    t_part = time.perf_counter()
+    L, H = tr.chunk, max(4 * K, 64)
+    W, B = L + 2 * H, -(-T // L)
+    y_win, _ = _build_windows(torch.as_tensor(yc, dtype=f32, device=dev),
+                              T=T, L=L, H=H, B=B, W=W)
+    es, d, tb, lp_t = tad._mc_win_streams(y_win, tr.lp, tr.mu, tr.sigma,
+                                          device=dev, dtype=f32)
+    del y_win
+    sil = torch.arange(B, device=dev) == 0
+    c11 = vomb.ovn_mc_consts_batched(lp_t, tb.c1, tb.c2_stack, dtype=f32,
+                                     device=dev)
+    run11 = lambda: vomb.ovn_mc_forward_mb_tracked(es, d, sil, c11)  # noqa
+    run11()
+    k11_ms, got = cuda_ms(run11, reps=3)
+    labels = vomb.ovn_backtrace_mb(*got, c11)
+    for b in range(B):
+        one = vomb.ovn_mc_forward_mb(es[b:b + 1], d[b:b + 1], sil[b:b + 1],
+                                     c11.windows[b])
+        lab1 = vomb.ovn_backtrace_mb(*one, c11.windows[b])
+        check(all(torch.equal(a[b:b + 1], r) for a, r in zip(got, one))
+              and torch.equal(labels[b:b + 1], lab1),
+              f"drift_path_mc: kernel 11's window {b} differs from a "
+              "one-window shared launch under its constants")
+    one_ms, _ = cuda_ms(lambda: vomb.ovn_mc_forward_mb(
+        es[:1], d[:1], sil[:1], c11.windows[0]), reps=3)
+    secs["kernel11_vs_one_window_launches"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    sub = slice(0, P11)
+    es_p, d_p = es[sub, :W11].contiguous(), d[sub, :W11].contiguous()
+    cp = vomb.OvnMCConstsBatched(windows=c11.windows[sub],
+                                 fpack=c11.fpack[sub].contiguous(),
+                                 c2=c11.c2[sub].contiguous())
+    check(len({tuple(w.fpack.tolist()) for w in cp.windows}) == P11,
+          "drift_path_mc: the plain-checked windows share constants")
+    got_p = vomb.ovn_mc_forward_mb_tracked(es_p, d_p, sil[sub], cp)
+    p11_ms, plain = cuda_ms(lambda: vomb.ovn_mc_forward_mb_plain(
+        es_p, d_p, sil[sub], cp), reps=1)
+    k11_pairs = list(zip(got_p, plain))
+    k11_err = max_abs_err(k11_pairs)
+    check(all(torch.equal(a, b) for a, b in k11_pairs),
+          "drift_path_mc: kernel 11's per-window mode differs from its "
+          "plain version")
+    lab_p = vomb.ovn_backtrace_mb(*got_p, cp)
+    check(torch.equal(lab_p, vomb.ovn_backtrace_mb_plain(*plain, cp).to(
+        torch.int16)), "drift_path_mc: kernel 4 differs from its plain "
+          "version on the per-window output")
+    secs["kernel11_vs_plain"] = time.perf_counter() - t_part
+    flags, rings, rowcol, xT = got
+    k11_bytes = (es.numel() * 4 + d.numel() * 4 + B
+                 + c11.fpack.numel() * 4 + c11.ipack.numel() * 4
+                 + c11.c2.numel() * 4 + flags.numel() + rings.numel()
+                 + rowcol.numel() + B * 4)
+    row11 = {"N": N, "B": B, "W": W, "K": K, "S": c11.S,
+             "ms": k11_ms, "plain_ms": p11_ms, "plain_windows": P11,
+             "plain_steps": W11, "max_abs_err": k11_err,
+             "one_window_shared_ms": one_ms,
+             "us_per_window_step": k11_ms * 1e3 / W,
+             "bound_ops_ms": ovn_fwd_ops(B, W, N, K - 1, streams=True)
+             / FP32_OPS_PER_S * 1e3,
+             "bound_bytes_ms": k11_bytes / HBM_BYTES_PER_S * 1e3}
+    row11["bound_ms"], row11["bound_by"] = bound_of(row11)
+    del es, d, got, flags, rings, rowcol, labels, plain, got_p
+
+    # ---- a constant track decodes as the stationary kernel-11 decode ---
+    t_part = time.perf_counter()
+    const = dataclasses.replace(
+        tr, lp=np.tile(lp, (B, 1)), mu=np.tile(mu, (B, 1, 1, 1)),
+        sigma=np.tile(sg, (B, 1)))
+    m_const = tad.decode_tracked_mc(const, yc)
+    m_stat_w = mcm.fit_spiking_model_mc_fast(tm0, yc, L=L, H=H)
+    const_equal = bool(np.array_equal(m_const.ml_seq, m_stat_w.ml_seq))
+    const_agree = float((m_const.ml_seq == m_stat_w.ml_seq).mean())
+    secs["constant_track"] = time.perf_counter() - t_part
+
+    # ---- the tracked posteriors, overlaps off (S=178) ------------------
+    t_part = time.perf_counter()
+    t = time.perf_counter()
+    p32 = tpost.onset_posteriors_tracked_mc(tr_p, yc[:Tp])
+    post_s = time.perf_counter() - t
+    t = time.perf_counter()
+    p64, p64_s = ref_p.result()
+    secs["cpu_worker_wait"] = time.perf_counter() - t
+    post_err = float(np.abs(p32 - p64).max())
+    secs["posteriors"] = time.perf_counter() - t_part
+    n_chunks = T // chunk
+    emit({"phase": "drift_path_mc", "N": N, "K": K, "C": C, "S": c11.S,
+          "T": T, "chunk": tr.chunk, "forget": tr.forget, "B": B, "W": W,
+          "card": card, "fit_seconds": fit_s, "samples_per_s": T / fit_s,
+          "track_seconds": track_s, "decode_seconds": decode_s,
+          "decode_host_ll_seconds": host_ll_s,
+          "fit_launches": fit_launches,
+          "onset_errors_tracked": e_tracked,
+          "onset_errors_stationary": e_static,
+          "onsets_true": [int((truth[n] == 1).sum()) for n in range(N)],
+          "seams": B - 1, "seams_repaired": m.seams_repaired,
+          "ll": m.ll,
+          "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
+                                   float(np.abs(tr.mu[-1]).max())],
+          "kernel11_per_window": row11,
+          "constant_track_labels_equal_stationary": const_equal,
+          "constant_track_agreement": const_agree,
+          "posteriors": {"T": Tp, "S": tr_p.model_at(0).state_space.nstates,
+                         "seconds": post_s, "f64_seconds": p64_s,
+                         "f64_device": "cpu",
+                         "max_abs_err_vs_f64": post_err,
+                         "expected_onsets": p32.sum(axis=0).tolist()},
+          "seconds_by_part": secs})
+    check(m.ml_seq.shape == (T,) and np.isfinite(m.ll),
+          "drift_path_mc: output malformed")
+    check(fit_launches["ovn_mc_forward_mb_tracked"] == 1
+          and fit_launches["ovn_backtrace_mb"] == 1,
+          f"drift_path_mc: kernel 11 + 4 launches {fit_launches}")
+    check(fit_launches["em_forward_mb_mc"] >= n_chunks
+          and fit_launches["em_backward_mb_mc"] >= n_chunks,
+          f"drift_path_mc: the tracking did not run kernels 12-13 on every "
+          f"chunk {fit_launches}")
+    check(e_tracked < e_static, f"drift_path_mc: tracked onset errors "
+          f"{e_tracked} not below the stationary decode's {e_static}")
+    check(const_equal, "drift_path_mc: a constant track's labels differ from "
+          f"the stationary kernel-11 decode's ({const_agree})")
+    check(p32.shape == (Tp, N) and np.isfinite(p32).all(),
+          "drift_path_mc: posteriors malformed")
+    # the float32 floor (ROADMAP §3): the run is the plain float32 engines
+    # themselves, so their own error is the witness, capped at 1e-3
+    check(post_err <= 1e-3, f"drift_path_mc: posteriors {post_err} from the "
+          "float64 run (> 1e-3)")
+    return {"row11": row11, "fit_launches": fit_launches,
+            "cli": (tm0, yc, m)}
 
 
 def events_path(dev, card, sc, n3, mc6, drift, L=8192, H6=256, R=6,
@@ -2478,8 +2790,8 @@ def dense_seams(y, temps, L, halfwidth):
                 t += K
 
 
-def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
-             L=8192):
+def cli_path(dev, card, cpu, sc, config6_, drift, rows2, mc_drift,
+             T_mc=1 << 14, L=8192):
     """The CLI's body on arrays (hmmspikesorter_torch.cli._sort_loaded, all
     of sort_data after the HDF5 loaders), writing the MAT file with
     scipy.io.savemat under build/cli_path/ and reading it back:
@@ -2504,7 +2816,11 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
       (e) --channels all --engine fast on a 2-row recording (`rows2`: the
           rows and their per-channel library decodes from events_path):
           one launch each of kernels 1 and 2, mlseq and ll equal the
-          library decodes'."""
+          library decodes';
+      (f) --multichannel --adaptive on drift_path_mc's drifting config-6
+          recording (`mc_drift`; T=2^20; kernels 12-13, kernel 11's
+          per-window mode + kernel 4): mlseq and ll equal the library's
+          fit_spiking_model_adaptive_mc decode."""
     import pathlib
 
     import scipy.io
@@ -2514,7 +2830,7 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
     from hmmspikesorter_torch.io.extraction import unroll_mlseq
     from hmmspikesorter_torch.models import api
     from hmmspikesorter_torch.models import multichannel as mcm
-    from hmmspikesorter_torch.ops import gamma_ov2
+    from hmmspikesorter_torch.ops import fb_mb, gamma_ov2
     from hmmspikesorter_torch.ops import viterbi_mb as vmb
     from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
 
@@ -2615,6 +2931,15 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
                       for m in lib2])
     secs["channels_all_cli"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
+    tm_g, yc_g, lib_g = mc_drift
+    out_g, wall_g, la_g = run(
+        tm_g, np.ascontiguousarray(yc_g.T), "adaptive_mc",
+        cli._options(adaptive=True, multichannel=True),
+        (fb_mb.em_forward_mb_mc, fb_mb.em_backward_mb_mc,
+         vomb.ovn_mc_forward_mb_tracked, vomb.ovn_backtrace_mb))
+    ref_g = unroll_mlseq(lib_g.ml_seq, tm_g.state_space.states) + 1
+    secs["adaptive_mc_cli"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     lib_b = mcm.fit_spiking_model_mc_fast(tm6, yc_b, L=L)
     ref_b = unroll_mlseq(lib_b.ml_seq, tm6.state_space.states) + 1
     t = time.perf_counter()
@@ -2641,6 +2966,9 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
                      "samples_per_s": len(y) / wall_e, "launches": la_e},
           "channels_all": {"channels": len(ys2), "T": ys2.shape[1],
                            "seconds": wall_f, "launches": la_f},
+          "adaptive_mc": {"T": len(yc_g), "seconds": wall_g,
+                          "samples_per_s": len(yc_g) / wall_g,
+                          "launches": la_g, "keys": sorted(out_g)},
           "adaptive": {"T": len(y_d), "seconds": wall_d,
                        "samples_per_s": len(y_d) / wall_d,
                        "launches": la_d, "keys": sorted(out_d),
@@ -2682,6 +3010,14 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, T_mc=1 << 14,
           "decodes")
     check(la_f == {"ov2_forward_mb": 1, "ov2_backtrace_mb": 1},
           f"cli_path channels_all: launches {la_f}, expected one each")
+    check(set(out_g) == keys - {"confidence", "qc"}
+          and np.array_equal(out_g["mlseq"], ref_g)
+          and out_g["ll"] == lib_g.ll,
+          "cli_path adaptive_mc: labels or ll differ from the library "
+          "decode")
+    check(la_g["ovn_mc_forward_mb_tracked"] == 1
+          and la_g["ovn_backtrace_mb"] == 1 and la_g["em_forward_mb_mc"] > 0,
+          f"cli_path adaptive_mc: launches {la_g}")
     check(lib_s.seams_repaired > 0,
           f"cli_path: no seam was repaired ({lib_s.seams_repaired})")
     check(np.array_equal(out_s["mlseq"], ref_s),
@@ -3365,11 +3701,12 @@ def main():
     drift = drift_path(dev, card, cpu, temps, lp, sigma, tiles)
     mc = mc_phases(dev, card)
     mcp = mc_posterior_phases(dev, card, mc["config6"])
+    mc_drift = drift_path_mc(dev, card, cpu)
     rows2 = events_path(dev, card, (tm, y, decoded_n2),
                         (tm3, y3, decoded_n3, H3),
                         (mc["config6"], mc["decoded"]), drift["cli"])
     cli_path(dev, card, cpu, (tm, y, decoded_n2, temps), mc["config6"],
-             drift["cli"], rows2)
+             drift["cli"], rows2, mc_drift["cli"])
     cpu.close()
 
     def gamma_entry(name, source, line, launches, row):
@@ -3479,6 +3816,10 @@ def main():
                     drift["rows17"]["w512"]["gamma"]),
         gamma_entry("ov2_forward_cuda", "viterbi_ov2_fwd.cu",
                     "pallas_viterbi.py:55", r1["launches"], r1),
+        gamma_entry("ovn_mc_forward_mb_tracked", "viterbi_ovn_mc_fwd.cu",
+                    "pallas_viterbi_ovn_mb.py:739",
+                    mc_drift["fit_launches"]["ovn_mc_forward_mb_tracked"],
+                    mc_drift["row11"]),
     ]})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "limit_seconds": 1200})

@@ -30,10 +30,8 @@ jointly), `--train` (learn the templates from the recording first;
 posterior confidence and per-unit quality control), `--adaptive` with
 `--adapt-chunk` and `--forget` (drift-adaptive: the templates tracked
 through the recording by online EM, each chunk decoded and scored under its
-own; one channel or `--channels all`, train/adaptive.py).
-
-Not ported yet, and raising NotImplementedError: `--adaptive
---multichannel` (ROADMAP §1 item 5, the multichannel half).
+own; one channel, `--channels all` or `--multichannel`,
+train/adaptive.py).
 
 `--device cuda` (the default) runs on the GPU and raises without one;
 `--device cpu` runs the plain PyTorch versions on the CPU in float64.
@@ -273,11 +271,6 @@ def _options(config=None, *, engine=None, chunksize=None, max_templates=None,
         raise ValueError("multichannel (joint decode) and channels='all' "
                          "(independent per-channel decode) are mutually "
                          "exclusive")
-    if o.adaptive and o.multichannel:
-        raise NotImplementedError(
-            "--adaptive --multichannel needs the multichannel drift tracking "
-            "(track_drift_mc, fit_spiking_model_adaptive_mc), ROADMAP §1 "
-            "item 5, not yet ported")
     return o
 
 
@@ -333,8 +326,9 @@ def sort_data(inputfile: str | None, datafile: str, outputfile: str, *,
     templates; composes with train (track from the learned templates),
     confidence (each spike scored under its chunk's parameters) and
     channels="all" (independent per-channel tracks,
-    train/adaptive.track_drift_batched). With multichannel=True it raises
-    NotImplementedError (ROADMAP §1 item 5). The config's decode.transfer
+    train/adaptive.track_drift_batched) and multichannel=True (one joint
+    track, models/multichannel.fit_spiking_model_adaptive_mc). The config's
+    decode.transfer
     ("events": the sparse onset transfer) reaches every fast decode. A
     config.Config supplies defaults for anything not passed explicitly.
     """
@@ -588,7 +582,13 @@ def _sort_loaded_mc(tmc, data, outputfile, o, *, dosave, progress, config,
         yc = np.ascontiguousarray(data[: tmc.n_channels].T)  # (T, C)
     guard_inputs(yc.T, tmc.sigmas)
     print("Fitting model...")
-    if o.engine == "fast":
+    if o.adaptive:
+        from .models.multichannel import fit_spiking_model_adaptive_mc
+
+        model = fit_spiking_model_adaptive_mc(
+            tmc, np.asarray(yc, np.float64), chunk=o.adapt_chunk,
+            forget=o.forget, transfer=o.transfer, **kw)
+    elif o.engine == "fast":
         model = fit_spiking_model_mc_fast(
             tmc, yc,
             L=pick(UNSET, dc("L"), 8192),
@@ -691,10 +691,9 @@ def main(argv=None) -> int:
                    help="drift-adaptive decode: track the templates "
                         "through the recording with online EM and decode "
                         "every chunk with its own adapted templates "
-                        "(electrode-drift robustness; one channel or "
-                        "--channels all; overrides --engine; composes with "
-                        "--train and --confidence; with --multichannel "
-                        "not ported yet: raises)")
+                        "(electrode-drift robustness; one channel, "
+                        "--channels all or --multichannel; overrides "
+                        "--engine; composes with --train and --confidence)")
     p.add_argument("--adapt-chunk", type=int, default=None,
                    help="adaptive tracking chunk = decode window in "
                         "samples (default 32768)")

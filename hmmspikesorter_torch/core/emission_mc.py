@@ -172,3 +172,76 @@ def mc_streams(yc, tables: MCTables, dtype=None, device=None):
     return mc_streams_from(yc, *table_tensors(tables, dtype=dtype,
                                               device=device),
                            tables.N, tables.K - 1)
+
+
+class MCTablesDevice:
+    """MCTables' constants computed in torch from tensors, with optional
+    leading axes: mu (..., K, N, C), sigmas (..., C) (the drift-tracked
+    decode and posteriors give each halo window its own chunk's templates,
+    the leading axis one row a window; the JAX class of this name computes
+    them inside its vmapped program). The expressions and association are
+    MCTables'; they run in float64 and are stored in `dtype` (default
+    float64), on mu's device (a numpy mu goes to `device`, default the CPU).
+
+    Attributes (leading axes first): zscale (C,), silent_sum (C,), u_const
+    (), b_sil (), c1 (N, K-1), delta (C, N(K-1)), c2_stack (P, K-1, K-1)
+    (pairs i-major, None for N = 1), x2_01 (K-1, K-1) (the N = 2 cross form,
+    else None). `streams(yc, i)` gives (es, d) of yc under row i's tables
+    (mc_streams_from)."""
+
+    def __init__(self, mu, sigmas, dtype=None, device=None):
+        f64 = torch.float64
+        dev = mu.device if isinstance(mu, torch.Tensor) else device
+        mu = torch.as_tensor(mu).to(device=dev, dtype=f64)
+        sigmas = torch.as_tensor(sigmas).to(device=mu.device, dtype=f64)
+        K, N, C = mu.shape[-3:]
+        inv2 = 1.0 / (2.0 * sigmas * sigmas)             # (..., C)
+        zscale = 1.0 / (sigmas * sigmas)
+        silent_sum = mu[..., 0, :, :].sum(dim=-2)        # (..., C)
+        u_const = torch.sum(-HALF_LOG_2PI - torch.log(sigmas), dim=-1)
+        b_sil = torch.sum(silent_sum * silent_sum * inv2, dim=-1)
+
+        # single-active mean: mu[k, n] + (silent_sum - mu[0, n])
+        other = silent_sum[..., None, :] - mu[..., 0, :, :]   # (..., N, C)
+        sm = (mu[..., 1:, :, :].transpose(-3, -2)
+              + other[..., :, None, :])                  # (..., N, K-1, C)
+        c1 = (torch.sum(sm * sm * inv2[..., None, None, :], dim=-1)
+              - b_sil[..., None, None])
+
+        dmu = mu[..., 1:, :, :] - mu[..., :1, :, :]       # (..., K-1, N, C)
+        delta = dmu.permute(*range(dmu.dim() - 3), -1, -2, -3).reshape(
+            *mu.shape[:-3], C, N * (K - 1))
+
+        c2s = []
+        for n in range(N):
+            for m in range(n + 1, N):
+                rest = ((silent_sum - mu[..., 0, n, :])
+                        - mu[..., 0, m, :])[..., None, None, :]
+                pm = ((mu[..., 1:, n, :][..., :, None, :]
+                       + mu[..., 1:, m, :][..., None, :, :]) + rest)
+                c2s.append(torch.sum(pm * pm * inv2[..., None, None, :],
+                                     dim=-1) - b_sil[..., None, None])
+        c2_stack = torch.stack(c2s, dim=-3) if c2s else None
+        x2_01 = ((c1[..., 0, :, None] + c1[..., 1, None, :])
+                 - c2_stack[..., 0, :, :]) if N == 2 else None
+
+        dt = f64 if dtype is None else dtype
+
+        def out(x):
+            return None if x is None else x.to(dt).contiguous()
+
+        self.zscale, self.silent_sum = out(zscale), out(silent_sum)
+        self.u_const, self.b_sil = out(u_const), out(b_sil)
+        self.c1, self.delta = out(c1), out(delta)
+        self.c2_stack, self.x2_01 = out(c2_stack), out(x2_01)
+        self.K, self.N, self.C = K, N, C
+
+    def streams(self, yc, i=None):
+        """(es (..., T), d (..., T, N, K-1)) of a tensor yc (..., T, C) in
+        the tables' dtype and device, under the tables of leading index i
+        (None: tables without a leading axis)."""
+        rows = (self.zscale, self.silent_sum, self.u_const, self.b_sil,
+                self.delta)
+        if i is not None:
+            rows = tuple(r[i] for r in rows)
+        return mc_streams_from(yc, *rows, self.N, self.K - 1)

@@ -1263,6 +1263,79 @@ def onset_posteriors_tracked(track, y, *, L: int = 4096,
                          W=W, proj_d=proj_d, batch_windows=batch_windows)
 
 
+def _mc_extra_tables_device(engine: str, tb, i):
+    """The MC engine's energy tables after (lp,) from row i of an
+    emission_mc.MCTablesDevice: the _mc_extra_tables tuple."""
+    if engine == "nov":
+        return (tb.c1[i],)
+    if engine == "ov2":
+        return (tb.c1[i], tb.x2_01[i])
+    return (tb.c1[i], tb.c2_stack[i])
+
+
+def onset_posteriors_tracked_mc(track, yc, *, L: int = 4096,
+                                H: int | None = None, proj=None,
+                                batch_windows: int | None = None,
+                                device=None, dtype=None) -> np.ndarray:
+    """Multichannel onset marginals under a drift track, the mirror of
+    onset_posteriors_tracked: each halo window of the (T, C) recording is
+    evaluated under the chunk owning its core (_window_owner), its streams
+    and energy tables from that chunk's templates
+    (emission_mc.MCTablesDevice), the windows of one chunk in one batch.
+    The plain MC block engines on every device, as the JAX package runs its
+    vmapped XLA forward-backward here. A signal too short for windowing
+    falls back to per-chunk haloed exact two-passes (_tracked_fallback)."""
+    from .emission_mc import MCTablesDevice
+
+    dev, dt = _resolve(device, dtype)
+    yc = np.asarray(yc)
+    if yc.ndim != 2:
+        raise ValueError("onset_posteriors_tracked_mc takes (T, C)")
+    T = yc.shape[0]
+    if track.bounds[-1][1] != T:
+        raise ValueError("track does not cover this signal "
+                         f"({track.bounds[-1]} vs T={T})")
+    tm_last = track.model_at(track.n_chunks - 1)
+    if H is None:
+        H = max(4 * track.mu.shape[1], 64)
+    L = min(L, track.chunk)
+    W = L + 2 * H
+    B = -(-T // L)
+    if H < 1 or L < 2 * H or B < 2 or T < W:
+        return _tracked_fallback(
+            track, yc, proj, H,
+            lambda tm, yy, pr: onset_posteriors_mc(tm, yy, proj=pr,
+                                                   device=dev, dtype=dt))
+    _check_window_f32(W, dt)
+    owner = _window_owner(B, L, track)
+    if proj is None:
+        proj = onset_projection(tm_last.state_space.states)
+    proj_d = as_float(proj, dt, dev)
+    engine = _sc_engine_name(tm_last)
+    fb = _MC_FB[engine]
+    tb = MCTablesDevice(as_float(track.mu, torch.float64, dev),
+                        as_float(track.sigma, torch.float64, dev), dt)
+    lp = as_float(track.lp, dt, dev)
+
+    def gamma_of(yw, lo):
+        # the windows of one chunk share its tables: one batch each
+        own = owner[lo:lo + yw.shape[0]]
+        out = None
+        for c in np.unique(own):
+            idx = torch.as_tensor(np.nonzero(own == c)[0], device=dev)
+            g = _windowed_gamma(
+                fb, tb.streams(yw[idx], c),
+                (lp[c], *_mc_extra_tables_device(engine, tb, c)), proj_d)
+            if out is None:
+                out = g.new_empty((yw.shape[0],) + g.shape[1:])
+            out[idx] = g
+        return out
+
+    return _windowed_run(as_float(yc, dt, dev), gamma_of, T=T, L=L, H=H,
+                         B=B, W=W, proj_d=proj_d,
+                         batch_windows=batch_windows)
+
+
 # --------------------------------------------------------------------------
 # API
 # --------------------------------------------------------------------------
@@ -1279,19 +1352,15 @@ def model_posteriors(model, *, block: int = 8192, windowed: bool = False,
 
     A drift-decoded model (it carries `.track`) is scored under its
     chunks' own parameters (onset_posteriors_tracked, whatever `windowed`
-    says; kernels 17-18 on the card). Multichannel tracks are not ported yet
-    (ROADMAP §1 item 5) and raise NotImplementedError."""
+    says; kernels 17-18 on the card), a multichannel one by
+    onset_posteriors_tracked_mc."""
     tm = model.template_model
     y = np.asarray(model.y)
     track = getattr(model, "track", None)
     if track is not None:
-        if y.ndim == 2:
-            raise NotImplementedError(
-                "posteriors of a multichannel drift-decoded model need "
-                "onset_posteriors_tracked_mc, ROADMAP §1 item 5 "
-                "(drift-adaptive, multichannel half), not yet ported")
-        return onset_posteriors_tracked(track, y, device=device,
-                                        dtype=dtype)
+        tracked = (onset_posteriors_tracked_mc if y.ndim == 2
+                   else onset_posteriors_tracked)
+        return tracked(track, y, device=device, dtype=dtype)
     kw = dict(device=device, dtype=dtype)
     if y.ndim == 2:
         if windowed:

@@ -15,6 +15,15 @@
 //   pair q = (i, j) at (a, b) ((es + d[i, a]) + d[j, b]) - c2[q, a, b].
 // The packed outputs are kernel 3's, so kernel 4 decodes them unchanged.
 //
+// Per-window constants (the drift-tracked decode, where each window is
+// decoded under its own chunk's templates): block b reads fconst + b *
+// f_stride and c2 + b * c2_stride, so that each window's lp, m*lpz, lp_i +
+// lp_j, c1 and c2 are its own; a stride of 0 is the shared launch. The
+// topology tables are the same for every window, and nothing else changes:
+// the expressions, their association and the tie-breaks are the shared
+// launch's, so window b's output is that of a one-window shared launch
+// under its constants.
+//
 // What bounds it on an H100: operations, as kernel 3 (the emission is 2-3
 // adds a state instead of 4 operations); bytes: es and d are 4 (1 + N(K-1))
 // bytes a step (712 at N=3, K=60), read once, plus the choices written.
@@ -398,9 +407,9 @@ __global__ void __launch_bounds__(NT, CTAS)
 ovn_mc_cells_kernel(const float* __restrict__ es,
                     const float* __restrict__ d,
                     const uint8_t* __restrict__ sil, int W, int Km1,
-                    const float* __restrict__ fconst,
-                    const float* __restrict__ c2, uint8_t* __restrict__ flags,
-                    uint8_t* __restrict__ rings,
+                    const float* __restrict__ fconst, int f_stride,
+                    const float* __restrict__ c2, int c2_stride,
+                    uint8_t* __restrict__ flags, uint8_t* __restrict__ rings,
                     uint8_t* __restrict__ rowcol, int32_t* __restrict__ xT) {
   extern __shared__ float smem[];
   __shared__ float red_v[NT / 32];
@@ -411,6 +420,9 @@ ovn_mc_cells_kernel(const float* __restrict__ es,
   float* st = smem;
   const int b = blockIdx.x;
   const int u = static_cast<int>(threadIdx.x) - ovc::kFixed;
+  // this window's constants: a stride of 0 shares one set among all
+  fconst += static_cast<size_t>(b) * f_stride;
+  c2 += static_cast<size_t>(b) * c2_stride;
   StreamCells<N> em(es + static_cast<size_t>(b) * W,
                     d + static_cast<size_t>(b) * W * N * M,
                     fconst + 5 + N + P, c2, c2 + M + 1 + u, st + 2 * S, W, M);
@@ -501,13 +513,15 @@ ovn_mc_general_kernel(const float* __restrict__ es,
                       const float* __restrict__ d,
                       const uint8_t* __restrict__ sil, int W, int N, int Km1,
                       const float* __restrict__ fconst, int n_f,
-                      const int32_t* __restrict__ itab, int n_i,
-                      const float* __restrict__ c2,
+                      int f_stride, const int32_t* __restrict__ itab,
+                      int n_i, const float* __restrict__ c2, int c2_stride,
                       uint8_t* __restrict__ flags, uint8_t* __restrict__ rings,
                       uint8_t* __restrict__ rowcol, int32_t* __restrict__ xT) {
   extern __shared__ float smem[];
   __shared__ float red_v[ovn::kThreads / 32];
   __shared__ int red_i[ovn::kThreads / 32];
+  fconst += static_cast<size_t>(blockIdx.x) * f_stride;
+  c2 += static_cast<size_t>(blockIdx.x) * c2_stride;
 
   const int P = N * (N - 1) / 2;
   const int S = 1 + N * Km1 + P * Km1 * Km1;
@@ -532,8 +546,8 @@ ovn_mc_general_kernel(const float* __restrict__ es,
 }
 
 using CellsFn = void (*)(const float*, const float*, const uint8_t*, int,
-                         int, const float*, const float*, uint8_t*, uint8_t*,
-                         uint8_t*, int32_t*);
+                         int, const float*, int, const float*, int, uint8_t*,
+                         uint8_t*, uint8_t*, int32_t*);
 
 // The cell-map kernels: (N, threads, cells a thread, CTAs an SM the
 // registers are capped for). N <= 3: R, the cells of a diagonal piece; the
@@ -590,19 +604,26 @@ CellsFn cells_checked(int N, int Km1, int threads, int slots, int ctas,
 // threads, slots, ctas and smem: the block shape of
 // ops/viterbi_ovn_mb.ovn_mc_launch_plan (threads, interior cells a thread,
 // CTAs an SM, dynamic shared-memory bytes), checked here; n_c2 the floats
-// of c2 (at least the plan's: the wrapper pads it). N >= 6 takes the
-// general forward: 1024 threads, slots 0, 1 CTA and its shared memory.
+// of c2 a window (at least the plan's: the wrapper pads it). N >= 6 takes
+// the general forward: 1024 threads, slots 0, 1 CTA and its shared memory.
 // fconst/itab are ovn_mc_consts' fpack/ipack (the cell map reads only
-// fpack: its topology is compiled in).
+// fpack: its topology is compiled in). f_stride and c2_stride: the floats
+// between two windows' fconst and c2 (per-window constants, each window its
+// own row of n_f and of n_c2 floats), or 0 for one set that every window
+// shares; the topology tables are shared either way.
 extern "C" int ovn_mc_forward_mb(const float* es, const float* d,
                                  const uint8_t* sil, int B, int W, int N,
                                  int Km1, const float* fconst, int n_f,
-                                 const int32_t* itab, int n_i,
-                                 const float* c2, int n_c2, uint8_t* flags,
-                                 uint8_t* rings, uint8_t* rowcol, int32_t* xT,
-                                 int threads, int slots, int ctas, int smem,
+                                 int f_stride, const int32_t* itab, int n_i,
+                                 const float* c2, int n_c2, int c2_stride,
+                                 uint8_t* flags, uint8_t* rings,
+                                 uint8_t* rowcol, int32_t* xT, int threads,
+                                 int slots, int ctas, int smem,
                                  void* stream) {
   if (B <= 0 || W <= 0) return 0;
+  if ((f_stride != 0 && f_stride < n_f) ||
+      (c2_stride != 0 && c2_stride < n_c2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = N * (N - 1) / 2;
   if (N >= 2 && N <= 5) {
@@ -613,8 +634,8 @@ extern "C" int ovn_mc_forward_mb(const float* es, const float* d,
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fn<<<B, threads, smem, st>>>(es, d, sil, W, Km1, fconst, c2, flags,
-                                 rings, rowcol, xT);
+    fn<<<B, threads, smem, st>>>(es, d, sil, W, Km1, fconst, f_stride, c2,
+                                 c2_stride, flags, rings, rowcol, xT);
     return static_cast<int>(cudaGetLastError());
   }
   if (N < 2 || Km1 < 1 || Km1 > ovn::kLanes || threads != ovn::kThreads ||
@@ -626,8 +647,8 @@ extern "C" int ovn_mc_forward_mb(const float* es, const float* d,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ovn_mc_general_kernel<<<B, ovn::kThreads, smem, st>>>(
-      es, d, sil, W, N, Km1, fconst, n_f, itab, n_i, c2, flags, rings, rowcol,
-      xT);
+      es, d, sil, W, N, Km1, fconst, n_f, f_stride, itab, n_i, c2, c2_stride,
+      flags, rings, rowcol, xT);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,7 +14,11 @@ joint per-channel Gaussian evidence (core/emission_mc.py).
   streaming, dense or events transfer, with seam repair; on a CUDA device
   with overlaps the blocks decode through kernels 11 and 4
   (ops/viterbi_ovn_mb.py).
-* `predict_mc` — per-channel reconstruction.
+* `predict_mc` — per-channel reconstruction (a drift-decoded model's each
+  chunk under its own templates).
+* `fit_spiking_model_adaptive_mc` — drift-adaptive decode: the templates
+  tracked through the recording, each chunk decoded under its own
+  (train/adaptive.track_drift_mc, decode_tracked_mc).
 * `refit_template_model_mc`, `fit_mc` — MC Baum-Welch (train/em_mc.py).
 
 Entry points run on `cuda` unless `device="cpu"` is passed; the working
@@ -245,16 +249,22 @@ def predict_mc(model: HMMSpikingModel, *, device=None,
                dtype=None) -> np.ndarray:
     """Per-channel reconstruction: the (T, C) denoised signal, the
     C-channel generalisation of reconstruct_signal
-    (src/reconstruction.jl:1-9). Drift-decoded models (carrying `.track`)
-    need the drift-adaptive slice (ROADMAP §1 step 11)."""
-    if getattr(model, "track", None) is not None:
-        raise NotImplementedError(
-            "predict_mc of a drift-decoded model needs the drift-adaptive "
-            "slice of the port (ROADMAP §1 step 11)")
+    (src/reconstruction.jl:1-9). A drift-decoded model (it carries a
+    multichannel `.track`) reconstructs each chunk span with its own
+    tracked templates (the api.predict rule)."""
     dev, dt = _resolve(device, dtype)
     tm = model.template_model
-    smu_c = state_means_mc(tm.state_space.states, as_float(tm.mu, dt, dev))
-    return smu_c.cpu().numpy()[np.asarray(model.ml_seq)]
+    states = tm.state_space.states
+    x = np.asarray(model.ml_seq)
+    track = getattr(model, "track", None)
+    if track is not None and track.is_mc:
+        out = np.empty((len(x), tm.n_channels))
+        for c, (s, e) in enumerate(track.bounds):
+            smu_c = state_means_mc(states, as_float(track.mu[c], dt, dev))
+            out[s:e] = smu_c.cpu().numpy()[x[s:e]]
+        return out
+    smu_c = state_means_mc(states, as_float(tm.mu, dt, dev))
+    return smu_c.cpu().numpy()[x]
 
 
 def refit_template_model_mc(model: HMMTemplateModelMC, yc, nsteps: int, *,
@@ -295,3 +305,31 @@ def fit_mc(yc, n_neurons: int = 3, K: int = 60, nsteps: int = 10, *,
     model, _, _ = train_model_mc(yc, n_neurons=n_neurons, K=K, nsteps=nsteps,
                                  device=device, dtype=dtype, **kwargs)
     return fit_spiking_model_mc(model, yc, device=device, dtype=dtype)
+
+
+def fit_spiking_model_adaptive_mc(templates: HMMTemplateModelMC, yc, *,
+                                  chunk: int = 32768, forget: float = 0.3,
+                                  inner_steps: int = 1, H: int | None = None,
+                                  repair: bool = True,
+                                  fb_mode: str | None = None,
+                                  transfer: str = "dense", device=None,
+                                  dtype=None) -> HMMSpikingModel:
+    """Drift-adaptive joint multichannel decode, the mirror of
+    models/api.fit_spiking_model_adaptive: online-EM template tracking over
+    (T, C) chunks (train/adaptive.track_drift_mc; kernels 12-13 on the
+    card), then every chunk decoded with its own adapted templates
+    (train/adaptive.decode_tracked_mc; kernel 11's per-window mode and
+    kernel 4). The returned model carries `seam_ok`, `seams_repaired`,
+    `spike_onsets` and `track`. With no template left it returns the
+    stationary paths' all-silent null model."""
+    from ..train.adaptive import decode_tracked_mc, track_drift_mc
+
+    if templates.n_neurons == 0:
+        return _all_silent_model(templates, np.asarray(yc, np.float64),
+                                 transfer="events")
+    dev, dt = _resolve(device, dtype)
+    tr = track_drift_mc(templates, yc, chunk=chunk, forget=forget,
+                        inner_steps=inner_steps, fb_mode=fb_mode, device=dev,
+                        dtype=dt)
+    return decode_tracked_mc(tr, yc, H=H, repair=repair, transfer=transfer,
+                             device=dev, dtype=dt)

@@ -54,11 +54,12 @@ def mc_em_nov(c1):
 def mc_em_ov2(c1, x2):
     """N=2 overlap stream emission in the cross form: (es_t, d_t) -> the
     flat (B, S) emission [es | e0 | e1 | ep k1-major] with
-    ep = ((e0 + e1) - es) + x2."""
+    ep = ((e0 + e1) - es) + x2. c1 (2, K-1) and x2 (K-1, K-1) shared, or
+    (B, 2, K-1) and (B, K-1, K-1), one row a window."""
     def em(es_t, d_t):
         e = es_t[:, None]
-        e0 = (e + d_t[:, 0]) - c1[0]
-        e1 = (e + d_t[:, 1]) - c1[1]
+        e0 = (e + d_t[:, 0]) - c1[..., 0, :]
+        e1 = (e + d_t[:, 1]) - c1[..., 1, :]
         ep = ((e0[:, :, None] + e1[:, None, :]) - e[:, :, None]) + x2
         return torch.cat([e, e0, e1, ep.reshape(e.shape[0], -1)], dim=1)
 
@@ -134,9 +135,11 @@ class _Ov2Dyn:
 
 
 def _ov2_dyn(lp, Km1, dtype, dev):
+    """The constants of lp (2,), or of lp (B, 2) one row a window."""
     lp = as_float(lp, dtype, dev)
-    lpz = torch.log1p(-torch.exp(torch.sum(lp)))
-    return _Ov2Dyn(Km1=Km1, lp0=lp[0], lp1=lp[1], lpz=lpz, two_lpz=2 * lpz)
+    lpz = torch.log1p(-torch.exp(torch.sum(lp, dim=-1)))
+    return _Ov2Dyn(Km1=Km1, lp0=lp[..., 0], lp1=lp[..., 1], lpz=lpz,
+                   two_lpz=2 * lpz)
 
 
 def _ov2_init(es0, d0, sil, em):
@@ -160,7 +163,11 @@ def _ov2_forward(es, d, sil, c: _Ov2Dyn, em):
 
 
 def _ov2_decode(es, d, sil, lp, c1, x2):
-    c = _ov2_dyn(lp, c1.shape[1], c1.dtype, c1.device)
+    """Cross-form N=2 decode of stream windows: lp (2,), c1 (2, K-1), x2
+    (K-1, K-1) shared by every window, or lp (B, 2), c1 (B, 2, K-1), x2 (B,
+    K-1, K-1), one row a window (kernel 16's per-window rows,
+    ops/viterbi_mb._ov2_transition)."""
+    c = _ov2_dyn(lp, c1.shape[-1], c1.dtype, c1.device)
     em = mc_em_ov2(c1, x2)
     flags, rings, xT = _ov2_forward(es, d, sil, c, em)
     return vmb.ov2_backtrace_mb_plain(flags, rings, xT, c.Km1), c, em

@@ -21,7 +21,10 @@ multi-channel front-end `_forward_native_mc`: the same dynamics (kernel
 6) with the emission read from the factorised streams es (B, W) and d (B,
 W, N, K-1) of core/emission_mc.py and the static energies c1, c2
 (`ovn_mc_kernel_ok`). Its packed output is kernel 3's, so kernel 4 decodes
-it, as the JAX package shares `_backtrace_native`. The plain versions are ops/ring_viterbi_ovn.py's
+it, as the JAX package shares `_backtrace_native`. Its per-window mode,
+`ovn_mc_forward_mb_tracked` (the drift-tracked MC decode), gives each window
+its own constants (`ovn_mc_consts_batched`: one row of the float pack and
+of c2 a window, read at a stride; the topology tables shared). The plain versions are ops/ring_viterbi_ovn.py's
 forward and backtrace, whose module docstring lists the candidate order,
 association and tie-breaks the kernels follow.
 
@@ -120,6 +123,50 @@ def ovn_mc_consts(lp, c1, c2, *, dtype, device) -> OvnMCConsts:
     fpack = torch.cat([m.mlpz, m.lp, m.lpij, m.em.c1.reshape(-1)])
     return OvnMCConsts(**_fields(m), fpack=fpack.contiguous(),
                        ipack=_ipack(m.tab))
+
+
+@dataclasses.dataclass(frozen=True)
+class OvnMCConstsBatched:
+    """Kernel 11's constants for B windows, each under its own (the
+    drift-tracked decode): `windows` the B OvnMCConsts of `ovn_mc_consts`,
+    which the plain version takes window by window; their float packs
+    stacked as `fpack` (B, n_f) and their pair energies as `c2` (B, P, K-1,
+    K-1), which the kernel reads at a stride a window. The topology tables
+    (`ipack`, `tab`) are the same for every window, and kernel 4 reads only
+    those."""
+
+    windows: tuple
+    fpack: torch.Tensor
+    c2: torch.Tensor
+
+    @property
+    def tab(self) -> rvo.OvnTables:
+        return self.windows[0].tab
+
+    @property
+    def ipack(self) -> torch.Tensor:
+        return self.windows[0].ipack
+
+    @property
+    def lp(self) -> torch.Tensor:
+        return self.windows[0].lp
+
+    N = property(lambda self: self.tab.N)
+    Km1 = property(lambda self: self.tab.Km1)
+    P = property(lambda self: self.tab.P)
+    S = property(lambda self: self.tab.S)
+
+
+def ovn_mc_consts_batched(lp, c1, c2, *, dtype,
+                          device) -> OvnMCConstsBatched:
+    """lp (B, N), c1 (B, N, K-1), c2 (B, P, K-1, K-1): each window's
+    `ovn_mc_consts`, computed as for a shared launch, then stacked."""
+    wins = tuple(ovn_mc_consts(lp[b], c1[b], c2[b], dtype=dtype,
+                               device=device) for b in range(len(lp)))
+    return OvnMCConstsBatched(
+        windows=wins,
+        fpack=torch.stack([w.fpack for w in wins]).contiguous(),
+        c2=torch.stack([w.em.c2 for w in wins]).contiguous())
 
 
 def ovn_smem_bytes(N: int, K: int) -> int:
@@ -578,11 +625,21 @@ def ovn_forward_mb_plain(y_win, sil, c: OvnConsts):
     return rvo.ovn_forward(y_win.to(c.lp.dtype), sil, c)
 
 
-def ovn_mc_forward_mb_plain(es_win, d_win, sil, c: OvnMCConsts):
+def ovn_mc_forward_mb_plain(es_win, d_win, sil, c):
     """Plain version of kernel 11: stream windows es (B, W), d (B, W, N,
     K-1), (B,) bool silent-start rows -> (flags, rings, rowcol, xT), packed
-    as kernel 3 packs them."""
+    as kernel 3 packs them. c is an OvnMCConsts shared by every window, or
+    an OvnMCConstsBatched: window b is then run alone under its own
+    constants, one window after another."""
     dt = c.lp.dtype
+    if isinstance(c, OvnMCConstsBatched):
+        if len(c.windows) != es_win.shape[0]:
+            raise ValueError("ovn_mc_forward_mb_plain: one set of constants "
+                             "a window")
+        outs = [rvo.ovn_forward((es_win[b:b + 1].to(dt),
+                                 d_win[b:b + 1].to(dt)), sil[b:b + 1], cb)
+                for b, cb in enumerate(c.windows)]
+        return tuple(torch.cat(v) for v in zip(*outs))
     return rvo.ovn_forward((es_win.to(dt), d_win.to(dt)), sil, c)
 
 
@@ -727,10 +784,12 @@ def ovn_mc_design(plan: OvnMCPlan, N: int, Km1: int) -> dict:
             "local_bytes": out[2]}
 
 
-def _mc_forward_launch(es_win, d_win, sil, c: OvnMCConsts, shape=None):
+def _mc_forward_launch(es_win, d_win, sil, c, shape=None):
     """Launches csrc/viterbi_ovn_mc_fwd.cu on stream windows with the block
     shape of `ovn_mc_plan_for` (`shape` forces one of MC_SHAPES[N]); c2
-    padded to the plan's `c2_floats`."""
+    padded to the plan's `c2_floats`. c: an OvnMCConsts for every window
+    (strides 0), or an OvnMCConstsBatched, one row of fpack and one padded
+    row of c2 a window (strides of one row)."""
     N, K1, P = c.N, c.Km1, c.P
     if not ovn_mc_kernel_ok(N, K1 + 1):
         raise ValueError(
@@ -739,32 +798,38 @@ def _mc_forward_launch(es_win, d_win, sil, c: OvnMCConsts, shape=None):
             f"memory)")
     B, W = es_win.shape
     sil8 = sil.to(torch.uint8).contiguous()
-    c2 = c.em.c2
+    batched = isinstance(c, OvnMCConstsBatched)
+    rows = (B,) if batched else ()
+    c2 = c.c2 if batched else c.em.c2
     _check_cuda("ovn_mc_forward_mb", es_win=(es_win, torch.float32),
                 d_win=(d_win, torch.float32), sil=(sil8, torch.uint8),
                 fpack=(c.fpack, torch.float32), ipack=(c.ipack, torch.int32),
                 c2=(c2, torch.float32))
     if (d_win.shape != (B, W, N, K1) or sil8.shape != (B,)
-            or c2.shape != (P, K1, K1)):
+            or c2.shape != (*rows, P, K1, K1)
+            or c.fpack.shape[:-1] != rows):
         raise ValueError("ovn_mc_forward_mb: shape mismatch")
     dev = es_win.device
     plan = ovn_mc_plan_for(B, N, K1, dev, shape)
-    c2p = c2.reshape(-1)
-    if plan.c2_floats > c2p.numel():
-        c2p = torch.cat([c2p, c2p.new_zeros(plan.c2_floats - c2p.numel())])
+    c2p = c2.reshape(*rows, -1)
+    if plan.c2_floats > c2p.shape[-1]:
+        c2p = torch.cat([c2p, c2p.new_zeros(
+            (*rows, plan.c2_floats - c2p.shape[-1]))], dim=-1).contiguous()
+    n_f, n_c2 = c.fpack.shape[-1], c2p.shape[-1]
     flags = torch.empty((B, W, 1 + N + P), dtype=torch.uint8, device=dev)
     rings = torch.empty((B, W, N, K1), dtype=torch.uint8, device=dev)
     rowcol = torch.empty((B, W, 2 * P, K1), dtype=torch.uint8, device=dev)
     xT = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _lib("viterbi_ovn_mc_fwd", "ovn_mc_forward_mb",
-              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P,
-               _P, _P, _I, _I, _I, _I, _P])
+              [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I,
+               _P, _P, _P, _P, _I, _I, _I, _I, _P])
     err = fn(es_win.data_ptr(), d_win.data_ptr(), sil8.data_ptr(), B, W, N,
-             K1, c.fpack.data_ptr(), c.fpack.numel(), c.ipack.data_ptr(),
-             c.ipack.numel(), c2p.data_ptr(), c2p.numel(), flags.data_ptr(),
-             rings.data_ptr(), rowcol.data_ptr(), xT.data_ptr(),
-             plan.threads, plan.cells_per_thread, plan.ctas_per_sm,
-             plan.smem_bytes, _stream(dev))
+             K1, c.fpack.data_ptr(), n_f, n_f if batched else 0,
+             c.ipack.data_ptr(), c.ipack.numel(), c2p.data_ptr(), n_c2,
+             n_c2 if batched else 0, flags.data_ptr(), rings.data_ptr(),
+             rowcol.data_ptr(), xT.data_ptr(), plan.threads,
+             plan.cells_per_thread, plan.ctas_per_sm, plan.smem_bytes,
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"ovn_mc_forward_mb: CUDA error {err} at launch")
     return flags, rings, rowcol, xT
@@ -782,6 +847,24 @@ def ovn_mc_forward_mb(es_win, d_win, sil, c: OvnMCConsts):
 
 
 ovn_mc_forward_mb.launches = 0
+
+
+def ovn_mc_forward_mb_tracked(es_win, d_win, sil,
+                              c: OvnMCConstsBatched):
+    """Kernel 11 in its per-window mode (the drift-tracked MC decode): each
+    window under its own constants, c from `ovn_mc_consts_batched`. CPU
+    tensors take `ovn_mc_forward_mb_plain`."""
+    if es_win.device.type == "cpu":
+        return ovn_mc_forward_mb_plain(es_win, d_win, sil, c)
+    if not isinstance(c, OvnMCConstsBatched):
+        raise ValueError("ovn_mc_forward_mb_tracked takes per-window "
+                         "constants")
+    out = _mc_forward_launch(es_win, d_win, sil, c)
+    ovn_mc_forward_mb_tracked.launches += 1
+    return out
+
+
+ovn_mc_forward_mb_tracked.launches = 0
 
 
 def ovn_decode_mb(y_win, sil, c: OvnConsts):
@@ -805,3 +888,10 @@ def ovn_mc_decode_mb_plain(es_win, d_win, sil, c: OvnMCConsts):
     """The same decode through the plain versions, on any device."""
     return ovn_backtrace_mb_plain(
         *ovn_mc_forward_mb_plain(es_win, d_win, sil, c), c)
+
+
+def ovn_mc_decode_mb_tracked(es_win, d_win, sil, c: OvnMCConstsBatched):
+    """(B, W) MC stream windows, each under its own constants -> (B, W)
+    labels through kernel 11's per-window mode and kernel 4."""
+    return ovn_backtrace_mb(*ovn_mc_forward_mb_tracked(es_win, d_win, sil,
+                                                       c), c)

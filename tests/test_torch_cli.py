@@ -260,15 +260,12 @@ def test_main_on_the_cpu_writes_the_mat_file(tmp_path):
     (["--adaptive", "--multichannel"], "item 5"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
-    """Item 5's flags raise; items 3 and 4 (the events transfer and the
-    batched decode) are ported and write the MAT file."""
+    """The flags of the roadmap's items 3, 4 and 5 (the events transfer, the
+    batched decode, the multichannel drift-adaptive decode) were once
+    unported and raised; each now writes the MAT file."""
     tfile, dfile, *_ = _write_inputs(tmp_path)
     argv = ["--inputfile", tfile, "--datafile", dfile, "--outputfile",
             str(tmp_path / "o.mat"), "--device", "cpu", *flags]
-    if item == "item 5":
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main(argv)
-        return
     assert tcli.main(argv) == 0
     back = scipy.io.loadmat(str(tmp_path / "o.mat"), squeeze_me=True)
     assert {"mlseq", "ll", "waveforms", "lp", "sigma"} <= set(back)

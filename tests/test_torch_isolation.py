@@ -147,6 +147,31 @@ def test_events_and_batched_functions_are_in_the_port():
             assert pathlib.Path(mod.__file__) in _port_files()
 
 
+@pytest.mark.parametrize("mod,names", [
+    ("train.adaptive", ("track_drift_mc", "_mc_win_engine",
+                        "_mc_win_streams", "_tracked_overlap_save_mc",
+                        "_tracked_overlap_save_mc_events",
+                        "_piecewise_path_ll_mc", "decode_tracked_mc")),
+    ("core.emission_mc", ("MCTablesDevice",)),
+    ("core.posterior", ("onset_posteriors_tracked_mc",
+                        "_mc_extra_tables_device")),
+    ("models.multichannel", ("fit_spiking_model_adaptive_mc",
+                             "predict_mc")),
+    ("ops.viterbi_ovn_mb", ("ovn_mc_consts_batched",
+                            "ovn_mc_forward_mb_tracked",
+                            "ovn_mc_decode_mb_tracked")),
+])
+def test_mc_drift_functions_are_in_the_port(mod, names):
+    """The multichannel drift-adaptive path's functions live in the scanned
+    modules (none of them reaches the JAX package)."""
+    import importlib
+
+    m = importlib.import_module(f"hmmspikesorter_torch.{mod}")
+    for name in names:
+        assert getattr(m, name).__module__ == m.__name__, name
+    assert pathlib.Path(m.__file__) in _port_files()
+
+
 def test_cli_imports_h5py_only_in_a_loader(tmp_path):
     """Importing hmmspikesorter_torch.cli loads no h5py (the GPU host has
     none); a loader imports it when it runs."""

@@ -1111,6 +1111,149 @@ def test_ovn_mc_kernel_equal_plain(cuda, N, K, C, B, W, silent):
     assert vomb.ovn_mc_forward_mb.launches == n_fwd + 1
 
 
+def _per_window_mc(N, K, C, B, W, seed, dev):
+    """Stream windows of an MC signal, each window with its own templates
+    (gains 1 + 0.2 b), and their per-window kernel-11 constants in float32:
+    (es, d, tables a window, lp (B, N), constants)."""
+    from hmmspikesorter_torch.core.emission_mc import MCTablesDevice
+
+    yc, mu, sigmas, lp = _mc_windows(N, K, C, B, W, seed)
+    g = 1.0 + 0.2 * np.arange(B)
+    tb = MCTablesDevice(mu[None] * g[:, None, None, None],
+                        np.tile(sigmas, (B, 1)) * np.sqrt(g)[:, None],
+                        torch.float32, dev)
+    y = torch.as_tensor(yc, dtype=torch.float32, device=dev)
+    es = torch.empty((B, W), device=dev)
+    d = torch.empty((B, W, N, K - 1), device=dev)
+    for b in range(B):
+        es[b], d[b] = tb.streams(y[b], b)
+    lpb = np.log(np.exp(lp)[None] * (0.5 + 0.5 * g / g.max())[:, None])
+    c = vomb.ovn_mc_consts_batched(lpb, tb.c1,
+                                   tb.c2_stack.reshape(B, -1, K - 1, K - 1),
+                                   dtype=torch.float32, device=dev)
+    return es, d, c
+
+
+@pytest.mark.parametrize("N,K,C,B,W", [
+    (2, 12, 3, 5, 130),
+    (2, 60, 4, 3, 300),
+    (2, 60, 2, 140, 40),      # N=2 there: two CTAs an SM
+    (3, 9, 3, 4, 129),
+    (3, 60, 4, 4, 301),
+    (4, 60, 4, 3, 257),       # c2 from global memory, at a window's stride
+    (5, 12, 2, 3, 97),
+    (6, 8, 2, 3, 50),         # N >= 6: ovn_fwd.cuh's general forward
+])
+def test_ovn_mc_kernel_per_window_equal_plain(cuda, N, K, C, B, W):
+    """Kernel 11 with per-window constants vs its batched plain version and
+    vs B one-window shared launches, each under its window's constants:
+    every packed output exact, at every block shape; kernel 4 on its
+    output; one launch on its own counter."""
+    es, d, c = _per_window_mc(N, K, C, B, W, N * 7 + K, cuda)
+    sil = torch.arange(B, device=cuda) % 2 == 0
+    n_pw = vomb.ovn_mc_forward_mb_tracked.launches
+    n_sh = vomb.ovn_mc_forward_mb.launches
+    got = vomb.ovn_mc_forward_mb_tracked(es, d, sil, c)
+    plain = vomb.ovn_mc_forward_mb_plain(es, d, sil, c)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for b, cb in enumerate(c.windows):
+        one = vomb.ovn_mc_forward_mb(es[b:b + 1], d[b:b + 1], sil[b:b + 1],
+                                     cb)
+        for a, r in zip(got, one):
+            assert torch.equal(a[b:b + 1], r)
+    for shape in vomb.MC_SHAPES.get(N, [None]):
+        forced = vomb._mc_forward_launch(es, d, sil, c, shape=shape)
+        torch.cuda.synchronize()
+        for a, b in zip(forced, plain):
+            assert torch.equal(a, b), shape
+    labels = vomb.ovn_backtrace_mb(*got, c)
+    assert torch.equal(labels, vomb.ovn_backtrace_mb_plain(*plain, c).to(
+        torch.int16))
+    assert vomb.ovn_mc_forward_mb_tracked.launches == n_pw + 1
+    assert vomb.ovn_mc_forward_mb.launches == n_sh + B
+    with pytest.raises(ValueError, match="per-window"):
+        vomb.ovn_mc_forward_mb_tracked(es, d, sil, c.windows[0])
+
+
+def test_tracked_mc_decode_runs_kernels_11_and_4(cuda, monkeypatch):
+    """decode_tracked_mc on the card in float32 launches kernel 11's
+    per-window mode and kernel 4 once each (N=3 and N=2) and, at N=3, gives
+    the labels of the same decode through their plain versions on the
+    card; a constant track gives the stationary kernel-11 decode's
+    labels."""
+    from hmmspikesorter_torch.models import multichannel as tmc
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    chunk, B, H = 1024, 4, 64
+    for N in (3, 2):
+        K = 12
+        mu, sigmas, lp = _mc_model(N, K, 3, seed=N)
+        yc = _mc_windows(N, K, 3, 1, B * chunk - 200, seed=N)[0][0]
+        T = len(yc)
+        g = 1.0 + 0.1 * np.arange(B)
+        tr = tad.DriftTrack(lp=np.tile(lp, (B, 1)),
+                            mu=mu[None] * g[:, None, None, None],
+                            sigma=np.tile(sigmas, (B, 1)), lls=np.zeros(B),
+                            bounds=[(s, min(s + chunk, T))
+                                    for s in range(0, T, chunk)],
+                            chunk=chunk, forget=0.5, allow_overlaps=True)
+        wr = (vomb.ovn_mc_forward_mb_tracked, vomb.ovn_backtrace_mb)
+        before = [w.launches for w in wr]
+        m = tad.decode_tracked_mc(tr, yc, H=H)
+        assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+        assert np.isfinite(m.ll) and m.ml_seq.shape == (T,)
+        if N == 3:
+            with monkeypatch.context() as mp:
+                mp.setattr(vomb, "ovn_mc_kernel_ok", lambda *a: False)
+                x_plain, _ = tad._tracked_overlap_save_mc(
+                    yc, tr.lp, tr.mu, tr.sigma, L=chunk, H=H, overlaps=True,
+                    device=cuda, dtype=torch.float32)
+            np.testing.assert_array_equal(m.ml_seq, x_plain.cpu().numpy())
+        const = tad.DriftTrack(lp=np.tile(lp, (B, 1)),
+                               mu=np.tile(mu, (B, 1, 1, 1)),
+                               sigma=np.tile(sigmas, (B, 1)),
+                               lls=np.zeros(B), bounds=tr.bounds,
+                               chunk=chunk, forget=0.5, allow_overlaps=True)
+        tm = tmc.HMMTemplateModelMC(mu, sigmas, lp, allow_overlaps=True)
+        np.testing.assert_array_equal(
+            tad.decode_tracked_mc(const, yc, H=H).ml_seq,
+            tmc.fit_spiking_model_mc_fast(tm, yc, L=chunk, H=H).ml_seq)
+
+
+def test_tracked_n3_decode_runs_kernels_3_and_4(cuda, monkeypatch):
+    """The single-channel N=3 tracked decode on the card in float32 runs
+    kernels 3 and 4 once a window, each under its window's constants, with
+    the labels of the same decode through their plain versions."""
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    K, chunk, B, N = 12, 1024, 3, 3
+    temps = np.stack([create_spike_template(K, *PARAMS[n])
+                      for n in range(N)], axis=1)
+    lp = np.log([0.01, 0.006, 0.004])
+    y, _ = create_signal_fast(B * chunk - 100, 0.3, np.exp(lp), temps,
+                              rng=np.random.default_rng(5))
+    T = len(y)
+    g = 1.0 + 0.15 * np.arange(B)
+    tr = tad.DriftTrack(lp=np.tile(lp, (B, 1)), mu=temps[None] * g[:, None,
+                                                                  None],
+                        sigma=np.full(B, 0.3), lls=np.zeros(B),
+                        bounds=[(s, min(s + chunk, T))
+                                for s in range(0, T, chunk)],
+                        chunk=chunk, forget=0.5, allow_overlaps=True)
+    wr = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+    before = [w.launches for w in wr]
+    m = tad.decode_tracked(tr, y, H=64)
+    assert [w.launches - n for w, n in zip(wr, before)] == [B, B]
+    with monkeypatch.context() as mp:
+        mp.setattr(vomb, "ovn_kernel_ok", lambda *a: False)
+        x_plain, _ = tad._tracked_overlap_save(
+            y, tr.lp, tr.mu, tr.sigma, L=chunk, H=64, overlaps=True,
+            device=cuda, dtype=torch.float32)
+    np.testing.assert_array_equal(m.ml_seq, x_plain.cpu().numpy())
+
+
 def test_ovn_mc_kernel_refuses_what_it_cannot_take(cuda):
     from hmmspikesorter_torch.ops.ring_viterbi_mc import c2_stack
     from hmmspikesorter_torch.core.emission_mc import MCTables

@@ -122,9 +122,16 @@ def test_predict_and_channel_projection_match():
     ct, cj = tt.channel(1), tj.channel(1)
     np.testing.assert_array_equal(ct.mu, cj.mu)
     assert ct.sigma == cj.sigma and ct.allow_overlaps == cj.allow_overlaps
-    mt.track = object()
-    with pytest.raises(NotImplementedError, match="step 11"):
-        tmc.predict_mc(mt, **CPU)
+    # a drift-decoded model reconstructs each chunk under its own
+    # templates: a constant track gives the stationary reconstruction
+    from hmmspikesorter_torch.train.adaptive import DriftTrack
+
+    mt.track = DriftTrack(lp=np.tile(lp, (2, 1)), mu=np.stack([mu, mu]),
+                          sigma=np.stack([sigmas, sigmas]), lls=np.zeros(2),
+                          bounds=[(0, 450), (450, 900)], chunk=450,
+                          forget=1.0, allow_overlaps=True)
+    np.testing.assert_allclose(tmc.predict_mc(mt, **CPU),
+                               np.asarray(jmc.predict_mc(mj)), rtol=1e-14)
 
 
 def test_all_silent_model_matches():

@@ -202,9 +202,12 @@ def test_extract_units_with_confidence_matches_jax(tmp_path):
 def test_multichannel_and_tracked_models_raise():
     """A stationary (T, C) model gets its finite (T, N) posterior grid (the
     MC engines; their parity is test_torch_posterior_mc.py's); a
-    multichannel drift-tracked one still raises (a single-channel one is
-    test_torch_adaptive.py's), and a (T, C) signal is no trace."""
+    multichannel drift-tracked one is scored through
+    onset_posteriors_tracked_mc (a one-chunk constant track: the stationary
+    scores; the parity of the tracked MC posteriors is
+    test_torch_adaptive_mc_outputs.py's), and a (T, C) signal is no trace."""
     from hmmspikesorter_torch.models.multichannel import HMMTemplateModelMC
+    from hmmspikesorter_torch.train.adaptive import DriftTrack
 
     _, tmod = _decoded(3000)
     tm = tmod.template_model
@@ -215,8 +218,12 @@ def test_multichannel_and_tracked_models_raise():
                          np.stack([tmod.y, tmod.y], axis=1))
     p = tp.model_posteriors(mc, **CPU)
     assert p.shape == (3000, 2) and np.isfinite(p).all()
-    mc.track = object()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.spike_confidence(mc, **CPU)
+    stationary = tp.spike_confidence(mc, **CPU)
+    mc.track = DriftTrack(lp=tmc.lp[None], mu=tmc.mu[None],
+                          sigma=tmc.sigmas[None], lls=np.zeros(1),
+                          bounds=[(0, 3000)], chunk=3000, forget=1.0,
+                          allow_overlaps=True)
+    for a, b in zip(tp.spike_confidence(mc, **CPU), stationary):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         tp.onset_posteriors(tmod.template_model, mc.y, **CPU)
