@@ -273,6 +273,31 @@ since the previous phase line):
                launch each of kernels 1 and 2, the library decodes' labels
                and ll); --multichannel --adaptive on drift_path_mc's
                recording (the library's labels and ll); `seconds_by_part`
+  sharded_path the multi-device slice (parallel/) on this card through
+               LocalMeshes, every shard in this process: sharded_em_step(
+               fb_mode="overlap_cuda") at the JAX runner's defaults (C=8,
+               T=2^20, N=2, K=60, S=119, L=4096, H=240, W=4576) on a channel
+               2 x time 4 mesh, two iterations (kernels 5-6 once each a
+               channel over all four shards' 256 windows, launches counted
+               as in train_em), each held channel by channel to the
+               single-device em_step(fb_mode="overlap_cuda", block=4096)
+               from the same inputs at tests/test_sharded_em.py:180-184's
+               float32 tolerances; kernels 5-6 on channel 0's sharded
+               windows timed, their plain versions on the four shard-edge
+               windows, every per-window output exactly equal; the step's
+               wall; sharded_blocked_viterbi on a time-4 mesh (T=2^20, N=2,
+               K=60 non-overlap, L=256): float64 labels exactly the
+               single-device blocked_viterbi's, the float32 labels'
+               agreement with them; sharded_onset_posteriors on a time-4
+               mesh (T=2^18, L=4096, N=2 overlaps on, float32, the plain
+               structural engines) within 9.04e-5 of the single-device
+               chained posteriors (kernels 9-10); one sharded_em_step on a
+               DistMesh of a
+               one-rank NCCL group (a FileStore in a temporary directory;
+               its axes hold one shard, so no collective crosses a card)
+               bit-equal to a LocalMesh of one shard; runner.main
+               ["--channels", "2", "--samples", "65536"] and its JSON line;
+               `seconds_by_part`
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
 run, and a spawned worker process computes three float64 references and
@@ -3026,6 +3051,227 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, mc_drift,
           f"cli_path mc: float32 posteriors {p_err} from float64")
 
 
+def em_update_errs(got, ref):
+    """tests/test_sharded_em.py:180-184's float32 tolerances for one EM
+    update (lp, pi, mu, sigma, ll): lp rtol 2e-5, pi atol 1e-4, mu atol
+    2e-5, sigma and ll 2e-6 relative. Returns ({name: worst error in the
+    tolerance's own measure}, all within)."""
+    tol = {"lp": ("rel", 2e-5), "pi": ("abs", 1e-4), "mu": ("abs", 2e-5),
+           "sigma": ("rel", 2e-6), "ll": ("rel", 2e-6)}
+    errs = {}
+    for name, a, b in zip(("lp", "pi", "mu", "sigma", "ll"), got, ref):
+        d = (a.double() - b.double()).abs()
+        if tol[name][0] == "rel":
+            d = d / b.double().abs()
+        errs[name] = float(d.max())
+    return errs, all(errs[n] <= tol[n][1] for n in tol)
+
+
+def sharded_path(dev, card, C=8, T=1 << 20, K=60, L=4096, Tp=1 << 18,
+                 Lp=4096):
+    """The multi-device slice on one card: LocalMeshes (every shard in this
+    process, the shards' windows one batch) and a one-rank DistMesh (NCCL;
+    gloo where `dev` is the CPU, for a rehearsal at small sizes). Returns
+    the sharded EM's launch counts of kernels 5-6."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.core.state_space import build_state_space
+    from hmmspikesorter_torch.data.synthetic import (create_signal_fast,
+                                                     create_spike_template)
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.parallel import runner
+    from hmmspikesorter_torch.parallel import sharded_em as sem
+    from hmmspikesorter_torch.parallel.block_viterbi import blocked_viterbi
+    from hmmspikesorter_torch.parallel.mesh import DistMesh, LocalMesh
+    from hmmspikesorter_torch.parallel.sharded import sharded_blocked_viterbi
+    from hmmspikesorter_torch.parallel.sharded_posterior import \
+        sharded_onset_posteriors
+    from hmmspikesorter_torch.train import em as tem
+
+    f32, f64 = torch.float32, torch.float64
+    secs = {}
+    t_part = time.perf_counter()
+    # ---- sharded EM at the JAX runner's defaults (parallel/runner.py):
+    # C=8 channels of T=2^20, N=2, K=60 non-overlap (S=119), L=4096,
+    # H=240, W=4576, on a channel 2 x time 4 mesh ------------------------
+    N = 2
+    H = max(4 * K, 64)
+    sigma = 0.3
+    temps = np.stack([create_spike_template(K, 3.0, 0.8, 0.2),
+                      create_spike_template(K, 4.0, 0.3, 0.2)], axis=1)
+    pp = np.array([0.003, 0.001])
+    rng = np.random.default_rng(0)
+    ys = np.stack([create_signal_fast(T, sigma, pp, temps, rng=rng)[0]
+                   for _ in range(C)]).astype(np.float32)
+    y_d = torch.as_tensor(ys, device=dev)
+    tables = tem.EMTables.build(build_state_space(N, K, False), dev)
+    mesh = LocalMesh(2, 4, device=dev)
+    wrappers = (fb_mb.em_forward_mb, fb_mb.em_backward_mb)
+    state = [torch.as_tensor(v, dtype=f32, device=dev) for v in
+             (np.stack([np.log(pp)] * C), np.stack([temps] * C),
+              np.full(C, sigma))]
+    launches = {w.__name__: 0 for w in wrappers}
+    walls, errs = [], []
+    for _ in range(2):
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sem.sharded_em_step(y_d, *state, tables, mesh, K=K, L=L, H=H,
+                                  fb_mode="overlap_cuda", dtype=f32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        for w in wrappers:
+            launches[w.__name__] += w.launches
+        # the single-device route from the same inputs, channel by channel
+        for c in range(C):
+            ref = tem.em_step(y_d[c], *(v[c] for v in state), tables, K=K,
+                              fb_mode="overlap_cuda", block=L)
+            e, ok = em_update_errs([v[c] for v in out], ref)
+            errs.append(e)
+            check(ok, f"sharded_path: sharded EM channel {c} differs from "
+                  f"the single-device route: {e}")
+        state = [out[0], out[2], out[3]]
+    check(launches == {"em_forward_mb": 2 * C, "em_backward_mb": 2 * C},
+          f"sharded_path: kernels 5-6 launches {launches}")
+    check(all(bool(torch.isfinite(v).all()) for v in out),
+          "sharded_path: non-finite EM update")
+    secs["em"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    # kernels 5-6 on channel 0's sharded windows (the halos exchanged, the
+    # mesh-edge rows clamped): timed on all 256, their plain versions on the
+    # four windows at shard edges (shard 0's first, shard 0's last and
+    # shard 1's first, whose halos crossed a shard boundary, and the last
+    # shard's last): checkpoints, la and per-window partials bit-equal
+    ax = mesh.axis("time")
+    y_loc = mesh.local(y_d[0], "time")
+    win, lo, hi, xh = sem._cuda_windows(
+        y_loc, ax.ppermute(y_loc[:, -H:], 1), ax.ppermute(y_loc[:, :H], -1),
+        L=L, H=H, axis=ax)
+    B = win.shape[0]
+    first = [0, B // 4 - 1, B // 4, B - 1]
+    order = torch.as_tensor(first + [b for b in range(B) if b not in first],
+                            device=dev)
+    ce = fb_mb.em_consts(np.log(pp), temps, sigma, dtype=f32, device=dev)
+    row = em_kernels(fb_mb, win[order].contiguous(),
+                     torch.stack([lo, hi, xh], dim=1)[order].contiguous(), ce,
+                     fwd_reps=5, bwd_reps=5)
+    check(row["backward"]["partials_bit_equal"],
+          "sharded_path: kernel 6's per-window partials differ from its "
+          "plain version on the sharded windows")
+    row["plain_windows_checked"] = first
+    del win, y_loc
+    secs["kernels"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- sharded decode: time 4, T=2^20, N=2, K=60 non-overlap, L=256 ---
+    ss = build_state_space(N, K, False)
+    in_idx, in_w = ss.in_table(np.log(pp))
+    smu = temps[ss.states, np.arange(N)[:, None]].sum(axis=0)
+    mesh4 = LocalMesh(time=4, device=dev)
+    dec_args = (ys[0], in_idx, in_w, smu, sigma)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x64, ll64 = sharded_blocked_viterbi(*dec_args, mesh4, L=256, dtype=f64)
+    torch.cuda.synchronize()
+    sh64_s = time.perf_counter() - t
+    xb64, llb64 = blocked_viterbi(*dec_args, L=256, device=dev, dtype=f64)
+    check(torch.equal(x64, xb64), "sharded_path: float64 sharded labels "
+          "differ from the single-device blocked decode's")
+    del xb64
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x32, ll32 = sharded_blocked_viterbi(*dec_args, mesh4, L=256, dtype=f32)
+    torch.cuda.synchronize()
+    sh32_s = time.perf_counter() - t
+    agree32 = float((x32 == x64).double().mean())
+    decode = {"mesh": mesh4.shape, "T": T, "N": N, "K": K, "S": ss.nstates,
+              "L": 256, "f64_labels_equal_single_device": True,
+              "ll_f64": float(ll64), "ll_f64_single_device": float(llb64),
+              "f32_agreement_vs_f64": agree32,
+              "f32_ll_rel_err": float(abs(ll32.double() - ll64) / abs(ll64)),
+              "seconds_f64": sh64_s, "seconds_f32": sh32_s}
+    del x64, x32
+    secs["decode"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- sharded posteriors: time 4, T=2^18, L=4096, N=2 overlaps on,
+    # float32 (the structural plain engines, as in the JAX package) -----
+    tm = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=np.log(pp),
+                              allow_overlaps=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_sh = sharded_onset_posteriors(tm, ys[0][:Tp], mesh4, L=Lp,
+                                    gamma_batch=64)
+    post_s = time.perf_counter() - t
+    # the single-device chained posteriors: kernels 9-10 on the card
+    p_one = tpost.onset_posteriors_chained(tm, ys[0][:Tp], L=Lp, device=dev)
+    post_err = float(np.abs(p_sh - p_one).max())
+    posteriors = {"mesh": mesh4.shape, "T": Tp, "L": Lp, "N": N, "K": K,
+                  "S": tm.state_space.nstates, "dtype": "float32",
+                  "seconds": post_s, "floor": 9.04e-5,
+                  "max_abs_err_vs_single_device_chained": post_err}
+    check(p_sh.shape == (Tp, N) and np.isfinite(p_sh).all(),
+          "sharded_path: posteriors malformed")
+    check(post_err <= 9.04e-5, f"sharded_path: sharded posteriors {post_err}"
+          " from the single-device chained ones (> 9.04e-5)")
+    del p_sh, p_one
+    secs["posteriors"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- DistMesh wiring: an NCCL group of one rank through a FileStore;
+    # its axes have one shard, so no collective crosses a card --------
+    em_args = (y_d[:1], *(v[:1] for v in state), tables)
+    em_kw = dict(K=K, L=L, H=H, fb_mode="overlap_cuda", dtype=f32)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            got = sem.sharded_em_step(*em_args, DistMesh(1, 1, device=dev),
+                                      **em_kw)
+        finally:
+            dist.destroy_process_group()
+    ref = sem.sharded_em_step(*em_args, LocalMesh(1, 1, device=dev), **em_kw)
+    dist_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    check(dist_equal, "sharded_path: DistMesh differs from LocalMesh")
+    secs["dist_mesh"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- the launcher (its own JSON line, printed as it comes) ----------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.main(["--channels", "2", "--samples", "65536"],
+                         device=dev)
+    print(buf.getvalue(), end="", flush=True)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and rec["phase"] == "sharded_em"
+          and rec["em_iter_per_s"] > 0, f"sharded_path: runner {rec}")
+    secs["runner"] = time.perf_counter() - t_part
+
+    emit({"phase": "sharded_path", "card": card,
+          "em": {"mesh": mesh.shape, "C": C, "T": T, "N": N, "K": K,
+                 "S": ce.S, "L": L, "H": H, "W": L + 2 * H,
+                 "windows_a_launch": B, "iterations": 2,
+                 "launches": launches, "step_seconds": walls,
+                 "kernels": row,
+                 "err_vs_single_device": {
+                     k: max(e[k] for e in errs) for k in errs[0]}},
+          "decode": decode, "posteriors": posteriors,
+          "dist_mesh": {"backend": backend, "ranks": 1,
+                        "bit_equal_local_mesh": dist_equal},
+          "runner": rec, "seconds_by_part": secs})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -3708,6 +3954,7 @@ def main():
     cli_path(dev, card, cpu, (tm, y, decoded_n2, temps), mc["config6"],
              drift["cli"], rows2, mc_drift["cli"])
     cpu.close()
+    sharded_launches = sharded_path(dev, card)
 
     def gamma_entry(name, source, line, launches, row):
         """One kernel's entry of the kernels line from its row."""
@@ -3758,7 +4005,8 @@ def main():
         {"name": "em_forward_mb", "route": "cuda",
          "source": "hmmspikesorter_torch/csrc/em_fwd.cu",
          "replaces": "hmmspikesorter_tpu/ops/pallas_fb_mb.py:125",
-         "launches": em_launches["em_forward_mb"],
+         "launches": (em_launches["em_forward_mb"]
+                      + sharded_launches["em_forward_mb"]),
          "max_abs_err": em2["forward"]["max_abs_err"],
          "ms": em2["forward"]["ms"], "plain_ms": em2["forward"]["plain_ms"],
          "bound_ms": bound_of(em2["forward"])[0],
@@ -3766,7 +4014,8 @@ def main():
         {"name": "em_backward_mb", "route": "cuda",
          "source": "hmmspikesorter_torch/csrc/em_bwd.cu",
          "replaces": "hmmspikesorter_tpu/ops/pallas_fb_mb.py:209",
-         "launches": em_launches["em_backward_mb"],
+         "launches": (em_launches["em_backward_mb"]
+                      + sharded_launches["em_backward_mb"]),
          "max_abs_err": em2["backward"]["max_abs_err"],
          "ms": em2["backward"]["ms"], "plain_ms": em2["backward"]["plain_ms"],
          "bound_ms": bound_of(em2["backward"])[0],

@@ -2,10 +2,11 @@
 chain), beside the JAX package `hmmspikesorter_tpu`, which stays the
 reference.
 
-Public surface so far (the decode with known templates, any N, with or
-without overlaps):
-    from hmmspikesorter_torch.models import api   # fit_spiking_model[_fast]
-    from hmmspikesorter_torch.io import extraction
+Public surface (README.md lists what is ported):
+    from hmmspikesorter_torch.models import api   # decode, training
+    from hmmspikesorter_torch.models import multichannel
+    from hmmspikesorter_torch.core import posterior, qc
+    from hmmspikesorter_torch.parallel import mesh, sharded, sharded_em
     from hmmspikesorter_torch.convert import template_model_from_numpy
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no

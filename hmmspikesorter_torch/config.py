@@ -1,10 +1,10 @@
-"""Configuration (copy of the JAX package's config.py: the model, train and
-decode sections): an explicitly passed kwarg wins over the config, which
-wins over the built-in (reference) default.
+"""Configuration (copy of the JAX package's config.py: the model, train,
+decode and mesh sections): an explicitly passed kwarg wins over the config,
+which wins over the built-in (reference) default.
 
 `config` arguments in this package are duck-typed: any object with
-`.model`, `.train` or `.decode` sections works, the JAX package's `Config`
-included. `TrainConfig.fb_mode` takes the port's engine names
+`.model`, `.train`, `.decode` or `.mesh` sections works, the JAX package's
+`Config` included. `TrainConfig.fb_mode` takes the port's engine names
 (train/em.py): "overlap_cuda" in place of the JAX "overlap_pallas".
 """
 
@@ -105,12 +105,23 @@ class DecodeConfig:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """Mesh layout of the sharded paths (parallel/runner.make_mesh): shards
+    of a LocalMesh in one process, or ranks of a DistMesh."""
+
+    time_shards: int | None = None     # None -> infer from the shard count
+    channel_shards: int | None = None
+    axes: tuple = ("channel", "time")
+
+
+@dataclasses.dataclass
 class Config:
-    """The sections this package reads (the JAX `Config` without `mesh`)."""
+    """The full configuration (the JAX `Config`'s sections)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def _section(config: Config | None, name: str):

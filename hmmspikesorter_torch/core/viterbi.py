@@ -8,7 +8,8 @@ Reference semantics (src/viterbi.jl:44-98), reproduced deliberately:
   (viterbi.jl:63);
 * the max-plus step keeps the *first* maximal in-edge in edge-list order
   (strict ``>``, viterbi.jl:74-84) — the in-edge rows are sorted by source
-  state ascending and ``torch.argmax`` returns the first maximum;
+  state ascending and ``torch.argmax`` returns the first maximum
+  (``gather_step``, which every gather decoder of the port shares);
 * when no in-edge is finite the backpointer stays at state 0 (the reference
   initializes ``T2`` to state 1, viterbi.jl:53);
 * the returned ``ll`` is ``sum_{t=1..T-1} T1[x_t, t]`` — the reference's
@@ -44,15 +45,9 @@ def viterbi_decode(y, in_idx, in_w, state_mu, sigma, *, silent_start=True):
     y = as_float(y, dtype, dev)
     in_idx = torch.as_tensor(in_idx, device=dev).long()
     in_w = as_float(in_w, dtype, dev)
-    sigma = as_float(sigma, dtype, dev)
-    log_sigma = torch.log(sigma)
-    inv_2s2 = 1.0 / (2.0 * sigma * sigma)
+    emission = gaussian_emission(state_mu, sigma)
     T = y.shape[0]
     S = state_mu.shape[0]
-
-    def emission(v):
-        d = v - state_mu
-        return -HALF_LOG_2PI - log_sigma - d * d * inv_2s2
 
     v = emission(y[0])
     if silent_start:
@@ -60,14 +55,59 @@ def viterbi_decode(y, in_idx, in_w, state_mu, sigma, *, silent_start=True):
     bps = torch.zeros((max(T - 1, 0), S), dtype=torch.int64, device=dev)
     scores = torch.zeros((max(T - 1, 0), S), dtype=dtype, device=dev)
     for t in range(1, T):
-        cand = v[in_idx] + in_w                         # (S, D)
-        best = torch.argmax(cand, dim=1)                # first max
-        mx = torch.gather(cand, 1, best[:, None])[:, 0]
-        bp = torch.gather(in_idx, 1, best[:, None])[:, 0]
-        bps[t - 1] = torch.where(torch.isfinite(mx), bp, 0)
+        mx, bps[t - 1] = gather_step(v, in_idx, in_w)
         v = mx + emission(y[t])
         scores[t - 1] = v
     return _backtrack(v, bps, scores)
+
+
+def gaussian_emission(state_mu, sigma):
+    """v (...,) -> (..., S) Gaussian log-emissions of the states' means
+    state_mu (S,), in the expression the gather recursions use (the
+    reciprocal of 2 sigma^2, multiplied)."""
+    sigma = as_float(sigma, state_mu.dtype, state_mu.device)
+    log_sigma = torch.log(sigma)
+    inv_2s2 = 1.0 / (2.0 * sigma * sigma)
+
+    def emission(v):
+        d = v[..., None] - state_mu
+        return -HALF_LOG_2PI - log_sigma - d * d * inv_2s2
+
+    return emission
+
+
+def gather_step(v, in_idx, in_w):
+    """One max-plus step over the in-edge gather tables for score vectors
+    v (..., S): (mx, bp), each (..., S), the best in-edge score of every
+    state and its source state, 0 where no in-edge is finite (viterbi.jl:53).
+
+    The first maximal in-edge wins, the reference's strict `>`
+    (viterbi.jl:74-84): the in-edge rows are sorted by source state and
+    `torch.argmax` returns the first maximum, as `jnp.argmax` does. Every
+    gather decoder of the port (here, parallel/overlap_save's block
+    decoders, parallel/block_viterbi's re-decode) takes its step from this
+    function, so this is the one place that tie-break lives."""
+    cand = v[..., in_idx] + in_w                        # (..., S, D)
+    best = torch.argmax(cand, dim=-1)                   # first max
+    mx = torch.gather(cand, -1, best[..., None])[..., 0]
+    bp = torch.gather(in_idx.expand(cand.shape), -1, best[..., None])[..., 0]
+    return mx, torch.where(torch.isfinite(mx), bp, 0)
+
+
+def gather_viterbi(v0, em_at, n, in_idx, in_w):
+    """Labels only, for B sequences of n samples at once: init scores v0
+    (B, S), `em_at(t)` -> (B, S) emissions of sample t (so no (B, n, S)
+    tensor need exist). Returns (B, n) int32 labels."""
+    v, bps = v0, []
+    for t in range(1, n):
+        mx, bp = gather_step(v, in_idx, in_w)
+        bps.append(bp)
+        v = mx + em_at(t)
+    x = [None] * n
+    x[n - 1] = cur = torch.argmax(v, dim=-1)
+    for t in range(n - 2, -1, -1):
+        x[t] = cur = torch.gather(bps[t], -1, cur[:, None])[:, 0]
+    return torch.stack(x, dim=1).to(torch.int32)
 
 
 def _backtrack(v, bps, scores):
@@ -109,11 +149,7 @@ def viterbi_decode_em(em, in_idx, in_w, *, silent_start=True):
     bps = torch.zeros((max(T - 1, 0), S), dtype=torch.int64, device=dev)
     scores = torch.zeros((max(T - 1, 0), S), dtype=dtype, device=dev)
     for t in range(1, T):
-        cand = v[in_idx] + in_w
-        best = torch.argmax(cand, dim=1)
-        mx = torch.gather(cand, 1, best[:, None])[:, 0]
-        bp = torch.gather(in_idx, 1, best[:, None])[:, 0]
-        bps[t - 1] = torch.where(torch.isfinite(mx), bp, 0)
+        mx, bps[t - 1] = gather_step(v, in_idx, in_w)
         v = mx + em[t]
         scores[t - 1] = v
     return _backtrack(v, bps, scores)

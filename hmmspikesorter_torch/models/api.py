@@ -15,6 +15,8 @@ half): the reference's StatsBase verbs for a known template model
   -> train/em.train_model); `refit_template_model` — warm-start EM
   (fit!, fit.jl:49-52); `fit` — train then decode (fit.jl:1-4). On a CUDA
   device the E-step runs kernels 5-6 (ops/fb_mb.py).
+  `fit_template_models_batched` — a (C, T) channel batch trained on a
+  (channel, time) mesh by the sharded EM step (parallel/sharded_em.py).
 * `fit_spiking_model_adaptive` — the drift-adaptive decode (online-EM
   template tracking, then each chunk under its own templates,
   train/adaptive.py; kernels 16 + 2 on the card).
@@ -443,6 +445,67 @@ def fit_spiking_models_fast_batched(templates: HMMTemplateModel, ys, *,
         m.seams_repaired = n_rep
         m.spike_onsets = onsets
         models.append(m)
+    return models
+
+
+def fit_template_models_batched(ys, n_neurons: int, K: int, nsteps: int,
+                                mesh, *, rng=None, L: int = 256,
+                                surgery: bool = True,
+                                fb_mode: str = "blocked",
+                                dtype=None) -> list:
+    """Train independent template models for a channel batch on a
+    (channel, time) mesh (parallel/mesh.py) through the distributed EM step
+    (parallel/sharded_em.py): data-parallel over channels, sharded over
+    time, on the mesh's device (dtype float32 on CUDA, float64 on the CPU
+    unless given; fb_mode "overlap_cuda" runs kernels 5-6 there).
+
+    ys: (C, T) with T a multiple of the time shards * L. Runs `nsteps`
+    sharded EM iterations from per-channel random inits (numpy draws from
+    `rng`, channel after channel), then (optionally) the reference's
+    host-side merge/prune per channel followed by a per-channel warm-start
+    refit (`refit_template_model`, max(nsteps // 2, 1) iterations). Returns
+    a list of C HMMTemplateModel.
+
+    New capability: the reference CLI only ever processes channel 1
+    (src/hmmsort.jl:56).
+    """
+    from ..parallel.sharded_em import sharded_em_step
+    from ..train import template_ops
+    from ..train.em import EMTables, init_templates
+
+    if rng is None:
+        rng = np.random.default_rng()
+    dev = mesh.device
+    dt = default_dtype(dev) if dtype is None else dtype
+    ys = np.asarray(ys, dtype=np.float64)
+    C, T = ys.shape
+    p0 = 2.0 ** (-3.0 * K / 2.0)
+    sigmas = ys.std(axis=1)
+    lps = np.tile(np.log(p0), (C, n_neurons))
+    mus = np.stack([init_templates(K, n_neurons, float(sigmas[c]), rng)
+                    for c in range(C)])
+    tables = EMTables.build(build_state_space(n_neurons, K, False), dev)
+
+    for _ in range(nsteps):
+        out = sharded_em_step(ys, lps, mus, sigmas, tables, mesh, K=K, L=L,
+                              fb_mode=fb_mode, dtype=dt)
+        lps, mus, sigmas = (out[i].double().cpu().numpy() for i in (0, 2, 3))
+
+    models = []
+    for c in range(C):
+        mu_c, lp_c, sg_c = mus[c], lps[c], float(sigmas[c])
+        if surgery:
+            mu_c, lp_c = template_ops.condense_templates(mu_c, lp_c, sg_c)
+            keep = template_ops.remove_sparse(lp_c)
+            mu_c, lp_c = mu_c[:, keep], lp_c[keep]
+            keep = template_ops.remove_small(mu_c, sg_c)
+            mu_c, lp_c = mu_c[:, keep], lp_c[keep]
+            if mu_c.shape[1] > 0:
+                models.append(refit_template_model(
+                    HMMTemplateModel(mu=mu_c, sigma=sg_c, lp=lp_c), ys[c],
+                    max(nsteps // 2, 1), device=dev, dtype=dt))
+                continue
+        models.append(HMMTemplateModel(mu=mu_c, sigma=sg_c, lp=lp_c))
     return models
 
 

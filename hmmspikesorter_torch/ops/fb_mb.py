@@ -919,20 +919,25 @@ def _bounds_on(dev, core_lo, core_hi, xi_hi):
     return host
 
 
-def em_stats_from_windows(y_win, core_lo, core_hi, xi_hi, c: EmConsts):
+def em_stats_from_windows(y_win, core_lo, core_hi, xi_hi, c: EmConsts,
+                          shards: int | None = None):
     """Run kernels 5-6 (or, on the CPU, their plain versions) over prebuilt
     halo windows and sum the per-window partials.
 
     The window construction is the caller's: the single-device path
-    (`overlap_em_stats`) clamps edge windows to the signal edges; a
-    time-sharded path builds per-device windows and clamps only at the
-    outer edges. The per-window core bounds carry the difference, so the
-    kernels are shared.
+    (`overlap_em_stats`) clamps edge windows to the signal edges; the
+    time-sharded path (parallel/sharded_em.py) builds each shard's windows
+    and clamps only at the outer edges. The per-window core bounds carry
+    the difference, so the kernels are shared.
 
     Args:
       y_win: (B, W) windows in c's dtype, W a multiple of em_chunk(S).
       core_lo/core_hi/xi_hi: (B,) per-window core bounds in window
         coordinates; a padded window carries lo = hi = xi_hi = 0.
+      shards: None sums over every window. An int D takes the B windows as
+        D shards' consecutive groups of B/D, all in the same launches, and
+        sums within each group: every result below gains a leading (D,)
+        axis (beta0: each group's first window; endc/pre: (D, B/D)).
 
     Returns (G1, Gy, Gy2, X, Xd, beta0, endc, pre): the linear-space
     per-state sums over the windows (flat [silent | body] layout), the
@@ -947,8 +952,14 @@ def em_stats_from_windows(y_win, core_lo, core_hi, xi_hi, c: EmConsts):
     cp, la = em_forward_mb(y_win, c, ch)
     G1, Gy, Gy2, X, Xd, beta0 = em_backward_mb(y_win, cp, bounds, c, ch)
     endc, pre = _edge_reads(la, lo.long(), hi.long())
-    return (G1.sum(0), Gy.sum(0), Gy2.sum(0), X.sum(0), Xd.sum(0), beta0[0],
-            endc, pre)
+    if shards is None:
+        return (G1.sum(0), Gy.sum(0), Gy2.sum(0), X.sum(0), Xd.sum(0),
+                beta0[0], endc, pre)
+    G1, Gy, Gy2, X, Xd, beta0, endc, pre = (
+        v.reshape(shards, -1, *v.shape[1:])
+        for v in (G1, Gy, Gy2, X, Xd, beta0, endc, pre))
+    return (G1.sum(1), Gy.sum(1), Gy2.sum(1), X.sum(1), Xd.sum(1),
+            beta0[:, 0], endc, pre)
 
 
 def overlap_em_stats(y, lp, mu, sigma, *, L: int, H: int):

@@ -248,6 +248,26 @@ def _overlap_guards(T, L, H, B, W):
                          "sequential or blocked engine")
 
 
+def _window_fb(es_steps, eb_steps, w):
+    """The overlap engines' window recursions over W steps of emissions
+    es_steps (W, ...) and eb_steps (W, ..., N, K-1), every window (the
+    trailing batch axes) at once: alpha from the emission-only init at step
+    0, beta from 0 at step W-1. Returns (alpha_w, beta_w), each
+    (W, ..., S)."""
+    W = es_steps.shape[0]
+    vs, vb = es_steps[0], eb_steps[0]
+    alpha = [_flat(vs, vb)]
+    for t in range(1, W):
+        vs, vb = _fwd_step(vs, vb, es_steps[t], eb_steps[t], w)
+        alpha.append(_flat(vs, vb))
+    bs, bb = torch.zeros_like(vs), torch.zeros_like(vb)
+    beta = [_flat(bs, bb)]
+    for t in range(W - 1, 0, -1):
+        bs, bb = _bwd_step(bs, bb, es_steps[t], eb_steps[t], w)
+        beta.append(_flat(bs, bb))
+    return torch.stack(alpha), torch.stack(beta[::-1])
+
+
 def _realign_and_telescope(alpha_w, beta_w, edge_rows, *, T, L, H, B):
     """Roll edge rows back to uniform window coordinates (in place) and
     compute the telescoped sequence ll from same-window lse differences
@@ -290,7 +310,6 @@ def ring_overlap_forward_backward(y, lp, mu, sigma, *, L: int, H: int):
     """
     y, w, em = _setup(y, lp, mu, sigma)
     T = y.shape[0]
-    K, N = mu.shape
     B = -(-T // L)
     W = L + 2 * H
     _overlap_guards(T, L, H, B, W)
@@ -305,21 +324,7 @@ def ring_overlap_forward_backward(y, lp, mu, sigma, *, L: int, H: int):
                                edge_rows=edge_rows)       # (B, W)
     es, eb = em(y_win.T[..., None, None])
     es = es[..., 0, 0]                                    # (W, B), (W, B, N, K-1)
-
-    vs, vb = es[0], eb[0]
-    alpha = [_flat(vs, vb)]
-    for t in range(1, W):
-        vs, vb = _fwd_step(vs, vb, es[t], eb[t], w)
-        alpha.append(_flat(vs, vb))
-    alpha_w = torch.stack(alpha)
-
-    bs = torch.zeros((B,), dtype=mu.dtype, device=mu.device)
-    bb = torch.zeros((B, N, K - 1), dtype=mu.dtype, device=mu.device)
-    beta = [_flat(bs, bb)]
-    for t in range(W - 1, 0, -1):
-        bs, bb = _bwd_step(bs, bb, es[t], eb[t], w)
-        beta.append(_flat(bs, bb))
-    beta_w = torch.stack(beta[::-1])
+    alpha_w, beta_w = _window_fb(es, eb, w)
 
     # realign edge rows to uniform coordinates (roll by
     # actual_start - uniform_start; uniform positions beyond the real
@@ -350,7 +355,6 @@ def ring_overlap_forward_backward_mc(es, eb, lp, *, L: int, H: int):
     """
     dtype, dev = es.dtype, es.device
     T = es.shape[0]
-    _, N, Km1 = eb.shape
     w = _weights(torch.as_tensor(lp, device=dev).to(dtype), dtype)
     B = -(-T // L)
     W = L + 2 * H
@@ -362,19 +366,6 @@ def ring_overlap_forward_backward_mc(es, eb, lp, *, L: int, H: int):
     eb_steps = _overlap_window_1d(eb, T=T, L=L, H=H, B=B, W=W,
                                   edge_rows=edge_rows).transpose(0, 1)
 
-    vs, vb = es_steps[0], eb_steps[0]
-    alpha = [_flat(vs, vb)]
-    for t in range(1, W):
-        vs, vb = _fwd_step(vs, vb, es_steps[t], eb_steps[t], w)
-        alpha.append(_flat(vs, vb))
-    alpha_w = torch.stack(alpha)
-
-    bs = torch.zeros((B,), dtype=dtype, device=dev)
-    bb = torch.zeros((B, N, Km1), dtype=dtype, device=dev)
-    beta = [_flat(bs, bb)]
-    for t in range(W - 1, 0, -1):
-        bs, bb = _bwd_step(bs, bb, es_steps[t], eb_steps[t], w)
-        beta.append(_flat(bs, bb))
-    beta_w = torch.stack(beta[::-1])
+    alpha_w, beta_w = _window_fb(es_steps, eb_steps, w)
     return _realign_and_telescope(alpha_w, beta_w, edge_rows, T=T, L=L, H=H,
                                   B=B)

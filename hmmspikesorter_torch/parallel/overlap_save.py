@@ -21,7 +21,10 @@ decodes agree on silence:
 `ring_overlap_save` is the one-shot path (all windows in one batch on the
 device); `ring_overlap_save_batched` the same for a (Ch, T) channel batch,
 every channel's windows in one batch; `overlap_save_decode_long` streams
-fixed-size window batches and stitches on the host.
+fixed-size window batches and stitches on the host. `overlap_save_viterbi`
+and `gather_block_decoder` run the generic gather engine (any state space
+with in-edge tables, plain PyTorch on every device): the one-shot decode
+and the streaming driver's block decoder.
 """
 
 from __future__ import annotations
@@ -32,11 +35,136 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.emission import emission_logprob
 from ..core.state_space import n_states
+from ..core.viterbi import gather_viterbi, gaussian_emission
 from ..ops.ring_viterbi import ring_block_decoder, ring_engine
 from ..ops.viterbi_mb import KP, labels_dtype
 from ..ops.viterbi_ovn_mb import ovn_kernel_ok, ovn_mc_kernel_ok
-from ..utils.device import as_float, numpy_dtype
+from ..utils.device import (as_float, default_dtype, numpy_dtype,
+                            resolve_device)
+
+
+def _decode_blocks(em_win, v0, in_idx, in_w):
+    """Viterbi of (B, W, S) emission windows with per-window init score
+    vectors v0 (B, S) -> (B, W) labels, every window in one batch."""
+    return gather_viterbi(v0, lambda t: em_win[:, t], em_win.shape[1],
+                          in_idx, in_w)
+
+
+def _decode_blocks_from_y(y_win, sil, in_idx, in_w, state_mu, sigma):
+    """Like _decode_blocks but computes each step's emissions from the
+    samples, so the (B, W, S) emission tensor is never materialised (needed
+    for overlap state spaces at long T). sil: (B,) bool, the rows with the
+    reference's forced silent start (the block containing sample 0,
+    src/viterbi.jl:63)."""
+    em = gaussian_emission(state_mu, sigma)
+    y_win = y_win.to(state_mu.dtype)
+    v0 = em(y_win[:, 0])
+    S = state_mu.shape[0]
+    first = sil[:, None] & (torch.arange(S, device=v0.device) == 0)[None, :]
+    v0 = torch.where(first, torch.zeros_like(v0), v0)
+    return gather_viterbi(v0, lambda t: em(y_win[:, t]), y_win.shape[1],
+                          in_idx, in_w)
+
+
+def _gather_tables(in_idx, in_w, state_mu, sigma, device, dtype):
+    dev = resolve_device(device)
+    dtype = default_dtype(dev) if dtype is None else dtype
+    return (torch.as_tensor(in_idx, device=dev).long(),
+            as_float(in_w, dtype, dev), as_float(state_mu, dtype, dev),
+            as_float(sigma, dtype, dev))
+
+
+def overlap_save_viterbi(y, in_idx, in_w, state_mu, sigma, *, L: int,
+                         H: int, device=None, dtype=None):
+    """Parallel overlap-save decode of one sequence through the generic
+    gather engine on `device` (default CUDA; dtype float32 there, float64
+    on the CPU unless given), every window in one batch.
+
+    y: (T,) observations; T must be a multiple of L and >= L + 2H. L: core
+    block length; H: halo length (choose H >= a few K). Window b covers
+    [b*L - H, b*L + L + H) clamped into the signal, and each seam is
+    snapped as in the module docstring.
+
+    Returns (x (T,) int32, seam_ok (B-1,) bool), both on `device`.
+    """
+    if L < 2 * H:
+        raise ValueError("need L >= 2H so seam cuts are monotone")
+    in_idx, in_w, state_mu, sigma = _gather_tables(in_idx, in_w, state_mu,
+                                                   sigma, device, dtype)
+    dev, dtype = state_mu.device, state_mu.dtype
+    y = as_float(y, dtype, dev)
+    T = y.shape[0]
+    if T % L != 0:
+        raise ValueError(f"T={T} must be a multiple of L={L}")
+    B = T // L
+    W = L + 2 * H
+    if B > 1 and T < W:
+        raise ValueError(f"T={T} must be >= L + 2H = {W}")
+
+    em = emission_logprob(y, state_mu, sigma)             # (T, S)
+
+    if B == 1:
+        # single block: exactly the sequential engine's semantics
+        v0 = em[0].clone()
+        v0[0] = 0.0
+        x = _decode_blocks(em[None], v0[None], in_idx, in_w)[0]
+        return x, torch.ones(0, dtype=torch.bool, device=dev)
+
+    # window starts, clamped so every window lies inside the signal
+    starts = torch.clamp(torch.arange(B, device=dev) * L - H, 0, T - W)
+    win_idx = starts[:, None] + torch.arange(W, device=dev)[None, :]
+    em_win = em[win_idx]                                  # (B, W, S)
+    # emission-only init per block; block 0 gets the forced silent start
+    v0 = em_win[:, 0, :].clone()
+    v0[0, 0] = 0.0
+
+    xb = _decode_blocks(em_win, v0, in_idx, in_w)         # (B, W)
+
+    # seam s between blocks s, s+1 at absolute p=(s+1)*L, window [p-H, p+H)
+    p = (torch.arange(B - 1, device=dev) + 1) * L
+    offs = torch.arange(2 * H, device=dev)
+    left_pos = (p - H - starts[:-1])[:, None] + offs[None, :]
+    right_pos = (p - H - starts[1:])[:, None] + offs[None, :]
+    left = torch.gather(xb[:-1], 1, left_pos)
+    right = torch.gather(xb[1:], 1, right_pos)
+    both_silent = (left == 0) & (right == 0)              # (B-1, 2H)
+    # last common-silent offset <= H (retract-to-silence), else first > H,
+    # else H (raw cut, flagged)
+    le_mask = both_silent & (offs[None, :] <= H)
+    gt_mask = both_silent & (offs[None, :] > H)
+    has_le = le_mask.any(dim=1)
+    has_gt = gt_mask.any(dim=1)
+    last_le = (2 * H - 1) - torch.argmax(le_mask.flip(1).to(torch.uint8),
+                                         dim=1)
+    first_gt = torch.argmax(gt_mask.to(torch.uint8), dim=1)
+    q = torch.where(has_le, last_le, torch.where(has_gt, first_gt, H))
+    seam_ok = has_le | has_gt
+
+    # stitch: block b owns absolute range [cut_{b-1}, cut_b)
+    cuts = (p - H) + q
+    t_abs = torch.arange(T, device=dev)
+    owner = torch.searchsorted(cuts, t_abs, right=True)
+    return xb[owner, t_abs - starts[owner]], seam_ok
+
+
+def gather_block_decoder(in_idx, in_w, state_mu, sigma, *, device=None,
+                         dtype=None):
+    """The generic gather engine as a block decoder for
+    overlap_save_decode_long ((B, W) windows, (B,) bool silent-start rows
+    -> (B, W) int32 labels, on `device`): the JAX package's
+    `overlap_save_decode_long` with block_decoder=None. Plain PyTorch on
+    every device; emissions are computed a step at a time, so no (B, W, S)
+    tensor exists."""
+    in_idx, in_w, state_mu, sigma = _gather_tables(in_idx, in_w, state_mu,
+                                                   sigma, device, dtype)
+
+    def decode(y_win, sil):
+        return _decode_blocks_from_y(y_win, sil, in_idx, in_w, state_mu,
+                                     sigma)
+
+    return decode
 
 
 def resolve_block_engine(block_engine, overlaps, K, N, device):
@@ -278,8 +406,9 @@ def overlap_save_decode_long(y, *, L: int, H: int, block_decoder,
     about 16x smaller at K=60); the labels are rebuilt exactly on the host:
     each window's decode is a valid path, so no fallback is needed.
 
-    The JAX function's generic-engine branch (no block_decoder) is not part
-    of this port.
+    The JAX function's generic engine (its block_decoder=None) is
+    `gather_block_decoder(in_idx, in_w, state_mu, sigma)` here, with
+    window_dtype = state_mu's.
 
     Returns (x (T,) int32 numpy, seam_ok (B-1,) bool numpy).
     """

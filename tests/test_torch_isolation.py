@@ -172,6 +172,43 @@ def test_mc_drift_functions_are_in_the_port(mod, names):
     assert pathlib.Path(m.__file__) in _port_files()
 
 
+@pytest.mark.parametrize("mod", ["parallel.mesh", "parallel.block_fb",
+                                 "parallel.block_viterbi", "parallel.sharded",
+                                 "parallel.sharded_posterior",
+                                 "parallel.sharded_em", "parallel.runner"])
+def test_multidevice_slice_modules_are_covered(mod):
+    """The multi-device slice's modules are among the files the source scan
+    reads and import on their own with torch, numpy and scipy only."""
+    test_posterior_slice_modules_are_covered(mod)
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("config", ("MeshConfig",)),
+    ("models.api", ("fit_template_models_batched",)),
+    ("parallel.overlap_save", ("overlap_save_viterbi",
+                               "gather_block_decoder",
+                               "_decode_blocks_from_y")),
+])
+def test_multidevice_functions_are_in_the_port(mod, names):
+    """The multi-device slice's additions to existing modules live in the
+    scanned modules (none of them reaches the JAX package)."""
+    import importlib
+
+    m = importlib.import_module(f"hmmspikesorter_torch.{mod}")
+    for name in names:
+        assert getattr(m, name).__module__ == m.__name__, name
+    assert pathlib.Path(m.__file__) in _port_files()
+
+
+def test_mesh_config_copy_matches():
+    a, b = jconfig.MeshConfig(), tconfig.MeshConfig()
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert [f.name for f in dataclasses.fields(jconfig.Config)] == \
+        [f.name for f in dataclasses.fields(tconfig.Config)]
+    cfg = jconfig.Config(mesh=jconfig.MeshConfig(time_shards=4))
+    assert tconfig._section(cfg, "mesh")("time_shards") == 4
+
+
 def test_cli_imports_h5py_only_in_a_loader(tmp_path):
     """Importing hmmspikesorter_torch.cli loads no h5py (the GPU host has
     none); a loader imports it when it runs."""

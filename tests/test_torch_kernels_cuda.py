@@ -4,7 +4,8 @@ ops/viterbi_ovn_mb.py (general N, and kernel 11 of the multichannel
 decode), ops/fb_mb.py (the EM E-step, and kernels 12-13 of the
 multichannel one), ops/gamma_mb.py and ops/gamma_ov2.py (the chained onset
 posteriors, and kernels 17-18 with one model per window) against their
-plain PyTorch versions on the card: packed outputs, labels, checkpoints,
+plain PyTorch versions on the card (kernels 5-6 also on the sharded EM
+step's windows, parallel/sharded_em.py): packed outputs, labels, checkpoints,
 per-step logsumexps, EM statistics, posteriors and betas exactly equal;
 and the multichannel channel projection in full float32.
 
@@ -619,6 +620,66 @@ def test_train_model_runs_the_em_kernels(cuda):
     assert fb_mb.em_backward_mb.launches - n_b == iters
     assert np.all(np.isfinite(res.ll_history)) and res.n_neurons >= 1
     assert tem.choose_fb_mode(cuda, K, 3, len(y)) == "overlap_cuda"
+
+
+def test_sharded_em_runs_the_em_kernels(cuda):
+    """sharded_em_step(fb_mode="overlap_cuda") on a 2 x 2 LocalMesh: kernels
+    5-6 launch once each a channel over both time shards' windows, and on
+    those windows (halo exchange, clamped mesh-edge rows, core bounds) every
+    output equals the plain versions' at every block shape; the update
+    agrees with the single-device route, which cuts the same windows; a
+    topology or a dtype the kernels refuse raises, with no plain
+    fallback."""
+    from hmmspikesorter_torch.core.state_space import build_state_space
+    from hmmspikesorter_torch.parallel import sharded_em as sem
+    from hmmspikesorter_torch.parallel.mesh import LocalMesh
+
+    K, L, H, N = 12, 512, 64, 2
+    T = 2 * 4 * L
+    ys = [_em_problem(N, K, T, seed=s) for s in (40, 41)]
+    y = np.stack([v[0] for v in ys]).astype(np.float32)
+    lps = np.stack([v[1] for v in ys])
+    mus = np.stack([v[2] for v in ys])
+    sigmas = np.array([0.35, 0.3])
+    tables = tem.EMTables.build(build_state_space(N, K, False), cuda)
+    mesh = LocalMesh(2, 2, device=cuda)
+    n_f, n_b = fb_mb.em_forward_mb.launches, fb_mb.em_backward_mb.launches
+    out = sem.sharded_em_step(y, lps, mus, sigmas, tables, mesh, K=K, L=L,
+                              H=H, fb_mode="overlap_cuda")
+    assert fb_mb.em_forward_mb.launches - n_f == 2
+    assert fb_mb.em_backward_mb.launches - n_b == 2
+    ax = mesh.axis("time")
+    for c in range(2):
+        y_loc = mesh.local(torch.as_tensor(y[c], device=cuda), "time")
+        yw, lo, hi, xh = sem._cuda_windows(
+            y_loc, ax.ppermute(y_loc[:, -H:], 1),
+            ax.ppermute(y_loc[:, :H], -1), L=L, H=H, axis=ax)
+        ce = fb_mb.em_consts(lps[c], mus[c], sigmas[c], dtype=torch.float32,
+                             device=cuda)
+        bounds = torch.stack([lo, hi, xh], dim=1).contiguous()
+        _em_every_shape(yw, bounds, ce, fb_mb.em_chunk(ce.S))
+        ref = tem.em_step(*(torch.as_tensor(v, dtype=torch.float32,
+                                            device=cuda)
+                            for v in (y[c], lps[c], mus[c], sigmas[c])),
+                          tables, K=K, fb_mode="overlap_cuda", block=L)
+        for name, a, b in zip(("lp", "pi", "mu", "sigma", "ll"),
+                              (v[c] for v in out), ref):
+            if name == "pi":
+                m = b > -50
+                a, b = a[m], b[m]
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5,
+                                       msg=name)
+    K2, N2 = 60, 20                    # S = 1181: past one CTA's threads
+    with pytest.raises(ValueError):
+        sem.sharded_em_step(
+            np.zeros((1, 8 * 2048), np.float32), np.full((1, N2), -9.0),
+            np.zeros((1, K2, N2)), np.full(1, 0.3),
+            tem.EMTables.build(build_state_space(N2, K2, False), cuda),
+            LocalMesh(1, 2, device=cuda), K=K2, L=2048, H=256,
+            fb_mode="overlap_cuda")
+    with pytest.raises(ValueError):            # the kernels are float32
+        sem.sharded_em_step(y, lps, mus, sigmas, tables, mesh, K=K, L=L,
+                            H=H, fb_mode="overlap_cuda", dtype=torch.float64)
 
 
 def _gamma_inputs(y, L, S, dev, seed):
