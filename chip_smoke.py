@@ -86,6 +86,18 @@ since the previous phase line):
                learned templates and overlaps on through kernels 1-2:
                exactly 2 templates, each within 1% of a generator
                template's energy, onset counts within 2% of the truth
+  native_parity  float32 on the card against the native reference engine
+               (hmmspikesorter_torch/native: single-thread C++, float64,
+               built by g++ and run in the CPU worker while the card works)
+               on the first 2^17 samples of the bench.py signal (N=2, K=60,
+               sigma=0.3): api.fit_spiking_model_fast (kernels 1-2,
+               L=8192) against native.viterbi (labels >= 0.9999 equal,
+               their disagreements counted, the ll within 1e-6 relative);
+               one em_step(fb_mode="overlap_cuda") on the non-overlap space
+               (kernels 5-6, block 2048) against native.em_step (lp <= 1e-4
+               and mu <= 2e-3 absolute, sigma <= 1e-4 and ll <= 2e-4
+               relative: the overlap-save ll telescopes over halos, the
+               native one is the whole forward pass's); each part's seconds
   kernels_gamma  kernels 7-10 (the chained onset posteriors) vs their plain
                versions: kernels 9-10 (N=2 overlaps, S=3600) at
                posterior_path's shapes (T=2^21 of the bench.py signal,
@@ -298,6 +310,17 @@ since the previous phase line):
                bit-equal to a LocalMesh of one shard; runner.main
                ["--channels", "2", "--samples", "65536"] and its JSON line;
                `seconds_by_part`
+  trace_path   one warm fit_spiking_model_fast at main_path's shape (T=2^21)
+               and one train_em step under torch.profiler (CPU and CUDA
+               activities): every profile_trace span of the decode and the
+               EM step and kernels 1, 2, 5 and 6 by name in the trace; the
+               device-busy share of the decode's window from the trace (the
+               union of its kernels' intervals, and with copies) beside
+               main_path's event-time estimate; the top five device
+               operations by time; the Chrome trace under
+               chiprun_out/trace_path/ (git-ignored); a tiny kernel's
+               launch cost on the host before and after the profiler
+               session. Last of the phases
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
 run, and a spawned worker process computes three float64 references and
@@ -315,6 +338,7 @@ import concurrent.futures
 import json
 import multiprocessing
 import multiprocessing.resource_tracker
+import pathlib
 import subprocess
 import sys
 import threading
@@ -441,6 +465,36 @@ def cpu_tracked_mc_posteriors(track, yc):
         p = tpost.onset_posteriors_tracked_mc(track, yc, device="cpu",
                                               dtype=torch.float64)
     return p, time.perf_counter() - t
+
+
+def cpu_native_decode(mu, sigma, lp, y):
+    """native_parity's float64 decode on the CPU: the native reference
+    engine's Viterbi of y under the model with overlaps (its library built
+    by g++ first). Returns (labels, ll, {part: seconds})."""
+    from hmmspikesorter_torch import native
+    from hmmspikesorter_torch.core.state_space import build_state_space
+
+    t = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t
+    ss = build_state_space(mu.shape[1], mu.shape[0], True)
+    t = time.perf_counter()
+    x, ll = native.viterbi(y, ss, lp, mu, sigma)
+    return x, ll, {"native_build": build_s,
+                   "native_viterbi": time.perf_counter() - t}
+
+
+def cpu_native_em(mu, sigma, lp, y):
+    """native_parity's float64 EM step on the CPU: one Baum-Welch iteration
+    of the native reference engine on the non-overlap space. Returns
+    ((lp, mu, sigma, ll), seconds)."""
+    from hmmspikesorter_torch import native
+    from hmmspikesorter_torch.core.state_space import build_state_space
+
+    ss = build_state_space(mu.shape[1], mu.shape[0], False)
+    t = time.perf_counter()
+    out = native.em_step(y, ss, lp, mu, sigma)
+    return out, time.perf_counter() - t
 
 
 class Background:
@@ -3051,6 +3105,209 @@ def cli_path(dev, card, cpu, sc, config6_, drift, rows2, mc_drift,
           f"cli_path mc: float32 posteriors {p_err} from float64")
 
 
+def native_parity(dev, card, tm, y, jobs, L=8192, block=2048):
+    """native_parity: the card's float32 decode (kernels 1-2) and EM step
+    (kernels 5-6) of y against the native engine's float64 results, which
+    `jobs` (cpu_native_decode, cpu_native_em futures) computed on the CPU
+    worker from the same samples."""
+    from hmmspikesorter_torch.core.state_space import build_state_space
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+    from hmmspikesorter_torch.train import em as tem
+
+    secs = {}
+    dec_w = (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb)
+    for w in dec_w:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = api.fit_spiking_model_fast(tm, y, L=L)
+    secs["card_decode"] = time.perf_counter() - t
+    dec_launches = {w.__name__: w.launches for w in dec_w}
+
+    K, N = tm.mu.shape
+    tab = tem.EMTables.build(build_state_space(N, K, False), dev)
+    em_w = (fb_mb.em_forward_mb, fb_mb.em_backward_mb)
+    for w in em_w:
+        w.launches = 0
+    args = [torch.as_tensor(np.asarray(v, np.float64)).to(
+        device=dev, dtype=torch.float32) for v in (y, tm.lp, tm.mu, tm.sigma)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = tem.em_step(*args, tab, K=K, fb_mode="overlap_cuda", block=block)
+    got = [g.double().cpu().numpy() for g in got]
+    secs["card_em_step"] = time.perf_counter() - t
+    em_launches = {w.__name__: w.launches for w in em_w}
+
+    t = time.perf_counter()
+    x_n, ll_n, native_s = jobs[0].result()
+    (lp_n, mu_n, sg_n, ll_em_n), secs["native_em_step"] = jobs[1].result()
+    secs["wait_for_cpu_worker"] = time.perf_counter() - t
+    secs.update(native_s)
+
+    agree = float((m.ml_seq == x_n).mean())
+    ll_rel = abs(m.ll - ll_n) / abs(ll_n)
+    em_errs = {"lp_max_abs": float(np.abs(got[0] - lp_n).max()),
+               "mu_max_abs": float(np.abs(got[2] - mu_n).max()),
+               "sigma_rel": float(abs(got[3] - sg_n) / sg_n),
+               "ll_rel": float(abs(got[4] - ll_em_n) / abs(ll_em_n))}
+    em_gates = {"lp_max_abs": 1e-4, "mu_max_abs": 2e-3, "sigma_rel": 1e-4,
+                "ll_rel": 2e-4}
+    emit({"phase": "native_parity", "T": len(y), "N": N, "K": K,
+          "S": tm.state_space.nstates, "L": L, "card": card,
+          "decode": {"launches": dec_launches, "agreement_vs_native": agree,
+                     "disagreements": int((m.ml_seq != x_n).sum()),
+                     "ll": m.ll, "ll_native": ll_n, "ll_rel_err": ll_rel,
+                     "seam_ok": bool(m.seam_ok.all()),
+                     "seams_repaired": m.seams_repaired},
+          "em_step": {"S": tab.states.shape[1], "block": block,
+                      "L_H": list(tem.cuda_em_geometry(K, block)),
+                      "launches": em_launches, "errors": em_errs,
+                      "gates": em_gates, "ll": float(got[4]),
+                      "ll_native": ll_em_n, "sigma": float(got[3]),
+                      "sigma_native": sg_n},
+          "seconds_by_part": secs,
+          "native_samples_per_s": len(y) / secs["native_viterbi"]})
+    check(all(dec_launches.values()),
+          f"native_parity: kernels 1-2 did not run: {dec_launches}")
+    check(all(v == 1 for v in em_launches.values()),
+          f"native_parity: kernels 5-6 launches {em_launches}")
+    check(m.ml_seq.shape == x_n.shape and np.isfinite(m.ll),
+          "native_parity: output malformed")
+    check(agree >= 0.9999, f"native_parity: agreement {agree} with the "
+          "native engine < 0.9999")
+    check(ll_rel <= 1e-6, f"native_parity: ll relative error {ll_rel} "
+          "> 1e-6")
+    for k, lim in em_gates.items():
+        check(em_errs[k] <= lim,
+              f"native_parity: EM {k} {em_errs[k]} > {lim}")
+
+
+def union_share(events, t0, t1):
+    """Share of [t0, t1) (microseconds) covered by the union of the
+    events' [ts, ts + dur) intervals."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events)
+    covered, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            covered += b - a
+            end = b
+    return covered / (t1 - t0)
+
+
+DECODE_SPANS = ("decode.upload", "decode.windows", "decode.stitch",
+                "decode.download", "decode.ll")
+EM_SPANS = ("em.e_step", "em.m_step")
+
+
+def launch_us(n=5000):
+    """Host microseconds a launch of a one-element in-place add, over n
+    launches ended by a synchronise: the unit cost of a launch-bound
+    loop."""
+    a = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        a.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def trace_path(card, tm, y, L, em_once, main_share,
+               out_dir=pathlib.Path("chiprun_out") / "trace_path"):
+    """trace_path: one warm decode of y and one EM step (em_once) under
+    torch.profiler with CPU and CUDA activities; the spans, the kernels by
+    name and the device-busy share of the decode from the Chrome trace,
+    beside main_path's event-time estimate `main_share`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import viterbi_mb as vmb
+
+    wrappers = (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb, fb_mb.em_forward_mb,
+                fb_mb.em_backward_mb)
+    api.fit_spiking_model_fast(tm, y, L=L)                   # warm-up
+    torch.cuda.synchronize()
+    us_before = launch_us()
+    for w in wrappers:
+        w.launches = 0
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("trace_path.decode"):
+            t_dec = time.perf_counter()
+            m = api.fit_spiking_model_fast(tm, y, L=L)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t_dec
+        with record_function("trace_path.em"):
+            em_once()
+            torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t
+    us_after = launch_us()
+    launches = {w.__name__: w.launches for w in wrappers}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "trace.json"
+    t = time.perf_counter()
+    prof.export_chrome_trace(str(path))
+    ev = json.loads(path.read_text())["traceEvents"]
+    read_s = time.perf_counter() - t
+
+    spans = {}
+    for e in ev:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], e)
+    win = spans.get("trace_path.decode")
+    dev_ops = [e for e in ev
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in dev_ops if e["cat"] == "kernel"]
+    names = sorted({e["name"] for e in kernels})
+    # the port's kernels by their CUDA function names (kernel 2 is the
+    # chase machine's segments_kernel with the N=2 step decoder)
+    seen = {k: [n for n in names if key in n] for k, key in (
+        ("kernel1", "ov2_forward_kernel"), ("kernel2", "segments_kernel"),
+        ("kernel5", "em_forward_kernel"), ("kernel6", "em_backward_kernel"))}
+    has = {k: bool(v) for k, v in seen.items()}
+    out = {"phase": "trace_path", "T": len(y), "L": L, "card": card,
+           "trace": str(path), "trace_events": len(ev),
+           "device_events": len(dev_ops), "launches": launches,
+           "spans_seen": {s: s in spans for s in DECODE_SPANS + EM_SPANS},
+           "kernels_seen": seen, "distinct_kernels": len(names),
+           "decode_seconds_profiled": decode_s,
+           "launch_us_before": us_before, "launch_us_after": us_after,
+           "profiled_seconds": profiled_s, "trace_read_seconds": read_s,
+           "main_path_event_time_share": main_share}
+    if win is not None and kernels:
+        t0, t1 = win["ts"], win["ts"] + win["dur"]
+        inside = [e for e in dev_ops if e["ts"] < t1 and e["ts"] + e["dur"]
+                  > t0]
+        by_name = {}
+        for e in inside:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        out.update({
+            "decode_window_ms": win["dur"] / 1e3,
+            "device_busy_share": union_share(
+                [e for e in inside if e["cat"] == "kernel"], t0, t1),
+            "device_busy_share_with_copies": union_share(inside, t0, t1),
+            "top5_device_ops_ms": [[n, d / 1e3] for n, d in top],
+            "spans_ms": {s: spans[s]["dur"] / 1e3 for s in DECODE_SPANS
+                         if s in spans}})
+    emit(out)
+    check(all(out["spans_seen"].values()),
+          f"trace_path: spans missing: {out['spans_seen']}")
+    check(all(has.values()), f"trace_path: kernels missing from the "
+          f"trace: {has} {names}")
+    check(all(launches.values()), f"trace_path: launches {launches}")
+    check(win is not None and "device_busy_share" in out,
+          "trace_path: no decode window or no device time in the trace")
+    check(m.ml_seq.shape == (len(y),) and np.isfinite(m.ll),
+          "trace_path: output malformed")
+
+
 def em_update_errs(got, ref):
     """tests/test_sharded_em.py:180-184's float32 tolerances for one EM
     update (lp, pi, mu, sigma, ll): lp rtol 2e-5, pi atol 1e-4, mu atol
@@ -3321,6 +3578,11 @@ def main():
                                   rng=np.random.default_rng(1234))
     tm = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
                               allow_overlaps=True)
+    # native_parity's float64 references: the native engine on the CPU
+    # worker, while the card runs the phases before it
+    Tn = 1 << 17
+    native_jobs = (cpu.submit(cpu_native_decode, temps, sigma, lp, y[:Tn]),
+                   cpu.submit(cpu_native_em, temps, sigma, lp, y[:Tn]))
 
     # ---- kernels vs plain versions at the main path's shapes ----------
     B = -(-T // L)
@@ -3575,14 +3837,14 @@ def main():
         check(ll_rel <= 1e-6, f"{phase}: ll relative error {ll_rel} > 1e-6")
         check(bool((onset_rel <= 0.01).all()),
               f"{phase}: onset counts off by > 1%")
-        return one_launches, one
+        return one_launches, one, kernel_ms / 1e3 / one_s
 
-    one_launches, decoded_n2 = main_path(
+    one_launches, decoded_n2, main_share = main_path(
         "main_path", tm, y, truth, (vmb.ov2_forward_mb, vmb.ov2_backtrace_mb),
         fwd_ms + bt_ms, H, {}, fwd_ms)
     # streaming in batches of 64 windows (two calls in flight), not one
     # batch padded to the default 256
-    one3_launches, decoded_n3 = main_path(
+    one3_launches, decoded_n3, _ = main_path(
         "main_path_n3", tm3, y3, truth3,
         (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb),
         ovn3["forward"]["ms"] + ovn3["backtrace"]["ms"], H3,
@@ -3771,6 +4033,10 @@ def main():
     check(max(onset_rel) <= 0.02,
           f"train_path: onset counts off by > 2%: {onset_rel}")
 
+    # ---- the card against the native float64 engine, and a profiler trace
+    # of the main path --------------------------------------------------
+    native_parity(dev, card, tm, y[:Tn], native_jobs)
+
     # ---- kernels 7-10 (the chained onset posteriors) vs plain versions at
     # bench.py's posterior shapes: T=2^19, L=4096, B=128, K=60 -----------
     Tg, Lg = 1 << 19, 4096
@@ -3955,6 +4221,12 @@ def main():
              drift["cli"], rows2, mc_drift["cli"])
     cpu.close()
     sharded_launches = sharded_path(dev, card)
+    # last of the phases: a profiler session may leave the host's launches
+    # slower after it (trace_path prints a tiny kernel's launch cost before
+    # and after), and the plain versions' loops before it are launch-bound
+    trace_path(card, tm, y, L,
+               lambda: tem.em_step(*a32, tab_e, K=K, fb_mode="overlap_cuda",
+                                   block=2048), main_share)
 
     def gamma_entry(name, source, line, launches, row):
         """One kernel's entry of the kernels line from its row."""

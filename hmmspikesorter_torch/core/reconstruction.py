@@ -19,3 +19,11 @@ def reconstruct_signal(x, states, mu):
     """
     smu = state_means(states, mu)
     return smu[torch.as_tensor(x, device=mu.device).long()]
+
+
+def unroll_mlseq(x, states):
+    """(n_neurons, T) per-neuron ring positions for decoded states x
+    (reference src/extraction.jl:4-13): states[:, x] on x's device.
+    io/extraction.unroll_mlseq is the numpy form the CLI uses."""
+    x = torch.as_tensor(x)
+    return torch.as_tensor(states, device=x.device)[:, x.long()]

@@ -47,6 +47,7 @@ from ..parallel.overlap_save import (overlap_save_decode_long,
 from ..parallel.seam_repair import make_window_decoder, repair_seams
 from ..train.em import TrainResult, _em_phase, train_model
 from ..utils.device import as_float, default_dtype, numpy_dtype, resolve_device
+from ..utils.metrics import profile_trace
 
 # Past this many overlap-save blocks the fast path streams fixed-size window
 # batches (the JAX package's compile-time bound; here it bounds the
@@ -336,13 +337,15 @@ def fit_spiking_model_fast(templates: HMMTemplateModel, y, *,
             y_dev, templates.lp, templates.mu, templates.sigma, L=L, H=H,
             overlaps=templates.allow_overlaps, block_engine=block_engine,
             device=dev, dtype=dt)
-        x, seam_ok = x.cpu().numpy(), seam_ok.cpu().numpy()
+        with profile_trace("decode.download"):
+            x, seam_ok = x.cpu().numpy(), seam_ok.cpu().numpy()
         spike_onsets = None
     x, seam_ok, n_repaired, spike_onsets = _repair_and_onsets(
         templates, y, x, seam_ok, spike_onsets, L=L, H=H, repair=repair,
         transfer=transfer, device=dev, dtype=dt)
-    ll = path_cumulative_ll(y, x, templates.state_space.states,
-                            templates.mu, templates.sigma, templates.lp)
+    with profile_trace("decode.ll"):
+        ll = path_cumulative_ll(y, x, templates.state_space.states,
+                                templates.mu, templates.sigma, templates.lp)
     model = HMMSpikingModel(templates, x, ll, y)
     model.seam_ok = seam_ok
     model.seams_repaired = n_repaired

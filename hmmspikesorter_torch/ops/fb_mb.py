@@ -62,10 +62,10 @@ import torch
 
 from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
-from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream, sm_count
+from ..utils.platform import SMEM_CTA_RESERVED, SMEM_LIMIT, SMEM_SM, sm_count
+from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream
 
 MAX_THREADS = 1024          # S at most (kernels 12-13: a thread a state)
-SMEM_LIMIT = 232448         # shared memory one CTA may opt into on an H100
 SLAB_BYTES = 65536          # kernel 6's remat slab is sized to about this
 
 
@@ -124,7 +124,6 @@ def em_kernel_ok(N: int, K: int) -> bool:
 
 EM_SPT = (1, 2)             # states a thread of kernels 5-6 may own
 EM_CTA_THREADS = 512        # their CTA's threads, at most (128 registers)
-SMEM_SM = 233472            # shared memory of an H100 SM, 1 KB of it per CTA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +202,7 @@ def _window_plan(B: int, S: int, sm_count: int, shape, candidates,
     if shape is None:
         wide = B <= sm_count
         budgets = [(EM_CTA_THREADS if wide else EM_CTA_THREADS // 2,
-                    SMEM_LIMIT if wide else SMEM_SM // 2 - 1024)]
+                    SMEM_LIMIT if wide else SMEM_SM // 2 - SMEM_CTA_RESERVED)]
         if whole_sm:
             budgets.append((EM_CTA_THREADS, SMEM_LIMIT))
         spt, split = next(

@@ -60,13 +60,13 @@ import torch
 
 from ..core.posterior import _recenter, _shift_down, _shift_up
 from ..utils.device import as_float, default_dtype, resolve_device
+from ..utils.platform import device_budget, sm_count
 from .fb_mb import (MAX_THREADS, SMEM_LIMIT, EmConsts, EmPlan, _alpha_step,
                     _beta_step, _block_lse, _emission, _fwd_spt, _r4,
                     _window_fits, _window_plan, em_chunk, em_consts,
                     em_consts_mc)
-from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream, sm_count
+from .viterbi_mb import _I, _P, _check_cuda, _lib, _stream
 
-HBM_FRACTION = 0.5      # of the card's memory, for the checkpoints (gate)
 MC_MAX_N, MC_MAX_KM1 = 8, 64    # the JAX multi-channel front-end's limits
 
 
@@ -105,15 +105,6 @@ def gamma_hbm_bytes(T: int, N: int, K: int, L: int = 4096) -> int:
     B = -(-T // L)
     return 4 * (B * (L // gamma_chunk(N, K)) * S + B * L * N + 2 * B * L
                 + 6 * B * S)
-
-
-def device_budget(device=None) -> int:
-    """HBM_FRACTION of the card's memory: the rest stays for the caller's
-    tensors and the allocator's cache. From the device's properties, so the
-    gate is decided from shapes, the same on every call."""
-    dev = torch.device("cuda" if device is None else device)
-    return int(HBM_FRACTION * torch.cuda.get_device_properties(dev)
-               .total_memory)
 
 
 def gamma_hbm_ok(T: int, N: int, K: int, L: int = 4096,

@@ -56,10 +56,12 @@ import torch
 
 from ..core.posterior import _ov2_fb_block, _recenter, _shift_down, _shift_up
 from ..utils.device import default_dtype, resolve_device
-from .fb_mb import SMEM_LIMIT, SMEM_SM, _lae, _tree_sum
-from .gamma_mb import _check_geometry, chain_inputs, device_budget
+from ..utils.platform import (SMEM_CTA_RESERVED, SMEM_LIMIT, SMEM_SM,
+                              device_budget, sm_count)
+from .fb_mb import _lae, _tree_sum
+from .gamma_mb import _check_geometry, chain_inputs
 from .viterbi_mb import KP, Ov2Consts, _I, _P, _check_cuda, _col, _lib, \
-    _stream, ov2_consts, sm_count
+    _stream, ov2_consts
 
 # Steps per checkpoint chunk. Kernel 10's one-set gamma pass keeps
 # (CH2 + 3) S floats in shared memory (remat slab, two beta buffers, the
@@ -159,7 +161,7 @@ def gamma_ov2_launch_plan(B: int, Km1: int, sm_count: int,
             shape = ((1024, 1) if ov2_smem_bytes(Km1, ch, True) <= SMEM_LIMIT
                      else (512, 1))
         else:
-            two = 2 * (ov2_smem_bytes(Km1, ch) + 1024) <= SMEM_SM
+            two = 2 * (ov2_smem_bytes(Km1, ch) + SMEM_CTA_RESERVED) <= SMEM_SM
             shape = (512, 2) if two else (512, 1)
     if shape not in GAMMA_SHAPES:
         raise ValueError(f"ov2 gamma block shapes are {GAMMA_SHAPES}")
@@ -251,7 +253,7 @@ def ov2_gamma_hbm_bytes(T: int, K: int, L: int = 4096,
 def ov2_gamma_hbm_ok(T: int, K: int, L: int = 4096,
                      budget: int | None = None,
                      per_window: bool = False) -> bool:
-    """The checkpoints fit the card's budget (ops/gamma_mb.device_budget:
+    """The checkpoints fit the card's budget (utils/platform.device_budget:
     half its memory, 40 GB on an 80 GB H100, up to T of about 2^23 at
     K=60); past it the plain chained engines take over."""
     if budget is None:

@@ -20,6 +20,9 @@ Three execution schemes over the same step functions:
 * `ring_overlap_forward_backward` — halo windows, B-way batched, no S^2
   operators; kernels 5-6 (ops/fb_mb.py) run the same window protocol.
 
+`ring_viterbi_path_ll` runs the blocked scheme in max-plus
+(`_fwd_step_max`): a known path's cumulative Viterbi score.
+
 Semantics: reference src/baumwelch.jl:25-51 (dead-pi emission-only init)
 and :73-98 (beta[T-1] = 0).
 """
@@ -209,6 +212,83 @@ def ring_blocked_forward_backward(y, lp, mu, sigma, *, L: int = 256):
     # beta at sample i (step i targets sample i+1); beta at T-1 is 0
     beta = torch.cat([betas_src.reshape(-1, S)[: T - 1], bT[None]])
     return alpha, beta
+
+
+def _fwd_step_max(vs, vb, es, ebm, w):
+    """Max-plus mirror of _fwd_step (Viterbi scores, no backpointers).
+
+    Same structural transitions; supports leading batch axes like
+    _fwd_step. Used for exact boundary Viterbi score vectors from block
+    operators and for the per-block replay of path scores."""
+    ends = vb[..., :, -1]
+    new_vs = torch.maximum(
+        vs + w["self_w"], torch.amax(ends + w["stay_w"], dim=-1)) + es
+    swap = torch.amax(ends[..., :, None] + w["diag_mask"],
+                      dim=-2) + w["swap_w"]
+    first = torch.maximum(vs[..., None] + w["onset_w"], swap + w["lp"])
+    new_vb = torch.cat(
+        [first[..., :, None], vb[..., :, :-1] + w["stay_w"]], dim=-1) + ebm
+    return new_vs, new_vb
+
+
+def ring_viterbi_path_ll(y, lp, mu, sigma, x, *, L: int = 1024,
+                         silent_start: bool = True):
+    """Reference cumulative-score ll (sum over t >= 1 of T1[x_t, t],
+    src/viterbi.jl:92-96) of a known path x, computed block-parallel on the
+    non-overlap space, on mu's device in mu's dtype. Returns a 0-dim
+    tensor.
+
+    Exact boundary score vectors come from (B, S, S) max-plus block
+    operators (the ring step batched over identity source rows), chained
+    over the B blocks; every block then replays its scores from its
+    boundary vector and reads the score at its path state. Matches the
+    sequential engine's ll up to float reassociation at block boundaries.
+    """
+    y, w, em = _setup(y, lp, mu, sigma)
+    dtype, dev = mu.dtype, mu.device
+    T = y.shape[0]
+    K, N = mu.shape
+    Km1 = K - 1
+    S = 1 + N * Km1
+    x = torch.as_tensor(x, device=dev).long()
+
+    Tm1 = T - 1
+    B = -(-Tm1 // L)
+    pad = B * L - Tm1
+    y_steps = torch.nn.functional.pad(y[1:], (0, pad)).reshape(B, L)
+    x_steps = torch.nn.functional.pad(x[1:], (0, pad)).reshape(B, L)
+    mask = (torch.arange(B * L, device=dev) < Tm1).reshape(B, L)
+    es, eb = em(y_steps[..., None, None])
+    es = es[..., 0, 0]                                   # (B, L), (B, L, N, Km1)
+
+    eyeS = torch.full((S, S), -math.inf, dtype=dtype, device=dev)
+    eyeS.fill_diagonal_(0.0)
+    VS, VB = _unflat(eyeS.expand(B, S, S), N, Km1)
+    for l in range(L):
+        nvs, nvb = _fwd_step_max(VS, VB, es[:, l, None], eb[:, l, None], w)
+        v = mask[:, l]
+        VS = torch.where(v[:, None], nvs, VS)
+        VB = torch.where(v[:, None, None, None], nvb, VB)
+    ops = _flat(VS, VB)                                  # (B, S, S)
+
+    v = _flat(*em(y[0]))
+    if silent_start:
+        v[0] = 0.0
+    v0s = []
+    for b in range(B):
+        v0s.append(v)
+        v = torch.amax(v[:, None] + ops[b], dim=0)
+
+    vs, vb = _unflat(torch.stack(v0s), N, Km1)
+    scores = []
+    for l in range(L):
+        nvs, nvb = _fwd_step_max(vs, vb, es[:, l], eb[:, l], w)
+        v = mask[:, l]
+        vs = torch.where(v, nvs, vs)
+        vb = torch.where(v[:, None, None], nvb, vb)
+        score = _flat(vs, vb).gather(1, x_steps[:, l, None])[:, 0]
+        scores.append(torch.where(v, score, 0.0))
+    return torch.stack(scores, dim=1).sum(dim=1).sum()
 
 
 def _overlap_edge_rows(T, L, H, B, W):

@@ -44,6 +44,7 @@ import torch
 
 from ..utils.device import as_float
 from ..utils.logmath import HALF_LOG_2PI
+from ..utils.platform import on_card, sm_count
 from . import _build
 from . import bt_segments as bts
 
@@ -384,7 +385,7 @@ def _lib(name, fn, argtypes):
 
 def _check_cuda(name, **tensors):
     for arg, (t, dtype) in tensors.items():
-        if t.device.type != "cuda":
+        if not on_card(t.device):
             raise ValueError(f"{name}: {arg} must be a CUDA tensor")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
@@ -394,18 +395,6 @@ def _check_cuda(name, **tensors):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
-
-
-_SM_COUNT: dict[int, int] = {}
-
-
-def sm_count(device) -> int:
-    """The card's SM count (cudaDevAttrMultiProcessorCount)."""
-    i = torch.device(device).index or 0
-    if i not in _SM_COUNT:
-        _SM_COUNT[i] = torch.cuda.get_device_properties(
-            i).multi_processor_count
-    return _SM_COUNT[i]
 
 
 def ov2_plan_for(B: int, Km1: int, device, shape=None) -> Ov2Plan:

@@ -56,14 +56,14 @@ import dataclasses
 
 import torch
 
+from ..utils import platform
 from . import bt_segments as bts
 from . import ring_viterbi_ovn as rvo
-from .viterbi_mb import (KP, _I, _P, _check_cuda, _lib, _stream, bt_design,
-                         sm_count)
+from .viterbi_mb import KP, _I, _P, _check_cuda, _lib, _stream, bt_design
 
-# Shared memory one CTA may opt into on an H100 (227 KB), less what the
-# forward kernel declares statically (its argmax scratch).
-SMEM_LIMIT = 232448 - 256
+# Shared memory one CTA may opt into, less the 256 bytes the forward
+# kernels (3 and 11) declare statically for their argmax scratch.
+SMEM_LIMIT = platform.SMEM_LIMIT - 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -736,7 +736,7 @@ def _bt_launch(flags, rings, rowcol, xT, c: OvnConsts, segments=None,
             or rowcol.shape != (B, W, 2 * P, K1) or xT.shape != (B,)):
         raise ValueError("ovn_backtrace_mb: shape mismatch")
     dev = flags.device
-    G = bts.bt_launch_plan(B, W, sm_count(dev), segments)
+    G = bts.bt_launch_plan(B, W, platform.sm_count(dev), segments)
     labels = torch.empty((B, W), dtype=torch.int16, device=dev)
     st = torch.zeros((B, 2), dtype=torch.int32, device=dev) if stats else None
     fn = _lib("viterbi_ovn_bt", "ovn_backtrace_mb",
@@ -766,7 +766,7 @@ ovn_backtrace_mb.launches = 0
 def ovn_mc_plan_for(B: int, N: int, Km1: int, device,
                     shape: tuple | None = None) -> OvnMCPlan:
     """`ovn_mc_launch_plan` on the card holding the windows."""
-    return ovn_mc_launch_plan(N, Km1, B, sm_count(device), shape)
+    return ovn_mc_launch_plan(N, Km1, B, platform.sm_count(device), shape)
 
 
 def ovn_mc_design(plan: OvnMCPlan, N: int, Km1: int) -> dict:

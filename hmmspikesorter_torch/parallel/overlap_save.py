@@ -43,6 +43,7 @@ from ..ops.viterbi_mb import KP, labels_dtype
 from ..ops.viterbi_ovn_mb import ovn_kernel_ok, ovn_mc_kernel_ok
 from ..utils.device import (as_float, default_dtype, numpy_dtype,
                             resolve_device)
+from ..utils.metrics import profile_trace
 
 
 def _decode_blocks(em_win, v0, in_idx, in_w):
@@ -308,7 +309,8 @@ def ring_overlap_save(y, lp, mu, sigma, *, L: int, H: int, overlaps: bool,
     mu_t = as_float(mu, dtype, device)
     K, N = mu_t.shape
     block_engine = resolve_block_engine(block_engine, overlaps, K, N, device)
-    y = _to_device(y, device, dtype)
+    with profile_trace("decode.upload"):
+        y = _to_device(y, device, dtype)
     T = y.shape[0]
     B = -(-T // L)
     W = L + 2 * H
@@ -318,17 +320,21 @@ def ring_overlap_save(y, lp, mu, sigma, *, L: int, H: int, overlaps: bool,
         # would alter the argmax termination at the true last sample,
         # src/viterbi.jl:90)
         engine = ring_engine(N, overlaps)
-        x, _ = engine(y, lp, mu_t, sigma, silent_start=True, with_ll=False)
+        with profile_trace("decode.windows"):
+            x, _ = engine(y, lp, mu_t, sigma, silent_start=True,
+                          with_ll=False)
         return x.to(out_dtype), torch.ones(0, dtype=torch.bool, device=device)
-    y_win, edge_rows = _build_windows(y, T=T, L=L, H=H, B=B, W=W)
-    sil0 = torch.arange(B, device=device) == 0     # forced silent start
-    dec = ring_block_decoder(lp, mu_t, sigma, overlaps=overlaps,
-                             block_engine=block_engine, device=device,
-                             dtype=dtype)
-    xb = dec(y_win, sil0)
-    x, seam_ok = _snap_and_stitch(xb, T=T, L=L, H=H, B=B,
-                                  edge_rows=edge_rows)
-    return x.to(out_dtype), seam_ok
+    with profile_trace("decode.windows"):
+        y_win, edge_rows = _build_windows(y, T=T, L=L, H=H, B=B, W=W)
+        sil0 = torch.arange(B, device=device) == 0     # forced silent start
+        dec = ring_block_decoder(lp, mu_t, sigma, overlaps=overlaps,
+                                 block_engine=block_engine, device=device,
+                                 dtype=dtype)
+        xb = dec(y_win, sil0)
+    with profile_trace("decode.stitch"):
+        x, seam_ok = _snap_and_stitch(xb, T=T, L=L, H=H, B=B,
+                                      edge_rows=edge_rows)
+        return x.to(out_dtype), seam_ok
 
 
 def _build_windows_arrays(ys, *, T, L, H, B, W):

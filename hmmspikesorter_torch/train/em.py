@@ -43,6 +43,7 @@ from ..core.state_space import StateSpace, build_state_space
 from ..data.synthetic import create_spike_template
 from ..utils.device import as_float, default_dtype, resolve_device
 from ..utils.logmath import HALF_LOG_2PI, logsumexp_rows
+from ..utils.metrics import profile_trace
 from . import template_ops
 
 FB_MODES = ("ring", "overlap", "blocked", "gather", "overlap_cuda")
@@ -144,10 +145,12 @@ def em_step(y, lp, mu, sigma, tables: EMTables, *, K: int,
     if fb_mode == "overlap_cuda":
         return _em_step_overlap_cuda(y, lp, mu, sigma, tables, K=K,
                                      block=block)
-    G1, Gy, Gy2, xx, bb, new_pi, ll = _em_stats_dense(
-        y, lp, mu, sigma, tables, K=K, fb_mode=fb_mode, block=block)
-    new_lp, new_mu, new_sigma = _m_step_from_stats(
-        G1, Gy, Gy2, xx[1:], bb, tables.states, mu.dtype, K, N)
+    with profile_trace("em.e_step"):
+        G1, Gy, Gy2, xx, bb, new_pi, ll = _em_stats_dense(
+            y, lp, mu, sigma, tables, K=K, fb_mode=fb_mode, block=block)
+    with profile_trace("em.m_step"):
+        new_lp, new_mu, new_sigma = _m_step_from_stats(
+            G1, Gy, Gy2, xx[1:], bb, tables.states, mu.dtype, K, N)
     return new_lp, new_pi, new_mu, new_sigma, ll
 
 
@@ -315,19 +318,22 @@ def _em_step_overlap_cuda(y, lp, mu, sigma, tables: EMTables, *, K: int,
     L, H = cuda_em_geometry(K, block)
     y_w, lp_w, mu_w = y.to(work), lp.to(work), mu.to(work)
     sigma_w = torch.as_tensor(sigma, device=y.device).to(work)
-    G1, Gy, Gy2, X, Xd, beta0, ll = overlap_em_stats(
-        y_w, lp_w, mu_w, sigma_w, L=L, H=H)
+    with profile_trace("em.e_step"):
+        G1, Gy, Gy2, X, Xd, beta0, ll = overlap_em_stats(
+            y_w, lp_w, mu_w, sigma_w, L=L, H=H)
 
-    # pi = gamma[:, 0]: forward init is emission-only (dead-pi quirk), so
-    # alpha_0 is one emission row; beta_0 comes from kernel 6
-    alpha0 = _flat(*_emission_fns(mu_w, sigma_w)(y_w[0]))
-    g0 = torch.logsumexp(alpha0 + beta0, dim=0)
-    new_pi = (alpha0 + beta0 - g0).to(dtype)
+        # pi = gamma[:, 0]: forward init is emission-only (dead-pi quirk),
+        # so alpha_0 is one emission row; beta_0 comes from kernel 6
+        alpha0 = _flat(*_emission_fns(mu_w, sigma_w)(y_w[0]))
+        g0 = torch.logsumexp(alpha0 + beta0, dim=0)
+        new_pi = (alpha0 + beta0 - g0).to(dtype)
 
     # the onset update log(X) - log(Xd) == lse_t(xi) - lse_t(log_gamma_sil)
     # of the materialised path
-    new_lp, new_mu, new_sigma = _m_step_from_stats(
-        G1, Gy, Gy2, torch.log(X), torch.log(Xd), tables.states, work, K, N)
+    with profile_trace("em.m_step"):
+        new_lp, new_mu, new_sigma = _m_step_from_stats(
+            G1, Gy, Gy2, torch.log(X), torch.log(Xd), tables.states, work,
+            K, N)
     return (new_lp.to(dtype), new_pi, new_mu.to(dtype), new_sigma.to(dtype),
             ll.to(dtype))
 

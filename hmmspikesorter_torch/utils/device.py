@@ -1,5 +1,6 @@
-"""Device resolution and platform report (counterpart of the JAX package's
-utils/platform.py).
+"""Device resolution and platform report: which device an entry point runs
+on and what this host offers the port (the card's budgets are
+utils/platform.py's).
 
 Entry points run on CUDA unless the caller asks for the CPU. There is no
 fallback: with no GPU and no explicit `device="cpu"`, `resolve_device`

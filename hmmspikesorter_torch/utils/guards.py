@@ -1,11 +1,15 @@
-"""Input guards of the CLI and checkpoint loads (counterpart of the JAX
-package's utils/guards.py, without its checkify wrapper `checked`).
+"""NaN/-inf guard machinery (counterpart of the JAX package's
+utils/guards.py).
 
 The reference has no sanitizers; its failure mode is silent NaN
 propagation through log-space recursions (sigma collapsing to 0, exp
 overflow in a logsumexp). The port's hot paths are plain functions, so
 guarding is a wrapper concern:
 
+* `checked(fn)` — wraps a function so that NaN in any floating-point
+  output (or, with check_inputs, argument) raises FloatingPointError
+  naming the leaf, instead of propagating silently. A debug wrapper for
+  tests and debug runs; no production path applies it.
 * `assert_finite_tree(tree)` — host-side eager validation of a nested
   structure (dicts, lists, tuples) of numpy arrays and torch tensors:
   raises ValueError naming the leaf. -inf is permitted (log-space padding
@@ -13,9 +17,14 @@ guarding is a wrapper concern:
 * `guard_inputs(y, sigma)` — the input-validation bail the CLI applies
   before decoding (the reference's input checks, hmmsort.jl:40-53, extended
   to data sanity); a copy of the JAX function, pure numpy.
+
+Leaves are numbered in the JAX tree order: dict keys sorted, lists and
+tuples in order, None no leaf, anything else one leaf.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +39,60 @@ def _leaves(tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree
+
+
+def _is_float(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.is_floating_point()
+    if isinstance(leaf, float):
+        return True
+    return (isinstance(leaf, (np.ndarray, np.generic))
+            and leaf.dtype.kind == "f")
+
+
+def _first_nan(tree):
+    """Index (in the JAX leaf order) of the first floating-point leaf that
+    holds a NaN, or None. The tensors' tests are gathered per device and
+    read in one copy each, so a CUDA tree synchronises once."""
+    flags = {}                        # device -> [(leaf index, flag)]
+    for i, leaf in enumerate(_leaves(tree)):
+        if not _is_float(leaf):
+            continue
+        if isinstance(leaf, torch.Tensor):
+            flags.setdefault(leaf.device, []).append(
+                (i, torch.isnan(leaf.detach()).any()))
+        elif np.isnan(leaf).any():
+            flags.setdefault(None, []).append((i, True))
+    hits = []
+    for dev, pairs in flags.items():
+        if dev is None:
+            hits += [i for i, _ in pairs]
+        else:
+            seen = torch.stack([f for _, f in pairs]).cpu().tolist()
+            hits += [i for (i, _), hit in zip(pairs, seen) if hit]
+    return min(hits, default=None)
+
+
+def checked(fn, *, check_inputs: bool = False):
+    """Wrap `fn` so NaNs in its floating-point outputs (and, with
+    check_inputs, its arguments, checked before the call) raise
+    FloatingPointError("NaN in output leaf {i}" / "NaN in input leaf {i}")
+    instead of propagating. -inf passes. `fn` runs eagerly; the check
+    reads each device's flags in one copy after the call."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if check_inputs:
+            i = _first_nan((args, kwargs))
+            if i is not None:
+                raise FloatingPointError(f"NaN in input leaf {i}")
+        out = fn(*args, **kwargs)
+        i = _first_nan(out)
+        if i is not None:
+            raise FloatingPointError(f"NaN in output leaf {i}")
+        return out
+
+    return wrapper
 
 
 def assert_finite_tree(tree, *, name: str = "tree") -> None:

@@ -5,14 +5,18 @@ bar (SURVEY.md §5.5). Here every EM iteration / decode phase can emit a
 structured record: wall-clock, samples/s, log-likelihood, sigma, per-neuron
 onset rates — to stdout and/or an append-only JSONL file.
 
-Copy of the JAX package's utils/metrics.py without `profile_trace`, whose
-profiler annotation waits for the port's tracing slice.
+`MetricsLogger` is a copy of the JAX package's; `profile_trace` names a
+phase in a torch.profiler trace, as the JAX one names it in a jax.profiler
+trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
+
+import torch
 
 
 class MetricsLogger:
@@ -57,3 +61,12 @@ class MetricsLogger:
     def __exit__(self, *exc):
         self.close()
 
+
+def profile_trace(name: str):
+    """Profiler span for a named phase (SURVEY.md §5.1): a context manager
+    that marks the phase on the host timeline of an active torch.profiler
+    session (torch.profiler.record_function) and does nothing outside one
+    (entering a record_function costs tens of microseconds even then)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

@@ -200,6 +200,126 @@ def test_multidevice_functions_are_in_the_port(mod, names):
     assert pathlib.Path(m.__file__) in _port_files()
 
 
+@pytest.mark.parametrize("mod", ["native", "utils.platform", "utils.guards",
+                                 "utils.metrics", "core.reconstruction",
+                                 "ops.ring_fb"])
+def test_leftover_slice_modules_are_covered(mod):
+    """The last slice's modules (the native engine is a package) are among
+    the files the source scan reads and import on their own with torch,
+    numpy and scipy only."""
+    path = PKG / mod.replace(".", "/")
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in _port_files()
+    code = (f"import sys, hmmspikesorter_torch.{mod}\n"
+            f"sys.exit(any(k.split('.')[0] in {FORBIDDEN!r} "
+            "for k in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+# A JAX name whose port counterpart has another module or name: the Pallas
+# modules' kernels and gates became the CUDA modules' (VMEM budgets became
+# shared-memory budgets), and the TPU backend checks the card's.
+RENAMED = {
+    ("ops.pallas_fb_mb", "overlap_em_mc_vmem_bytes"):
+        ("ops.fb_mb", "em_mc_smem_bytes"),
+    ("ops.pallas_fb_mb", "overlap_em_mc_vmem_ok"):
+        ("ops.fb_mb", "em_mc_kernel_ok"),
+    ("ops.pallas_fb_mb", "overlap_em_stats_pallas"):
+        ("ops.fb_mb", "overlap_em_stats"),
+    ("ops.pallas_fb_mb", "overlap_em_stats_pallas_mc"):
+        ("ops.fb_mb", "overlap_em_stats_mc"),
+    ("ops.pallas_gamma_mb", "gamma_hbm_bytes"):
+        ("ops.gamma_mb", "gamma_hbm_bytes"),
+    ("ops.pallas_gamma_mb", "gamma_hbm_ok"): ("ops.gamma_mb", "gamma_hbm_ok"),
+    ("ops.pallas_gamma_mb", "onset_gammas_pallas"):
+        ("ops.gamma_mb", "onset_gammas_cuda"),
+    ("ops.pallas_gamma_mb", "onset_gammas_pallas_mc"):
+        ("ops.gamma_mb", "onset_gammas_cuda_mc"),
+    ("ops.pallas_gamma_ov2", "onset_gammas_pallas_ov2"):
+        ("ops.gamma_ov2", "onset_gammas_cuda_ov2"),
+    ("ops.pallas_gamma_ov2", "onset_gammas_pallas_ov2_tracked"):
+        ("ops.gamma_ov2", "onset_gammas_cuda_ov2_tracked"),
+    ("ops.pallas_gamma_ov2", "ov2_gamma_hbm_bytes"):
+        ("ops.gamma_ov2", "ov2_gamma_hbm_bytes"),
+    ("ops.pallas_gamma_ov2", "ov2_gamma_hbm_ok"):
+        ("ops.gamma_ov2", "ov2_gamma_hbm_ok"),
+    ("ops.pallas_gamma_ov2", "ov2_gamma_vmem_bytes"):
+        ("ops.gamma_ov2", "ov2_smem_bytes"),
+    ("ops.pallas_gamma_ov2", "ov2_gamma_vmem_ok"):
+        ("ops.gamma_ov2", "ov2_gamma_kernel_ok"),
+    ("ops.pallas_viterbi", "ov2_decode_from_kernel"):
+        ("ops.viterbi_ov2", "ov2_decode_from_kernel"),
+    ("ops.pallas_viterbi", "ov2_decode_pallas"):
+        ("ops.viterbi_ov2", "ov2_decode_cuda"),
+    ("ops.pallas_viterbi", "ov2_forward_pallas"):
+        ("ops.viterbi_ov2", "ov2_forward_cuda"),
+    ("ops.pallas_viterbi_mb", "ov2_decode_pallas_mb"):
+        ("ops.viterbi_mb", "ov2_decode_mb"),
+    ("ops.pallas_viterbi_mb", "ov2_forward_pallas_mb"):
+        ("ops.viterbi_mb", "ov2_forward_mb"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_decode_pallas_mb"):
+        ("ops.viterbi_ovn_mb", "ovn_decode_mb"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_mb_vmem_bytes"):
+        ("ops.viterbi_ovn_mb", "ovn_smem_bytes"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_mb_vmem_ok"):
+        ("ops.viterbi_ovn_mb", "ovn_kernel_ok"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_mc_decode_pallas_mb"):
+        ("ops.viterbi_ovn_mb", "ovn_mc_decode_mb"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_mc_mb_vmem_bytes"):
+        ("ops.viterbi_ovn_mb", "ovn_mc_smem_bytes"),
+    ("ops.pallas_viterbi_ovn_mb", "ovn_mc_mb_vmem_ok"):
+        ("ops.viterbi_ovn_mb", "ovn_mc_kernel_ok"),
+    ("ops.ring_viterbi_mc", "mc_em_ovn"): ("ops.ring_viterbi_ovn", "mc_em_ovn"),
+    ("train.em", "pallas_em_geometry"): ("train.em", "cuda_em_geometry"),
+    ("utils.platform", "is_tpu_backend"): ("utils.platform", "on_card"),
+    ("utils.platform", "tpu_vmem_ceiling_bytes"): ("utils.platform", "card"),
+}
+# A JAX name the port leaves out on purpose, with the reason: none.
+BY_DESIGN: dict[tuple[str, str], str] = {}
+
+
+def _jax_public_names():
+    """(module, name) of every public top-level function and class of the
+    JAX package, by an AST scan (constants such as TPU layout sizes are not
+    counted)."""
+    jroot = ROOT / "hmmspikesorter_tpu"
+    for path in sorted(jroot.rglob("*.py")):
+        mod = ".".join(path.relative_to(jroot).with_suffix("").parts)
+        mod = mod.removesuffix(".__init__").removesuffix("__init__")
+        for node in ast.parse(path.read_text()).body:
+            if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                    and not node.name.startswith("_")):
+                yield mod, node.name
+
+
+def test_port_covers_the_jax_package():
+    """Every public function and class of every module of the JAX package
+    has a counterpart in the port: the same name in the same module, or the
+    one RENAMED names; BY_DESIGN lists what is left out, each with its
+    reason."""
+    import importlib
+
+    names = list(_jax_public_names())
+    assert len(names) > 200
+    missing = []
+    for mod, name in names:
+        if (mod, name) in BY_DESIGN:
+            continue
+        tmod, tname = RENAMED.get((mod, name), (mod, name))
+        pkg = "hmmspikesorter_torch" + (f".{tmod}" if tmod else "")
+        try:
+            found = hasattr(importlib.import_module(pkg), tname)
+        except ModuleNotFoundError:
+            found = False
+        if not found:
+            missing.append(f"{mod}.{name} -> {tmod}.{tname}")
+    assert not missing, missing
+    assert set(RENAMED) <= set(names) and set(BY_DESIGN) <= set(names)
+    assert all(reason for reason in BY_DESIGN.values())
+
+
 def test_mesh_config_copy_matches():
     a, b = jconfig.MeshConfig(), tconfig.MeshConfig()
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -428,7 +548,10 @@ def test_metrics_copy_matches(tmp_path):
         rec.pop("t")
         recs.append(rec)
     assert recs[0] == recs[1]
-    assert not hasattr(tmetrics, "profile_trace")
+    span = tmetrics.profile_trace("metrics")
+    assert hasattr(span, "__enter__") and hasattr(span, "__exit__")
+    with span:
+        pass
 
 
 def test_package_has_version():
