@@ -11,6 +11,9 @@ since the previous phase line):
   platform     torch and CUDA versions, the card (nvidia-smi)
   build        nvcc of hmmspikesorter_torch/csrc/*.cu (kernels 1-19), all
                sources at once
+  card_paths_prep  card_paths' recordings and two drift tracks (kernels 5-6
+               and 12-13), its float64 references handed to the CPU
+               worker (seconds_by_part)
   kernels      at the N=2 main path's shapes (B=256 windows of W=8672,
                K=60, float32): kernel 1 vs ov2_forward_mb_plain (flags,
                rings, xT exactly equal), kernel 2 vs ov2_backtrace_mb_plain
@@ -310,6 +313,31 @@ since the previous phase line):
                bit-equal to a LocalMesh of one shard; runner.main
                ["--channels", "2", "--samples", "65536"] and its JSON line;
                `seconds_by_part`
+  card_paths   (after cli_path) five paths held against float64 references
+               computed on the CPU (card_paths_prep), one line each
+               (`part`): a_n4_cli, N=4 (OVN_SHAPES, K=60, S=21,123,
+               T=2^20) through cli._sort_loaded --engine fast (kernels 3
+               and 4 once each on 128 windows; mlseq equal to the library
+               decode's, ll within 1e-6 of a float64 path score, onset
+               errors; the first 2^15 samples' labels equal the native
+               float64 engine's); b_seam_repair, every seam of 4 windows
+               forced (forced_seam_recordings) on config 2's N=3 templates
+               (streaming, kernels 3-4) and config 6 (kernels 11 + 4): 3
+               seams repaired, labels equal the float64 plain decode's
+               (vs_f64: where they differ, the float32 plain engines on the
+               CPU differ alike), each seam's rounds and seconds;
+               c_tracked_mc_repair, the first 3 chunks of drift_path_mc's
+               recording under its track (the same track), both seams
+               forced, decode_tracked_mc: 2 seams repaired, labels equal
+               the float64 decode's (vs_f64); d_tracked_n3,
+               fit_spiking_model_adaptive at N=3 on a 1x -> 2x ramp over
+               T=2^21 (kernels 5-6, then 64 launches each of kernels 3 and
+               4, each timed), onset errors below a stationary decode's,
+               the first 4 chunks' labels equal the float64
+               _tracked_overlap_save's (vs_f64); e_tracked_mc_posteriors,
+               onset_posteriors_tracked_mc with overlaps on (config 6,
+               S=10,621, 2 chunks of 2048, the plain engines) within the
+               float32 floor of the float64 run
   trace_path   one warm fit_spiking_model_fast at main_path's shape (T=2^21)
                and one train_em step under torch.profiler (CPU and CUDA
                activities): every profile_trace span of the decode and the
@@ -323,9 +351,10 @@ since the previous phase line):
                session. Last of the phases
 The plain versions' step loops are launch-bound on the host and set most
 of the wall: nvcc builds the kernels while kernels 1-4's plain versions
-run, and a spawned worker process computes three float64 references and
-two plain backtraces on the CPU (drift_path's twin and its kernel 2 checks,
-cli_path's seam twin and multichannel posteriors) while the card runs on.
+run, and two spawned worker processes compute the float64 references
+and two plain backtraces on the CPU (drift_path's twin and its kernel 2
+checks, cli_path's seam twin and multichannel posteriors, card_paths')
+while the card runs on.
 About 10 minutes on an H100 (the
 wall phase prints it; each phase line carries its own phase_seconds).
 Then one {"kernels": [...]} line, the script's own wall ({"phase": "wall"},
@@ -335,6 +364,7 @@ then exits non-zero and prints no result. Without CUDA it exits 1 first.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
 import multiprocessing.resource_tracker
@@ -375,16 +405,21 @@ _PHASE_T = [time.perf_counter()]
 # threads a float64 reference takes in the CPU worker (CpuWorker); the
 # card's plain loops keep one core busy, the kernel build all of them
 CPU_THREADS = 3
+# the worker's processes: the phases' references, and card_paths' (about
+# 5-9 minutes of one core, card_paths_prep) beside them
+CPU_WORKERS = 2
 
 
 class CpuWorker:
-    """One spawned process that computes float64 references on the host's
-    CPU while this process drives the card: submit(fn, *args) returns a
-    future; close() waits for the process to end."""
+    """CPU_WORKERS spawned processes that compute float64 references on the
+    host's CPU while this process drives the card: submit(fn, *args)
+    returns a future, the jobs taken in the order submitted; close() waits
+    for the processes to end."""
 
     def __init__(self):
         self._pool = concurrent.futures.ProcessPoolExecutor(
-            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+            max_workers=CPU_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"))
 
     def submit(self, fn, *args):
         return self._pool.submit(fn, *args)
@@ -396,11 +431,11 @@ class CpuWorker:
         multiprocessing.resource_tracker._resource_tracker._stop()
 
 
-def cpu_decode_twin(mu, sigma, lp, y, L, H):
+def cpu_decode_twin(mu, sigma, lp, y, L, H, dtype=torch.float64):
     """fit_spiking_model_fast of an N-template model with overlaps on y
     (windows of L, halo H; None: the api's) through the plain ring engine
-    in float64 on the CPU: cli_path's seam case's twin. Returns (labels,
-    ll, seams repaired, seconds)."""
+    in float64 (or `dtype`) on the CPU: cli_path's seam case's twin. Returns
+    (labels, ll, seams repaired, seconds)."""
     from hmmspikesorter_torch.models import api
 
     torch.set_num_threads(CPU_THREADS)
@@ -408,20 +443,56 @@ def cpu_decode_twin(mu, sigma, lp, y, L, H):
     t = time.perf_counter()
     with torch.inference_mode():
         m = api.fit_spiking_model_fast(tm, y, L=L, H=H, block_engine="ring",
-                                       device="cpu", dtype=torch.float64)
+                                       device="cpu", dtype=dtype)
     return m.ml_seq, m.ll, m.seams_repaired, time.perf_counter() - t
 
 
-def cpu_tracked_twin(track, y):
+def cpu_tracked_twin(track, y, dtype=torch.float64):
     """drift_path's float64 twin on the CPU: decode_tracked of y under the
-    track through the plain versions. Returns (labels, ll, seconds)."""
+    track through the plain versions (a multichannel track and (T, C)
+    samples: decode_tracked_mc, card_paths' tracked seam repair), in
+    float64 or `dtype`. Returns (labels, ll, seams repaired, seconds)."""
     from hmmspikesorter_torch.train import adaptive as tad
 
     torch.set_num_threads(CPU_THREADS)
     t = time.perf_counter()
     with torch.inference_mode():
-        m = tad.decode_tracked(track, y, device="cpu", dtype=torch.float64)
-    return m.ml_seq, m.ll, time.perf_counter() - t
+        m = tad.decode_tracked(track, y, device="cpu", dtype=dtype)
+    return m.ml_seq, m.ll, m.seams_repaired, time.perf_counter() - t
+
+
+def cpu_mc_decode_twin(mu, sigmas, lp, yc, L, H, dtype=torch.float64):
+    """fit_spiking_model_mc_fast of a multichannel model with overlaps on
+    (T, C) samples through the plain engines in float64 (or `dtype`) on the
+    CPU (card_paths' multichannel seam repair). Returns (labels, ll, seams
+    repaired, seconds)."""
+    from hmmspikesorter_torch.models import multichannel as mcm
+
+    torch.set_num_threads(1)
+    tm = mcm.HMMTemplateModelMC(mu=mu, sigmas=sigmas, lp=lp,
+                                allow_overlaps=True)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        m = mcm.fit_spiking_model_mc_fast(tm, yc, L=L, H=H,
+                                          block_engine="ring", device="cpu",
+                                          dtype=dtype)
+    return m.ml_seq, m.ll, m.seams_repaired, time.perf_counter() - t
+
+
+def cpu_tracked_overlap_save(y, lp, mu, sigma, L, H, dtype=torch.float64):
+    """train/adaptive._tracked_overlap_save of y under per-window
+    parameters (one row a window) through the plain versions in float64
+    (or `dtype`) on the CPU (card_paths' tracked N=3 cut). Returns (labels,
+    seam flags, seconds)."""
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        x, ok = tad._tracked_overlap_save(y, lp, mu, sigma, L=L, H=H,
+                                          overlaps=True, device="cpu",
+                                          dtype=dtype)
+    return x.numpy(), ok.numpy(), time.perf_counter() - t
 
 
 def cpu_ov2_backtrace(flags, rings, xT, Km1):
@@ -453,9 +524,10 @@ def cpu_mc_posteriors(mu, sigmas, lp, yc):
     return p, time.perf_counter() - t
 
 
-def cpu_tracked_mc_posteriors(track, yc):
+def cpu_tracked_mc_posteriors(track, yc, dtype=torch.float64):
     """onset_posteriors_tracked_mc of (T, C) samples under a multichannel
-    track in float64 on the CPU (drift_path_mc's reference). Returns
+    track on the CPU, in float64 (drift_path_mc's and card_paths'
+    reference) or, as the float32 floor's witness, in float32. Returns
     (posteriors, seconds)."""
     from hmmspikesorter_torch.core import posterior as tpost
 
@@ -463,7 +535,7 @@ def cpu_tracked_mc_posteriors(track, yc):
     t = time.perf_counter()
     with torch.inference_mode():
         p = tpost.onset_posteriors_tracked_mc(track, yc, device="cpu",
-                                              dtype=torch.float64)
+                                              dtype=dtype)
     return p, time.perf_counter() - t
 
 
@@ -1168,22 +1240,36 @@ def ovn_mc_kernels(vomb, es_win, d_win, sil, c, fwd_reps, bt_reps, P):
     return row
 
 
-def config6(T, create_signal, create_spike_template, scale_end=None):
+def drop_spikes(truth, spans, K):
+    """Zero in the generator's (N, T) ring positions every spike with a
+    sample in a (lo, hi) span, all K samples of its playback
+    (data/synthetic.create_signal plays rows 0..K-1 from its onset)."""
+    for lo, hi in spans:
+        a = max(lo - K, 0)
+        for n, t0 in zip(*np.nonzero(truth[:, a:hi] == 1)):
+            truth[n, a + t0:a + t0 + K] = 0
+
+
+def config6(T, create_signal, create_spike_template, scale_end=None, K=60,
+            quiet=()):
     """BASELINE.json config 6 (benchmarks/suite.py config6): N=3 templates
-    of benchmarks/suite.py's first three shapes at K=60 seen on C=4
+    of benchmarks/suite.py's first three shapes at K=60 (or K) seen on C=4
     channels with gains 0.3 + U (default_rng(7)), noise sigma_c = 0.25 +
     0.1 U, onset probabilities (0.01, 0.005, 0.008); the spike train is the
     generator's (default_rng(1234)). scale_end: a drifting recording, each
     sample of a spike scaled by 1 + (scale_end - 1) t / T (a linear
-    amplitude ramp from 1x to scale_end x). Returns (yc (T, C) float32,
+    amplitude ramp from 1x to scale_end x). quiet: (lo, hi) spans where the
+    generator's train plays no spike (every spike with a sample there is
+    dropped whole; the noise is unchanged). Returns (yc (T, C) float32,
     truth (N, T), mu (K, N, C), sigmas (C,), lp (N,)): mu the templates at
     the start."""
-    K, N, C = 60, 3, 4
+    N, C = 3, 4
     pp = np.array([0.01, 0.005, 0.008])
     temps = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES[:3]],
                      axis=1)
     _, truth = create_signal(T, 0.0, pp, temps,
                              rng=np.random.default_rng(1234))
+    drop_spikes(truth, quiet, K)
     rng = np.random.default_rng(7)
     mu = (temps[:, :, None] * (0.3 + rng.random((N, C)))).astype(np.float32)
     sg = (0.25 + 0.1 * rng.random(C)).astype(np.float32)
@@ -2311,7 +2397,7 @@ def drift_path(dev, card, cpu, temps, lp, sigma, tiles, T=1 << 21,
     row_n3 = tracked_n3(dev)
     secs["tracked_n3"] = time.perf_counter() - t_part
     t = time.perf_counter()
-    labels64, ll64, twin_s = twin.result()
+    labels64, ll64, _, twin_s = twin.result()
     plab2, row2["plain_seconds"] = bt2_plain.result()
     row_tiles = kernel2_tiles_check(tiles)
     secs["cpu_worker_wait"] = time.perf_counter() - t
@@ -2858,7 +2944,8 @@ def dense_seams(y, temps, L, halfwidth):
     over [s - halfwidth, s + halfwidth) around every seam s = L, 2L, ...
     (tests/test_seam_repair.py's recipe, which tests/test_torch_overlap_save.py
     reuses): the combined state is never silent there, so no seam finds a
-    common silence and every one goes to seam repair."""
+    common silence and every one goes to seam repair. y (T,) with temps
+    (K, N), or (T, C) with (K, N, C): the spikes on every channel."""
     K = temps.shape[0]
     for seam in range(L, len(y) - halfwidth, L):
         for n, phase in ((0, 0), (1, K // 2)):
@@ -3182,6 +3269,644 @@ def native_parity(dev, card, tm, y, jobs, L=8192, block=2048):
     for k, lim in em_gates.items():
         check(em_errs[k] <= lim,
               f"native_parity: EM {k} {em_errs[k]} > {lim}")
+
+
+def seam_spans(T, L, halfwidth):
+    """The spans dense_seams fills: [s - halfwidth, s + halfwidth) around
+    every seam s = L, 2L, ... of T samples."""
+    return [(s - halfwidth, s + halfwidth)
+            for s in range(L, T - halfwidth, L)]
+
+
+def forced_seam_recordings(create_signal, create_spike_template, K=60,
+                           L=8192, halfwidth=600):
+    """card_paths (b)'s recordings: 4 windows of L samples whose seams all
+    find no common silence (dense_seams over +-halfwidth), at template
+    length K, each where the generator's own train is quiet
+    (drop_spikes over seam_spans): a third spike over the two forced trains
+    is more than the pair state space holds, and the decode then finds a
+    silent sample in some seams (config 6's onset rates keep a cell playing
+    most of the time). One channel: config 2's N=3 templates (its onset
+    probabilities, the train of default_rng(1234), noise sigma 0.3 of
+    default_rng(7), as config6 builds it); multichannel: config 6 (config6:
+    N=3 on C=4 channels), the spikes added on every channel. Returns ((y,
+    temps, lp, sigma), (yc, mu, sigmas, lp))."""
+    T = 4 * L
+    spans = seam_spans(T, L, halfwidth)
+    temps = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES[:3]],
+                     axis=1)
+    pp = np.array([0.003, 0.002, 0.001])
+    _, truth = create_signal(T, 0.0, pp, temps,
+                             rng=np.random.default_rng(1234))
+    drop_spikes(truth, spans, K)
+    y = 0.3 * np.random.default_rng(7).standard_normal(T)
+    for n in range(len(pp)):
+        m = truth[n] > 0
+        y[m] += temps[truth[n][m] - 1, n]
+    dense_seams(y, temps, L, halfwidth)
+    yc, _, mu, sg, lp6 = config6(T, create_signal, create_spike_template,
+                                 K=K, quiet=spans)
+    dense_seams(yc, mu, L, halfwidth)
+    return (y, temps, np.log(pp), 0.3), (yc, mu, sg, lp6)
+
+
+@contextlib.contextmanager
+def repair_log():
+    """While active, every seam-repair window decode appends (window steps,
+    seconds) to the yielded list: the factories the repairs take their
+    decoders from (parallel/seam_repair.make_window_decoder, also as
+    models/api holds it, and models/multichannel._mc_repair_decoder) are
+    wrapped, and put back on exit."""
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.parallel import seam_repair
+
+    calls = []
+
+    def logged(factory):
+        def make(*args, **kwargs):
+            decode = factory(*args, **kwargs)
+
+            def timed(y_win, silent_start):
+                t = time.perf_counter()
+                x = decode(y_win, silent_start)      # labels on the host
+                calls.append((len(y_win), time.perf_counter() - t))
+                return x
+            return timed
+        return make
+
+    sites = [(api, "make_window_decoder"),
+             (seam_repair, "make_window_decoder"),
+             (mcm, "_mc_repair_decoder")]
+    saved = [getattr(m, name) for m, name in sites]
+    for (m, name), factory in zip(sites, saved):
+        setattr(m, name, logged(factory))
+    try:
+        yield calls
+    finally:
+        for (m, name), factory in zip(sites, saved):
+            setattr(m, name, factory)
+
+
+def repair_rounds(calls):
+    """repair_log's decodes by seam: a seam's rounds widen its window, so a
+    window no wider than the one before starts the next seam. Returns
+    [{"rounds", "seconds", "window_steps"}] in seam order."""
+    seams = []
+    for steps, seconds in calls:
+        if not seams or steps <= seams[-1]["window_steps"][-1]:
+            seams.append({"rounds": 0, "seconds": 0.0, "window_steps": []})
+        seams[-1]["rounds"] += 1
+        seams[-1]["seconds"] += seconds
+        seams[-1]["window_steps"].append(steps)
+    return seams
+
+
+@contextlib.contextmanager
+def decode_times(vomb, name, forward):
+    """While active, the decode vomb.<name> (ops/viterbi_ovn_mb:
+    ovn_decode_mb, ovn_mc_decode_mb or ovn_mc_decode_mb_tracked: the forward
+    wrapper `forward`, then kernel 4 on its output) runs with a CUDA event
+    pair around each of the two wrappers, which stay in place and count
+    their own launches. Yields {wrapper name: [(start, end), ...]}; read
+    them after a synchronize (event_ms)."""
+    pairs = {forward.__name__: [], "ovn_backtrace_mb": []}
+    saved = getattr(vomb, name)
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        pairs[fn.__name__].append((start, end))
+        return out
+
+    def decode(*args):
+        packed = timed(forward, *args)
+        return timed(vomb.ovn_backtrace_mb, *packed, args[-1])
+
+    setattr(vomb, name, decode)
+    try:
+        yield pairs
+    finally:
+        setattr(vomb, name, saved)
+
+
+def event_ms(pairs):
+    """{name: {"launches", "ms_total", "ms_mean", "ms_max"}} of
+    decode_times' pairs (synchronized)."""
+    out = {}
+    for name, ev in pairs.items():
+        ms = [s.elapsed_time(e) for s, e in ev]
+        out[name] = {"launches": len(ms), "ms_total": sum(ms),
+                     "ms_mean": sum(ms) / max(len(ms), 1),
+                     "ms_max": max(ms, default=0.0)}
+    return out
+
+
+def vs_f64(x, x64, x32=None):
+    """The card's float32 labels x against the float64 labels x64 of the
+    same decode on the CPU, and x32 of the plain engines in float32 there
+    (the JAX package's association: the float32 floor's witness; None where
+    it was not computed). `ok`: x equals x64, or agrees >= 0.9999 with it
+    and has the witness's label at every sample where they differ, a
+    near-tie that float32 cannot order (ROADMAP §3), not the card's own.
+    Returns the row."""
+    x, x64 = np.asarray(x), np.asarray(x64)
+    diff = x != x64
+    agree = float(1.0 - diff.mean())
+    row = {"agreement_vs_f64": agree, "disagreements": int(diff.sum()),
+           "disagree_at": np.nonzero(diff)[0][:8].tolist(),
+           "labels_equal_f64": not diff.any(),
+           "labels_equal_f32_witness": None,
+           "witness_shares_disagreements": None}
+    if x32 is not None:
+        x32 = np.asarray(x32)
+        row["labels_equal_f32_witness"] = bool(np.array_equal(x, x32))
+        row["witness_shares_disagreements"] = bool(
+            np.array_equal(x[diff], x32[diff]))
+    row["ok"] = not diff.any() or bool(
+        row["witness_shares_disagreements"] and agree >= 0.9999)
+    return row
+
+
+def witness(prep, key, x, x64):
+    """card_paths_prep's deferred float32 witness `key` (its job's result,
+    computed now by the CPU worker) where the card's labels x differ from
+    the float64 labels x64; else None."""
+    if np.array_equal(x, x64):
+        return None
+    fn, *args = prep["later"][key]
+    return prep["cpu"].submit(fn, *args).result()
+
+
+def run_counted(wrappers, fn):
+    """fn() with the launch counts of `wrappers` set to 0 just before and
+    read just after (the card synchronized on both sides). Returns (fn's
+    value, seconds, {wrapper name: launches})."""
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            {w.__name__: w.launches for w in wrappers})
+
+
+def card_paths_prep(dev, card, cpu, K=60, sigma=0.3, T4=1 << 20, L=8192,
+                    n4_prefix=1 << 15, H6=256, halfwidth=600,
+                    T_mc=1 << 20, cut_mc=3, T3=1 << 21, cut_n3=4,
+                    chunk=32768, chunk_e=2048):
+    """card_paths' inputs and float64 references, prepared once the kernels
+    are built so that the CPU worker `cpu` computes the references while the
+    card runs the phases in between:
+      (a) N=4 (OVN_SHAPES at K, pp=(0.003, 0.002, 0.001, 0.001), T4
+          samples, default_rng(1234)); the native engine's Viterbi of its
+          first n4_prefix samples (12 bytes a sample and state: 8.3 GB at
+          S=21,123 and 2^15);
+      (b) forced_seam_recordings (4 windows of L, +-halfwidth): the float64
+          plain decodes of both (cpu_decode_twin, cpu_mc_decode_twin, halo
+          H6);
+      (c) drift_path_mc's recording (config 6, 1x -> 2x over T_mc) and its
+          track (track_drift_mc at chunk, kernels 12-13: drift_path_mc's
+          fit tracks the same, and card_paths checks they agree), cut to
+          its first cut_mc chunks with dense_seams at their seams (the
+          track's middle-chunk templates) where config 6's train is quiet
+          (forced_seam_recordings): its float64 decode_tracked_mc;
+      (d) config 2's N=3 templates on create_drifting_signal (1x -> 2x over
+          T3, default_rng(1234)) and their track (track_drift, kernels
+          5-6); the float64 _tracked_overlap_save of the first cut_n3
+          chunks under it;
+      (e) config 6 ramped 1x -> 2x over 2 chunks of chunk_e under a track
+          of each chunk's mean gain (1.25x, 1.75x): its tracked posteriors
+          (overlaps on, S=10,621) in float64 and, the float32 floor's
+          witness, in float32.
+    Emits the card_paths_prep line. Returns a dict for card_paths."""
+    import dataclasses
+
+    from hmmspikesorter_torch.data.synthetic import (create_drifting_signal,
+                                                     create_signal,
+                                                     create_signal_fast,
+                                                     create_spike_template)
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    secs, t = {}, time.perf_counter()
+    temps4 = np.stack([create_spike_template(K, *p) for p in OVN_SHAPES],
+                      axis=1)
+    pp4 = np.array([0.003, 0.002, 0.001, 0.001])
+    y4, truth4 = create_signal_fast(T4, sigma, pp4, temps4,
+                                    rng=np.random.default_rng(1234))
+    tm4 = api.HMMTemplateModel(mu=temps4, sigma=sigma, lp=np.log(pp4),
+                               allow_overlaps=True)
+    (y_s, temps3, lp3, _), (yc_s, mu6, sg6, lp6) = forced_seam_recordings(
+        create_signal, create_spike_template, K=K, L=L,
+        halfwidth=halfwidth)
+    yc_e, truth_e, mu_e, sg_e, lp_e = config6(
+        2 * chunk_e, create_signal, create_spike_template, scale_end=2.0,
+        K=K)
+    gain = np.array([1.25, 1.75])
+    tr_e = tad.DriftTrack(lp=np.tile(lp_e, (2, 1)),
+                          mu=mu_e[None] * gain[:, None, None, None],
+                          sigma=np.tile(sg_e, (2, 1)), lls=np.zeros(2),
+                          bounds=[(0, chunk_e), (chunk_e, 2 * chunk_e)],
+                          chunk=chunk_e, forget=0.3, allow_overlaps=True)
+    yc_d, _, mu_d, sg_d, lp_d = config6(T_mc, create_signal,
+                                        create_spike_template, scale_end=2.0,
+                                        K=K)
+    # (c)'s cut: the same recording with config 6's train quiet over the
+    # forced spans (forced_seam_recordings), then dense_seams there
+    Tc = cut_mc * chunk
+    yc_c = np.array(config6(T_mc, create_signal, create_spike_template,
+                            scale_end=2.0, K=K,
+                            quiet=seam_spans(Tc, chunk, halfwidth))[0][:Tc])
+    y3, truth3, _ = create_drifting_signal(T3, sigma, np.exp(lp3),
+                                           temps3, scale_start=1.0,
+                                           scale_end=2.0,
+                                           rng=np.random.default_rng(1234))
+    secs["signals"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tm_d = mcm.HMMTemplateModelMC(mu=mu_d, sigmas=sg_d, lp=lp_d,
+                                  allow_overlaps=True)
+    tr_mc = tad.track_drift_mc(tm_d, yc_d, chunk=chunk)
+    tm3 = api.HMMTemplateModel(mu=temps3, sigma=sigma, lp=lp3,
+                               allow_overlaps=True)
+    tr3 = tad.track_drift(tm3, y3, chunk=chunk)
+    torch.cuda.synchronize()
+    secs["tracks"] = time.perf_counter() - t
+    tr_c = dataclasses.replace(tr_mc, lp=tr_mc.lp[:cut_mc],
+                               mu=tr_mc.mu[:cut_mc],
+                               sigma=tr_mc.sigma[:cut_mc],
+                               lls=tr_mc.lls[:cut_mc],
+                               bounds=tr_mc.bounds[:cut_mc])
+    dense_seams(yc_c, tr_mc.mu[1], chunk, halfwidth)
+    H = max(4 * K, 64)
+    Tc = cut_n3 * chunk
+    # each label reference in float64 and, the float32 floor's witness
+    # (vs_f64), in float32: (b)'s beside it, (c)'s and (d)'s (three minutes
+    # of a core each) only where the card's labels differ from float64
+    # (witness); the longest first: the workers take the jobs in this order
+    f32 = torch.float32
+    d_args = (y3[:Tc], tr3.lp[:cut_n3], tr3.mu[:cut_n3], tr3.sigma[:cut_n3],
+              chunk, H)
+    jobs = {"d": cpu.submit(cpu_tracked_overlap_save, *d_args),
+            "c": cpu.submit(cpu_tracked_twin, tr_c, yc_c)}
+    later = {"d32": (cpu_tracked_overlap_save, *d_args, f32),
+             "c32": (cpu_tracked_twin, tr_c, yc_c, f32)}
+    for dt, tag in ((torch.float64, ""), (f32, "32")):
+        jobs["b_sc" + tag] = cpu.submit(cpu_decode_twin, temps3, sigma, lp3,
+                                        y_s, L, H6, dt)
+        jobs["b_mc" + tag] = cpu.submit(cpu_mc_decode_twin, mu6, sg6, lp6,
+                                        yc_s, L, H6, dt)
+    jobs.update({
+        "e64": cpu.submit(cpu_tracked_mc_posteriors, tr_e, yc_e),
+        "e32": cpu.submit(cpu_tracked_mc_posteriors, tr_e, yc_e, f32),
+        "a": cpu.submit(cpu_native_decode, temps4, sigma, np.log(pp4),
+                        y4[:n4_prefix])})
+    emit({"phase": "card_paths_prep", "card": card, "seconds_by_part": secs,
+          "references_on_cpu": list(jobs)})
+    return {"jobs": jobs, "later": later, "cpu": cpu, "L": L, "H6": H6,
+            "halfwidth": halfwidth, "chunk": chunk, "cut_n3": cut_n3,
+            "n4": (tm4, y4, truth4, n4_prefix),
+            "seams": ((y_s, temps3, lp3, sigma), (yc_s, mu6, sg6, lp6)),
+            "tracked_mc": (tr_mc, tr_c, yc_c),
+            "tracked_n3": (tm3, y3, truth3, tr3),
+            "posteriors_mc": (tr_e, yc_e)}
+
+
+def card_n4_cli(dev, card, prep):
+    """card_paths (a): N=4 end to end through the CLI's body
+    (cli._sort_loaded, --engine fast: kernels 3 and 4 once each on 128
+    windows of W=8672, S=21,123, int16 labels), its MAT file read back:
+    mlseq equal to unroll_mlseq of the library decode
+    (api.fit_spiking_model_fast), the ll within 1e-6 relative of a float64
+    path_cumulative_ll of those labels, onset errors against the truth
+    printed; the float32 library decode of the first n4_prefix samples
+    against the native float64 engine's Viterbi: no label differs."""
+    import scipy.io
+
+    from hmmspikesorter_torch import cli
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.core.path_score import path_cumulative_ll
+    from hmmspikesorter_torch.io.extraction import unroll_mlseq
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+
+    tm, y, truth, n_pre = prep["n4"]
+    K, N = tm.mu.shape
+    states = tm.state_space.states
+    secs = {}
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "cli_path"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / "card_paths_n4.mat")
+    wr = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+    with decode_times(vomb, "ovn_decode_mb", vomb.ovn_forward_mb) as ev:
+        out, secs["cli"], launches = run_counted(
+            wr, lambda: cli._sort_loaded(tm, y, path,
+                                         cli._options(engine="fast"),
+                                         device=dev))
+    kernels = event_ms(ev)
+    back = scipy.io.loadmat(path, squeeze_me=True)
+    lib, secs["library"], lib_launches = run_counted(
+        wr, lambda: api.fit_spiking_model_fast(tm, y))
+    ref = unroll_mlseq(lib.ml_seq, states) + 1
+    t = time.perf_counter()
+    ll64 = path_cumulative_ll(np.asarray(y, np.float64), lib.ml_seq, states,
+                              tm.mu, tm.sigma, tm.lp)
+    secs["f64_path_ll"] = time.perf_counter() - t
+    ll_rel = abs(out["ll"] - ll64) / abs(ll64)
+    errors = onset_errors(tevents._onsets_dense(lib.ml_seq, N=N, K=K,
+                                                overlaps=True), truth)
+    pre, secs["prefix_decode"], _ = run_counted(
+        wr, lambda: api.fit_spiking_model_fast(tm, y[:n_pre]))
+    t = time.perf_counter()
+    x_n, ll_n, native_s = prep["jobs"]["a"].result()
+    secs["cpu_worker_wait"] = time.perf_counter() - t
+    secs.update(native_s)
+    disagree = int((pre.ml_seq != x_n).sum())
+    T = len(y)
+    emit({"phase": "card_paths", "part": "a_n4_cli", "card": card, "N": N,
+          "K": K, "S": tm.state_space.nstates, "T": T, "L": 8192,
+          "H": max(4 * K, 64), "B": -(-T // 8192), "launches": launches,
+          "kernels3_4": kernels,
+          "library_launches": lib_launches,
+          "labels_dtype": str(lib.ml_seq.dtype),
+          "mat_mlseq_equals_library": bool(np.array_equal(back["mlseq"],
+                                                           ref)),
+          "seams_repaired": lib.seams_repaired,
+          "ll": float(out["ll"]), "ll_f64_path": ll64, "ll_rel_err": ll_rel,
+          "onset_errors": errors,
+          "onsets_true": [int((truth[n] == 1).sum()) for n in range(N)],
+          "samples_per_s_cli": T / secs["cli"],
+          "native_prefix": {"T": n_pre, "agreement": 1.0 - disagree / n_pre,
+                            "disagreements": disagree, "ll": pre.ll,
+                            "ll_native": ll_n,
+                            "ll_rel_err": abs(pre.ll - ll_n) / abs(ll_n),
+                            "seams_repaired": pre.seams_repaired,
+                            "native_device": "cpu"},
+          "seconds_by_part": secs})
+    check(launches == {"ovn_forward_mb": 1, "ovn_backtrace_mb": 1},
+          f"card_paths n4: the CLI's launches {launches}, expected one each")
+    check(set(out) == {"mlseq", "ll", "waveforms", "lp", "sigma"}
+          and out["mlseq"].shape == (N, T) and np.isfinite(out["ll"]),
+          "card_paths n4: the CLI's output malformed")
+    check(lib.ml_seq.dtype == np.int16, "card_paths n4: labels not int16")
+    check(np.array_equal(back["mlseq"], ref)
+          and np.array_equal(out["mlseq"], ref),
+          "card_paths n4: the MAT file's mlseq differs from the library "
+          "decode's")
+    check(ll_rel <= 1e-6, f"card_paths n4: ll {ll_rel} from the float64 "
+          "path score (> 1e-6)")
+    check(pre.ml_seq.shape == x_n.shape and disagree == 0,
+          f"card_paths n4: {disagree} labels of the first {n_pre} samples "
+          "differ from the native float64 engine's")
+
+
+def card_seam_repair(dev, card, prep):
+    """card_paths (b): seam repair after kernels 3-4 and after kernels 11 +
+    4 on forced_seam_recordings (4 windows of L=8192, H=256): the single
+    channel through fit_spiking_model_fast(streaming=True), config 6
+    through fit_spiking_model_mc_fast; each repairs all 3 seams with its
+    plain ring engine in float32 on the card, and its labels equal the
+    float64 plain decode's on the CPU (vs_f64). Each seam's rounds and
+    seconds (repair_log)."""
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.models import multichannel as mcm
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+
+    L, H = prep["L"], prep["H6"]
+    (y, temps, lp, sigma), (yc, mu6, sg6, lp6) = prep["seams"]
+    tm3 = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
+                               allow_overlaps=True)
+    tm6 = mcm.HMMTemplateModelMC(mu=mu6, sigmas=sg6, lp=lp6,
+                                 allow_overlaps=True)
+    runs = (("n3", "ovn_decode_mb", vomb.ovn_forward_mb, "b_sc",
+             lambda: api.fit_spiking_model_fast(tm3, y, streaming=True, L=L,
+                                                H=H)),
+            ("mc", "ovn_mc_decode_mb", vomb.ovn_mc_forward_mb, "b_mc",
+             lambda: mcm.fit_spiking_model_mc_fast(tm6, yc, L=L, H=H)))
+    rows, fails = {}, []
+    for name, decode, forward, job, fn in runs:
+        wr = (forward, vomb.ovn_backtrace_mb)
+        with repair_log() as calls, decode_times(vomb, decode,
+                                                 forward) as ev:
+            m, seconds, launches = run_counted(wr, fn)
+        t = time.perf_counter()
+        x64, ll64, rep64, s64 = prep["jobs"][job].result()
+        x32, _, _, s32 = prep["jobs"][job + "32"].result()
+        wait = time.perf_counter() - t
+        vs = vs_f64(m.ml_seq, x64, x32)
+        rows[name] = {"T": len(m.ml_seq), "S": m.template_model.state_space
+                      .nstates, "seconds": seconds, "launches": launches,
+                      "kernels": event_ms(ev),
+                      "seams": len(m.seam_ok), "seams_repaired":
+                      m.seams_repaired, "seams_repaired_f64": rep64,
+                      "repairs": repair_rounds(calls), **vs,
+                      "ll": m.ll, "ll_f64": ll64, "f64_seconds": s64,
+                      "f32_witness_seconds": s32, "f64_device": "cpu",
+                      "cpu_worker_wait": wait}
+        if set(launches.values()) != {1}:
+            fails.append(f"{name}: launches {launches}, expected one each")
+        if m.seams_repaired != 3 or rep64 != 3:
+            fails.append(f"{name}: seams repaired {m.seams_repaired} "
+                         f"(float64 {rep64}), expected 3")
+        if not vs["ok"]:
+            fails.append(f"{name}: repaired labels differ from the float64 "
+                         "plain decode's beyond the float32 witness's")
+    emit({"phase": "card_paths", "part": "b_seam_repair", "card": card,
+          "L": L, "H": H, "halfwidth": prep["halfwidth"], **rows})
+    check(not fails, "card_paths seam repair: " + "; ".join(fails))
+
+
+def card_tracked_mc_repair(dev, card, prep, mc_track):
+    """card_paths (c): the first 3 chunks of drift_path_mc's recording under
+    its track, both seams forced (card_paths_prep), through
+    decode_tracked_mc with repair on (kernel 11's per-window mode and kernel
+    4 once each, then each seam re-decoded with its left chunk's model by
+    the plain MC ring engine in float32): 2 seams repaired, the labels
+    equal to the same cut's float64 decode on the CPU (vs_f64); the track
+    equal to the one drift_path_mc fitted."""
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    tr_full, tr, yc = prep["tracked_mc"]
+    same_track = all(np.array_equal(getattr(tr_full, f), getattr(mc_track, f))
+                     for f in ("lp", "mu", "sigma"))
+    wr = (vomb.ovn_mc_forward_mb_tracked, vomb.ovn_backtrace_mb)
+    with repair_log() as calls, decode_times(
+            vomb, "ovn_mc_decode_mb_tracked", wr[0]) as ev:
+        m, seconds, launches = run_counted(
+            wr, lambda: tad.decode_tracked_mc(tr, yc))
+    t = time.perf_counter()
+    x64, ll64, rep64, s64 = prep["jobs"]["c"].result()
+    w32 = witness(prep, "c32", m.ml_seq, x64)
+    wait = time.perf_counter() - t
+    vs = vs_f64(m.ml_seq, x64, w32 and w32[0])
+    emit({"phase": "card_paths", "part": "c_tracked_mc_repair", "card": card,
+          "T": len(yc), "chunk": tr.chunk, "windows": tr.n_chunks,
+          "S": m.template_model.state_space.nstates, "seconds": seconds,
+          "launches": launches, "kernels": event_ms(ev),
+          "seams_repaired": m.seams_repaired,
+          "seams_repaired_f64": rep64, "repairs": repair_rounds(calls),
+          **vs, "ll": m.ll, "ll_f64": ll64, "f64_seconds": s64,
+          "f32_witness_seconds": w32 and w32[-1], "f64_device": "cpu",
+          "cpu_worker_wait": wait,
+          "track_equals_drift_path_mc": same_track})
+    check(same_track, "card_paths tracked MC: the track differs from "
+          "drift_path_mc's")
+    check(launches == {"ovn_mc_forward_mb_tracked": 1,
+                       "ovn_backtrace_mb": 1},
+          f"card_paths tracked MC: launches {launches}")
+    check(m.seams_repaired == 2 and rep64 == 2,
+          f"card_paths tracked MC: seams repaired {m.seams_repaired} "
+          f"(float64 {rep64}), expected 2")
+    check(vs["ok"], "card_paths tracked MC: repaired labels differ from the "
+          "float64 decode's beyond the float32 witness's")
+
+
+def card_tracked_n3(dev, card, prep):
+    """card_paths (d): fit_spiking_model_adaptive of config 2's N=3
+    templates on the 1x -> 2x drifting recording (T=2^21, chunk 32768):
+    kernels 5-6 in the tracking (the track equal to card_paths_prep's), then
+    kernels 3 and 4 once each a window (64 windows of W=33,248), each
+    launch timed by CUDA events; the decode and the host piecewise ll timed
+    apart; onset errors of the tracked and of a stationary decode (the
+    tracked below); the first cut_n3 chunks decoded again on the card at
+    that length, their labels equal to the float64 _tracked_overlap_save
+    of the same cut on the CPU (vs_f64)."""
+    from hmmspikesorter_torch.core import events as tevents
+    from hmmspikesorter_torch.models import api
+    from hmmspikesorter_torch.ops import fb_mb
+    from hmmspikesorter_torch.ops import viterbi_ovn_mb as vomb
+    from hmmspikesorter_torch.train import adaptive as tad
+
+    tm, y, truth, tr0 = prep["tracked_n3"]
+    K, N = tm.mu.shape
+    chunk, n_cut = prep["chunk"], prep["cut_n3"]
+    H = max(4 * K, 64)
+    secs = {}
+    wr = (fb_mb.em_forward_mb, fb_mb.em_backward_mb, vomb.ovn_forward_mb,
+          vomb.ovn_backtrace_mb)
+    with decode_times(vomb, "ovn_decode_mb", vomb.ovn_forward_mb) as ev:
+        m, secs["fit"], launches = run_counted(
+            wr, lambda: api.fit_spiking_model_adaptive(tm, y, chunk=chunk))
+    kernels = event_ms(ev)
+    tr = m.track
+    same_track = all(np.array_equal(getattr(tr, f), getattr(tr0, f))
+                     for f in ("lp", "mu", "sigma"))
+    m2, secs["decode"], _ = run_counted((), lambda: tad.decode_tracked(tr, y))
+    t = time.perf_counter()
+    tad._piecewise_path_ll(y, m2.ml_seq, tr, tm.state_space)
+    secs["host_ll"] = time.perf_counter() - t
+    stat = api.fit_spiking_model_fast(tm, y)
+    e_tracked = onset_errors(m.spike_onsets, truth)
+    e_static = onset_errors(tevents._onsets_dense(stat.ml_seq, N=N, K=K,
+                                                  overlaps=True), truth)
+    Tc = n_cut * chunk
+    (x_cut, _), secs["cut_decode"], cut_launches = run_counted(
+        wr[2:], lambda: tad._tracked_overlap_save(
+            y[:Tc], tr.lp[:n_cut], tr.mu[:n_cut], tr.sigma[:n_cut], L=chunk,
+            H=H, overlaps=True, device=dev, dtype=torch.float32))
+    x_cut = x_cut.cpu().numpy()
+    t = time.perf_counter()
+    x64, ok64, s64 = prep["jobs"]["d"].result()
+    w32 = witness(prep, "d32", x_cut, x64)
+    secs["cpu_worker_wait"] = time.perf_counter() - t
+    vs = vs_f64(x_cut, x64, w32 and w32[0])
+    B = tr.n_chunks
+    emit({"phase": "card_paths", "part": "d_tracked_n3", "card": card,
+          "N": N, "K": K, "S": tm.state_space.nstates, "T": len(y),
+          "chunk": chunk, "B": B, "W": chunk + 2 * H,
+          "fit_launches": launches, "kernels3_4": kernels,
+          "decode_seconds": secs["decode"],
+          "decode_host_ll_seconds": secs["host_ll"],
+          "samples_per_s": len(y) / secs["fit"],
+          "track_equals_prep": same_track,
+          "onset_errors_tracked": e_tracked,
+          "onset_errors_stationary": e_static,
+          "onsets_true": [int((truth[n] == 1).sum()) for n in range(N)],
+          "seams_repaired": m.seams_repaired, "ll": m.ll,
+          "amplitude_first_last": [float(np.abs(tr.mu[0]).max()),
+                                   float(np.abs(tr.mu[-1]).max())],
+          "cut": {"T": Tc, "windows": n_cut, "launches": cut_launches,
+                  **vs, "seams_ok_f64": ok64.tolist(), "f64_seconds": s64,
+                  "f32_witness_seconds": w32 and w32[-1],
+                  "f64_device": "cpu"},
+          "seconds_by_part": secs})
+    check(m.ml_seq.shape == (len(y),) and np.isfinite(m.ll),
+          "card_paths tracked N=3: output malformed")
+    check(same_track, "card_paths tracked N=3: the fit's track differs from "
+          "the same tracking run before")
+    check(launches["ovn_forward_mb"] == B
+          and launches["ovn_backtrace_mb"] == B
+          and kernels["ovn_forward_mb"]["launches"] == B,
+          f"card_paths tracked N=3: launches {launches}, expected {B} of "
+          "kernels 3 and 4")
+    check(launches["em_forward_mb"] >= B and launches["em_backward_mb"] >= B,
+          f"card_paths tracked N=3: the tracking did not run kernels 5-6 "
+          f"on every chunk {launches}")
+    check(e_tracked < e_static, f"card_paths tracked N=3: tracked onset "
+          f"errors {e_tracked} not below the stationary decode's {e_static}")
+    check(cut_launches == {"ovn_forward_mb": n_cut,
+                           "ovn_backtrace_mb": n_cut},
+          f"card_paths tracked N=3: the cut's launches {cut_launches}")
+    check(vs["ok"], f"card_paths tracked N=3: the cut's labels differ from "
+          f"the float64 decode's beyond the float32 witness's {vs}")
+
+
+def card_tracked_mc_posteriors(dev, card, prep):
+    """card_paths (e): onset_posteriors_tracked_mc of config 6 with overlaps
+    on (S=10,621) over 2 owner chunks of 2048 (L=2048, W=2528, H=240) under
+    a drifting track: the plain engines in float32 on the card, within the
+    float32 floor of the float64 run on the CPU (3x the plain float32
+    engines' own error there, the witness, at least 1e-4, at most 1e-3);
+    the seconds a step (a forward and a backward step over each window)."""
+    from hmmspikesorter_torch.core import posterior as tpost
+    from hmmspikesorter_torch.ops import gamma_mb
+
+    tr, yc = prep["posteriors_mc"]
+    wr = (gamma_mb.gamma_fwd_mb_mc, gamma_mb.gamma_bwd_mb_mc)
+    p32, seconds, launches = run_counted(
+        wr, lambda: tpost.onset_posteriors_tracked_mc(tr, yc))
+    t = time.perf_counter()
+    p64, s64 = prep["jobs"]["e64"].result()
+    w32, w32_s = prep["jobs"]["e32"].result()
+    wait = time.perf_counter() - t
+    err = float(np.abs(p32 - p64).max())
+    witness = float(np.abs(w32 - p64).max())
+    tol = min(1e-3, max(1e-4, 3 * witness))
+    K = tr.mu.shape[1]
+    H = max(4 * K, 64)
+    W = tr.chunk + 2 * H
+    steps = 2 * W * tr.n_chunks
+    emit({"phase": "card_paths", "part": "e_tracked_mc_posteriors",
+          "card": card, "T": len(yc), "chunk": tr.chunk, "L": tr.chunk,
+          "H": H, "W": W, "windows": tr.n_chunks,
+          "S": tr.model_at(0).state_space.nstates, "launches": launches,
+          "seconds": seconds, "steps": steps,
+          "seconds_per_step": seconds / steps,
+          "max_abs_err_vs_f64": err,
+          "plain_f32_cpu_max_abs_err_vs_f64": witness, "tolerance": tol,
+          "expected_onsets": p32.sum(axis=0).tolist(),
+          "f64_seconds": s64, "f32_witness_seconds": w32_s,
+          "f64_device": "cpu", "cpu_worker_wait": wait})
+    check(p32.shape == p64.shape and np.isfinite(p32).all(),
+          "card_paths tracked MC posteriors: output malformed")
+    check(err <= tol, f"card_paths tracked MC posteriors: {err} from the "
+          f"float64 run (> {tol})")
+
+
+def card_paths(dev, card, prep, mc_track):
+    """The card_paths phase: parts (a)-(e) on card_paths_prep's inputs,
+    each printing its own line (`part`) with its checks."""
+    card_n4_cli(dev, card, prep)
+    card_seam_repair(dev, card, prep)
+    card_tracked_mc_repair(dev, card, prep, mc_track)
+    card_tracked_n3(dev, card, prep)
+    card_tracked_mc_posteriors(dev, card, prep)
 
 
 def union_share(events, t0, t1):
@@ -3637,6 +4362,9 @@ def main():
           "ptxas": {k: [ln for ln in v["ptxas"].splitlines()
                         if "Used" in ln or "spill" in ln]
                     for k, v in built.items()}})
+    # card_paths' inputs and tracks (kernels 5-6 and 12-13), its float64
+    # references handed to the CPU worker now: they are ready by the phase
+    paths = card_paths_prep(dev, card, cpu)
 
     # ---- kernels 1-2 vs their plain versions at the main path's shapes --
     fwd = lambda: vmb.ov2_forward_mb(y_win, sil, c)          # noqa: E731
@@ -4219,6 +4947,7 @@ def main():
                         (mc["config6"], mc["decoded"]), drift["cli"])
     cli_path(dev, card, cpu, (tm, y, decoded_n2, temps), mc["config6"],
              drift["cli"], rows2, mc_drift["cli"])
+    card_paths(dev, card, paths, mc_drift["cli"][2].track)
     cpu.close()
     sharded_launches = sharded_path(dev, card)
     # last of the phases: a profiler session may leave the host's launches

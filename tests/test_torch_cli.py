@@ -104,13 +104,18 @@ def _write_mc_inputs(tmp_path, T=6000, K=12, sig=0.25):
     return tfile, dfile
 
 
-@pytest.mark.parametrize("engine", ["reference", "fast"])
-def test_decode_matches_jax(tmp_path, engine):
+@pytest.mark.parametrize("engine,n,K", [
+    pytest.param("reference", 2, 20, id="reference"),
+    pytest.param("fast", 2, 20, id="fast"),
+    pytest.param("fast", 4, 12, id="fast-n4")])
+def test_decode_matches_jax(tmp_path, engine, n, K):
     """N=2 with overlaps, the reference chunked decode and the fast
-    overlap-save decode."""
-    tfile, dfile, *_ = _write_inputs(tmp_path, T=4096)
+    overlap-save decode; and N=4, the most templates the CLI takes
+    (MAX_TEMPLATES), through the fast decode."""
+    tfile, dfile, *_ = _write_inputs(tmp_path, K=K, T=4096, n_templates=n)
     got, ref = _both(tmp_path, tfile, dfile, engine=engine, chunksize=1500)
     assert set(got) == {"mlseq", "ll", "waveforms", "lp", "sigma"}
+    assert got["mlseq"].shape == (n, 4096)
     _same_mat(got, ref)
 
 

@@ -1919,3 +1919,68 @@ def test_streaming_event_spec_equals_dense_streaming(cuda):
         np.testing.assert_array_equal(ev.ml_seq, de.ml_seq)
         np.testing.assert_array_equal(ev.seam_ok, de.seam_ok)
         assert ev.ll == de.ll and len(ev.spike_onsets) == N
+
+
+def test_n4_library_decode_equals_f64_twin(cuda):
+    """N=4, the most templates the CLI takes, at K=40 (S=9283): the library
+    decode of 4 windows of 2048 through kernels 3 and 4 (one launch each)
+    gives its float64 plain twin's labels on the card."""
+    K, L = 40, 2048
+    temps = np.stack([create_spike_template(K, *p) for p in PARAMS], axis=1)
+    pp = (0.004, 0.003, 0.002, 0.002)
+    y, _ = create_signal_fast(4 * L, 0.3, pp, temps,
+                              rng=np.random.default_rng(44))
+    tm = api.HMMTemplateModel(mu=temps, sigma=0.3, lp=np.log(pp),
+                              allow_overlaps=True)
+    wr = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+    before = [w.launches for w in wr]
+    m = api.fit_spiking_model_fast(tm, y, L=L)
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+    f64 = api.fit_spiking_model_fast(tm, y, L=L, block_engine="ring",
+                                     dtype=torch.float64)
+    assert m.ml_seq.dtype == np.int16
+    np.testing.assert_array_equal(m.ml_seq, f64.ml_seq)
+
+
+@pytest.mark.parametrize("recipe", ["n3", "config6"])
+def test_forced_seam_repair_matches_plain_twins(cuda, recipe):
+    """chip_smoke.forced_seam_recordings at K=30 (4 windows of 2048, H=120,
+    +-280 samples forced): the decode through kernels 3-4 (one channel) or
+    11 + 4 (config 6), one launch each, repairs all three seams with the
+    plain ring engine in float32; its labels equal the float32 plain
+    decode's everywhere and the float64 plain decode's but where float32
+    cannot order a near-tie (the forced silent start's first sample at N=3,
+    ROADMAP §3), all on the card."""
+    import chip_smoke
+    from hmmspikesorter_torch.data.synthetic import create_signal
+    from hmmspikesorter_torch.models import multichannel as mcm
+
+    K, L = 30, 2048
+    sc, mc = chip_smoke.forced_seam_recordings(
+        create_signal, create_spike_template, K=K, L=L, halfwidth=280)
+    if recipe == "n3":
+        y, temps, lp, sigma = sc
+        tm = api.HMMTemplateModel(mu=temps, sigma=sigma, lp=lp,
+                                  allow_overlaps=True)
+        wr = (vomb.ovn_forward_mb, vomb.ovn_backtrace_mb)
+
+        def fit(**kw):
+            return api.fit_spiking_model_fast(tm, y, L=L, streaming=True,
+                                              **kw)
+    else:
+        yc, mu, sigmas, lp = mc
+        tm = mcm.HMMTemplateModelMC(mu=mu, sigmas=sigmas, lp=lp,
+                                    allow_overlaps=True)
+        wr = (vomb.ovn_mc_forward_mb, vomb.ovn_backtrace_mb)
+
+        def fit(**kw):
+            return mcm.fit_spiking_model_mc_fast(tm, yc, L=L, **kw)
+
+    before = [w.launches for w in wr]
+    m = fit()
+    assert [w.launches - n for w, n in zip(wr, before)] == [1, 1]
+    f32 = fit(block_engine="ring")
+    f64 = fit(block_engine="ring", dtype=torch.float64)
+    assert m.seams_repaired == f32.seams_repaired == f64.seams_repaired == 3
+    np.testing.assert_array_equal(m.ml_seq, f32.ml_seq)
+    np.testing.assert_array_equal(m.ml_seq[1:], f64.ml_seq[1:])

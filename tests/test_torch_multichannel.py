@@ -194,3 +194,50 @@ def test_path_score_gives_the_engine_ll(N, overlaps):
     score = path_cumulative_ll_mc(yc, x.numpy(), tt.state_space.states, mu,
                                   sigmas, lp)
     assert abs(score - float(ll)) <= 1e-9 * abs(float(ll))
+
+
+@pytest.mark.parametrize("recipe", ["n3", "config6"])
+def test_forced_seam_recordings_flag_every_seam(recipe):
+    """chip_smoke.forced_seam_recordings, the recordings of the card's
+    forced seam repairs, at a small size (K=16, 4 windows of 512, H=64,
+    +-150 samples forced): config 2's N=3 templates on one channel and
+    config 6 on four. No seam finds a common silence (seam_ok all false)
+    in the port on the CPU nor in the JAX package; both repair the three
+    seams to the same labels, and chip_smoke.repair_log sees the three
+    repairs."""
+    import chip_smoke
+    from hmmspikesorter_torch.data import synthetic as tsyn
+    from hmmspikesorter_torch.models import api as tapi
+    from hmmspikesorter_tpu.models import api as japi
+    from tests.torch_port import model_pair
+
+    Ls, Hs = 512, 64
+    sc, mc = chip_smoke.forced_seam_recordings(
+        tsyn.create_signal, tsyn.create_spike_template, K=16, L=Ls,
+        halfwidth=150)
+    if recipe == "n3":
+        y, temps, lp, sigma = sc
+        tj, tt = model_pair(temps, sigma, lp, True)
+
+        def fit(**kw):
+            return (japi.fit_spiking_model_fast(tj, y, L=Ls, H=Hs, **kw),
+                    tapi.fit_spiking_model_fast(tt, y, L=Ls, H=Hs, **kw,
+                                                **CPU))
+    else:
+        yc, mu, sigmas, lp = mc
+        tj, tt = pair(mu, sigmas, lp, True)
+
+        def fit(**kw):
+            return (jmc.fit_spiking_model_mc_fast(tj, yc, L=Ls, H=Hs, **kw),
+                    tmc.fit_spiking_model_mc_fast(tt, yc, L=Ls, H=Hs, **kw,
+                                                  **CPU))
+
+    raw_j, raw_t = fit(repair=False)
+    np.testing.assert_array_equal(raw_t.seam_ok, np.asarray(raw_j.seam_ok))
+    assert raw_t.seam_ok.shape == (3,) and not raw_t.seam_ok.any()
+    with chip_smoke.repair_log() as calls:
+        mj, mt = fit()
+    same(mt, mj)
+    assert mt.seams_repaired == mj.seams_repaired == 3
+    seams = chip_smoke.repair_rounds(calls)
+    assert len(seams) == 3 and all(s["rounds"] >= 2 for s in seams)

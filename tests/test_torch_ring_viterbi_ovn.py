@@ -85,3 +85,34 @@ def test_emission_matches_jax_sc_em_ovn():
             # log(sigma): ulp-level differences between the libraries
             np.testing.assert_allclose(a[b].numpy(), np.asarray(r),
                                        rtol=1e-14, atol=1e-12)
+
+
+@pytest.mark.parametrize("K,L,halfwidth", [(16, 512, 150), (30, 2048, 280)])
+def test_float32_start_near_tie_matches_jax(K, L, halfwidth):
+    """The float32 floor the card's forced seam repair met (chip_smoke's
+    card_paths, part b): at the forced silent start the first sample has an
+    emission-only score, and there a lone ring position and the pair that
+    adds a second neuron at its last position (a template tail near 0)
+    score within float32's resolution of each other. On the one-channel
+    recording of chip_smoke.forced_seam_recordings (config 2's N=3
+    templates) float64 takes the pair and float32 the lone position, in
+    both packages alike; every later label agrees."""
+    import chip_smoke
+    from hmmspikesorter_torch.data import synthetic as tsyn
+
+    (y, temps, lp, sigma), _ = chip_smoke.forced_seam_recordings(
+        tsyn.create_signal, tsyn.create_spike_template, K=K, L=L,
+        halfwidth=halfwidth)
+    y = y[:256]
+    out = {}
+    for dt in (np.float64, np.float32):
+        xj, _ = jrvo.ring_viterbi_ovn(jnp.asarray(y, dt), jnp.asarray(lp, dt),
+                                      jnp.asarray(temps, dt), dt(sigma))
+        x, _ = trvo.ring_viterbi_ovn(torch.as_tensor(y.astype(dt)), lp,
+                                     torch.as_tensor(temps.astype(dt)),
+                                     sigma)
+        np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+        out[dt] = x.numpy()
+    first_pair = 1 + temps.shape[1] * (K - 1)
+    assert out[np.float64][0] >= first_pair > out[np.float32][0] > 0
+    np.testing.assert_array_equal(out[np.float32][1:], out[np.float64][1:])
